@@ -1,0 +1,133 @@
+// K4 chol_small: batched Cholesky factor, solve, inverse and log-determinant
+// of small SPD matrices, one matrix per variant.
+//
+// Replaces (plink_tpu/ops/glm.py) `_chol_small` (:125), `_chol_solve_small`
+// (:154), `_chol_inv_small` (:173), hence `_solve_psd` / `_inv_psd`
+// (:221-239), and the Cholesky log-determinant of `_firth_core` (:537-542).
+// Same arithmetic order as `_chol_small`.  A row whose pivot is not > 0 (not
+// positive definite, or NaN input) yields NaN in every requested output, as
+// the unrolled JAX factor and LAPACK's failed potrf do; the IRLS callers
+// detect failure from that NaN.
+//
+// Bound: latency.  ~d^3/2 flops per matrix (1.5 MFLOP for 2,048 matrices of
+// d = 13), far below any throughput limit; the card is mostly idle for the
+// few microseconds it runs.  Design: one thread per matrix, the factor and
+// its inverse in per-thread (local) arrays sized by a compile-time bound on
+// d, no shared memory and no synchronisation.
+#include "common.cuh"
+
+namespace {
+
+template <int MAXD>
+__global__ void chol_small_kernel(const float* __restrict__ h, int vb, int d,
+                                  const float* __restrict__ rhs,
+                                  float* __restrict__ x,
+                                  float* __restrict__ inv,
+                                  float* __restrict__ logdet) {
+  constexpr int T = MAXD * (MAXD + 1) / 2;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= vb) return;
+  const float* a = h + static_cast<int64_t>(v) * d * d;
+  float L[T];  // lower triangle, row-major: (i, j) at i(i+1)/2 + j
+  bool ok = true;
+  for (int j = 0; j < d && ok; ++j) {
+    const int jj = j * (j + 1) / 2;
+    float s = a[j * d + j];
+    for (int k = 0; k < j; ++k) s -= L[jj + k] * L[jj + k];
+    if (!(s > 0.f)) {
+      ok = false;
+      break;
+    }
+    const float ljj = sqrtf(s);
+    L[jj + j] = ljj;
+    const float rinv = 1.f / ljj;
+    for (int i = j + 1; i < d; ++i) {
+      const int ii = i * (i + 1) / 2;
+      float t = a[i * d + j];
+      for (int k = 0; k < j; ++k) t -= L[ii + k] * L[jj + k];
+      L[ii + j] = t * rinv;
+    }
+  }
+  const float nan = __int_as_float(0x7fc00000);
+  if (logdet) {
+    float s = 0.f;
+    if (ok)
+      for (int j = 0; j < d; ++j) s += logf(L[j * (j + 1) / 2 + j]);
+    logdet[v] = ok ? 2.f * s : nan;
+  }
+  if (x) {
+    float* xo = x + static_cast<int64_t>(v) * d;
+    if (!ok) {
+      for (int i = 0; i < d; ++i) xo[i] = nan;
+    } else {
+      const float* g = rhs + static_cast<int64_t>(v) * d;
+      float y[MAXD];
+      for (int i = 0; i < d; ++i) {
+        const int ii = i * (i + 1) / 2;
+        float s = g[i];
+        for (int k = 0; k < i; ++k) s -= L[ii + k] * y[k];
+        y[i] = s / L[ii + i];
+      }
+      for (int i = d - 1; i >= 0; --i) {
+        float s = y[i];
+        for (int k = i + 1; k < d; ++k) s -= L[k * (k + 1) / 2 + i] * y[k];
+        y[i] = s / L[i * (i + 1) / 2 + i];  // y[k > i] already hold x
+      }
+      for (int i = 0; i < d; ++i) xo[i] = y[i];
+    }
+  }
+  if (inv) {
+    float* io = inv + static_cast<int64_t>(v) * d * d;
+    if (!ok) {
+      for (int i = 0; i < d * d; ++i) io[i] = nan;
+      return;
+    }
+    float M[T];  // L^-1, lower triangle
+    for (int j = 0; j < d; ++j) {
+      M[j * (j + 1) / 2 + j] = 1.f / L[j * (j + 1) / 2 + j];
+      for (int i = j + 1; i < d; ++i) {
+        const int ii = i * (i + 1) / 2;
+        float s = 0.f;
+        for (int k = j; k < i; ++k) s += L[ii + k] * M[k * (k + 1) / 2 + j];
+        M[ii + j] = -s / L[ii + i];
+      }
+    }
+    for (int i = 0; i < d; ++i)
+      for (int j = 0; j <= i; ++j) {
+        float s = 0.f;
+        for (int k = i; k < d; ++k) {
+          const int kk = k * (k + 1) / 2;
+          s += M[kk + i] * M[kk + j];
+        }
+        io[i * d + j] = s;
+        io[j * d + i] = s;
+      }
+  }
+}
+
+template <int MAXD>
+cudaError_t launch_chol(const float* h, int vb, int d, const float* rhs,
+                        float* x, float* inv, float* logdet,
+                        cudaStream_t stream) {
+  const int threads = 64;
+  chol_small_kernel<MAXD><<<(vb + threads - 1) / threads, threads, 0, stream>>>(
+      h, vb, d, rhs, x, inv, logdet);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// h [vb, d, d] f32.  Each output is written when its pointer is not null:
+// x [vb, d] = h^-1 rhs (rhs [vb, d]), inv [vb, d, d], logdet [vb].
+PT_EXPORT int pt_chol_small(const void* h, int vb, int d, const void* rhs,
+                            void* x, void* inv, void* logdet, void* stream) {
+  if (d < 1 || d > 48 || (x && !rhs)) return cudaErrorInvalidValue;
+  const float* hp = static_cast<const float*>(h);
+  const float* rp = static_cast<const float*>(rhs);
+  float* xp = static_cast<float*>(x);
+  float* ip = static_cast<float*>(inv);
+  float* lp = static_cast<float*>(logdet);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 16) return launch_chol<16>(hp, vb, d, rp, xp, ip, lp, s);
+  return launch_chol<48>(hp, vb, d, rp, xp, ip, lp, s);
+}
