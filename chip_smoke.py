@@ -8,17 +8,24 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which raises on failure (nothing is caught):
   1. card report: name and power limit, torch / CUDA versions, TF32 off;
   2. build: every kernel under plink_torch/csrc with nvcc (in parallel);
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     the main path's shapes (500,000 samples, d = 13), with its time, the
-     plain version's time, one library call's time and the card's bound;
-  4. main path: `--pfile P --glm hide-covar --covar P.cov` through
+  3. kernels: each kernel (K1-K6) against its plain PyTorch version on the
+     card, at the main paths' shapes (500,000 samples, d = 13), with its
+     time, the plain version's time, one library call's time and the card's
+     bound;
+  4. logistic main path: `--pfile P --glm hide-covar --covar P.cov` through
      plink_torch.cli.main on a 500,000-sample x 4,096-variant panel
-     (`--variants 16384`: the headline); every kernel must have launched,
-     and the report must equal plink2's; then once more under
-     torch.profiler for the card's busy share;
-  5. parity: a 2,000 x 1,200 panel through the port on the card and on the
-     CPU (plain versions), hybrid and firth, compared column by column; two
-     card runs must give identical bytes.
+     (`--variants 16384`: the headline); K1-K4 must have launched, and the
+     report must equal plink2's; then once more under torch.profiler for
+     the card's busy share;
+  5. QC + linear path: `--mind --freq --geno-counts --missing --hardy
+     --geno --hwe --maf --glm hide-covar` on a Gaussian QT1 of the same
+     panel; K1, K5 and K6 must have launched and every filter must have
+     removed something; the integer reports must equal a CPU run's byte for
+     byte, and 64 report rows must agree with a numpy f64 least-squares
+     fit; then once more under torch.profiler;
+  6. parity: a 2,000 x 1,200 panel through the port on the card and on the
+     CPU (plain versions), hybrid, firth and QC + linear, compared column by
+     column; two card runs must give identical bytes.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
@@ -28,6 +35,7 @@ without the plink_torch package beside this script.
 from __future__ import annotations
 
 import argparse
+import filecmp
 import gzip
 import json
 import math
@@ -55,7 +63,19 @@ TOL_VS_F64 = 2e-5  # the kernel sums <= 2,048-sample runs in f32 (drift ~5e-6)
 # and adds the runs in f64; held against the plain version run in f64
 TOL_LOGLIK = 1e-6  # relative; f32 per-sample terms summed in f64 on both sides
 TOL_CHOL = 1e-3  # relative to the row's largest entry; cond(H) * f32 eps
-GLM_FLOAT_RTOL = 1e-3  # report columns OR / SE / Z / P (bench.py's rule)
+GLM_FLOAT_RTOL = 1e-3  # report columns OR / BETA / SE / Z / T / P (bench.py's rule)
+# QC thresholds of phase 5, chosen so that every filter removes something on
+# the panel (iid genotypes, 2% missing calls, allele frequencies U(0, 1)):
+# --mind 0.028 is ~3.7 sd above a sample's mean missing rate over 4,096
+# variants, --geno 0.0204 ~2 sd above a variant's over 500,000 samples,
+# --hwe 1e-2 removes ~1% of variants in HWE, --maf 0.05 ~10%
+QC_FLAGS = ["--mind", "0.028", "--freq", "--geno-counts", "--missing",
+            "--hardy", "--geno", "0.0204", "--hwe", "1e-2", "--maf", "0.05"]
+QC_REPORTS = (".afreq", ".gcount", ".vmiss", ".smiss", ".hardy")
+QC_REMOVALS = ("(--mind)", "(--geno)", "Hardy-Weinberg", "allele frequency")
+N_OLS_ROWS = 64  # .glm.linear rows checked against numpy's f64 fit
+LOGISTIC_KERNELS = ("geno_counts", "glm_moments", "glm_irls", "chol_small")
+QC_KERNELS = ("geno_counts", "sample_counts", "linear_sums")
 # plink2's own report on the headline 500,000 x 16,384 panel (the panel
 # generator is counter-based, so its first rows are a smaller panel's rows),
 # kept as gzip because the card's machine has no zstandard: `--write-golden`
@@ -64,8 +84,15 @@ GOLDEN_SRC = os.path.join(HERE, "bench_golden",
                           "o_glm.PHENO1.glm.logistic.hybrid.zst")
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg=""):
     print(msg, flush=True)
+
+
+def stamp(label):
+    log(f"[{time.perf_counter() - _T0:.0f}s] {label}")
 
 
 def card_report(torch):
@@ -150,10 +177,26 @@ def mat_scale(torch, m):
 
 
 def make_panel(prefix, n, m, seed):
+    """The panel, its SEX + 10 PCs covariates (seed + 1) and <prefix>.qt,
+    one Gaussian phenotype QT1 drawn with numpy (seed + 2)."""
+    import numpy as np
+
     from plink_torch.bench_gen import gen_panel, make_cov
 
     gen_panel(prefix, n, m, miss_rate=0.02, seed=seed)
     make_cov(prefix, seed + 1)
+    qt = np.random.default_rng(seed + 2).normal(size=n)
+    with open(prefix + ".qt", "w") as f:
+        f.write("#IID\tQT1\n")
+        f.writelines(f"per{i}\t{v:.6f}\n" for i, v in enumerate(qt))
+
+
+def qc_argv(prefix, out, glm=True):
+    """The QC + linear path's argv (without --glm: its integer reports)."""
+    return (["--pfile", prefix, "--pheno", prefix + ".qt", "--pheno-name",
+             "QT1", "--covar", prefix + ".cov", *QC_FLAGS]
+            + (["--glm", "hide-covar"] if glm else [])
+            + ["--out", out, "--silent"])
 
 
 def main_path_inputs(torch, prefix, dev):
@@ -184,6 +227,25 @@ def main_path_inputs(torch, prefix, dev):
             torch.from_numpy(masks).to(dev))
 
 
+def unpack_codes(packed):
+    from plink_torch.ops.planes import unpack_codes as unpack
+
+    return unpack(packed)
+
+
+def bf16_planes(torch, packed, fns, step=1024):
+    """[len(fns) * V, 4 * NB] bf16 planes fn(codes) of packed [V, NB],
+    decoded in row chunks (a library call's input; no large temporaries)."""
+    V = packed.shape[0]
+    out = torch.empty((len(fns) * V, 4 * packed.shape[1]), dtype=torch.bfloat16,
+                      device=packed.device)
+    for r0 in range(0, V, step):
+        codes = unpack_codes(packed[r0 : r0 + step])
+        for i, fn in enumerate(fns):
+            out[i * V + r0 : i * V + r0 + codes.shape[0]] = fn(codes)
+    return out
+
+
 def check_kernels(torch, dev, prefix):
     from plink_torch.ops import counts as C
     from plink_torch.ops import glm as G
@@ -204,14 +266,21 @@ def check_kernels(torch, dev, prefix):
     assert err1 == 0, f"geno_counts differs from its plain version by {err1}"
     ms1 = time_ms(torch, lambda: C.geno_counts(packed_all, masks), 20)
     pms1 = time_ms(torch, lambda: chunked(torch, plain1, V, 512, dim=1), 1)
+    # library: the bf16 planes (b0, b1, b0*b1) by the masks, one matmul, as
+    # plink_tpu's _geno_counts_multimask computes the counts
+    bplanes = bf16_planes(torch, packed_all, (lambda c: c & 1, lambda c: c >> 1,
+                                              lambda c: (c & 1) & (c >> 1)))
+    mbf = masks.to(torch.bfloat16)
+    lib1 = time_ms(torch, lambda: torch.matmul(bplanes, mbf), 5)
+    del bplanes
     bytes1 = packed_all.numel() + masks.numel() * 4 + k1.numel() * 4
     rows.append(dict(name="geno_counts", source="plink_torch/csrc/geno_counts.cu",
                      replaces="plink_tpu/ops/counts.py:98",
                      max_abs_err=float(err1), tol=0.0, ms=ms1, plain_ms=pms1,
                      bound_ms=1e3 * bytes1 / HBM_BYTES_PER_S, bound_by="bytes",
-                     library_ms=None))
+                     library_ms=lib1))
     log(f"K1 geno_counts [{packed_all.shape[0]}x{packed_all.shape[1]}B, G=3]: "
-        f"exact; {ms1:.3f} ms, plain {pms1:.1f} ms")
+        f"exact; {ms1:.3f} ms, plain {pms1:.1f} ms, bf16 matmul {lib1:.3f} ms")
 
     # K2 on block 0, against the plain version in f32 and in f64
     gw = torch.zeros((vb, 3), dtype=torch.float32, device=dev)
@@ -337,7 +406,130 @@ def check_kernels(torch, dev, prefix):
     log(f"K4 chol_small [{vb},{d},{d}]: rel err solve {ex:.2e} inverse {ei:.2e} "
         f"logdet {ed:.2e} (tol {TOL_CHOL:g}); {ms4:.4f} ms, plain {pms4:.2f} ms, "
         f"linalg.inv {lib4:.4f} ms")
+
+    # B1d: the device screen and validity flags of one block (tensor ops)
+    msd = time_ms(torch, lambda: (G._collin_screen_device(k2, dc),
+                                  G._valid_params_flags(ki, d)), 20)
+    log(f"B1d _collin_screen_device + _valid_params_flags [{vb}]: {msd:.4f} ms "
+        "per block (CUDA events)")
+
+    rows.append(check_sample_counts(torch, dev, packed_all))
+    rows.append(check_linear_sums(torch, dev, prefix, pk, feat))
     return rows
+
+
+def check_sample_counts(torch, dev, packed_all):
+    """K5 over the whole panel, exact against its plain version with variant
+    masks that drop rows; timed in the main path's form (missing, one
+    mask)."""
+    from plink_torch.ops import counts as C
+
+    V = packed_all.shape[0]
+    vid = torch.arange(V, device=dev)
+    vm2 = torch.stack([vid % 7 != 3, vid % 3 == 0], 1).float().contiguous()
+    vm1 = vm2[:, :1].contiguous()
+    for m in (vm1, vm2):
+        for het_hom in (False, True):
+            k5 = C.sample_counts(packed_all, m, het_hom)
+            assert torch.equal(k5, C.sample_counts_plain(packed_all, m, het_hom)), \
+                ("sample_counts differs from its plain version", m.shape, het_hom)
+    k5 = C.sample_counts(packed_all, vm1)
+    ms5 = time_ms(torch, lambda: C.sample_counts(packed_all, vm1), 20)
+    ms5f = time_ms(torch, lambda: C.sample_counts(packed_all, vm2, True), 20)
+    pms5 = time_ms(torch, lambda: C.sample_counts_plain(packed_all, vm1), 1)
+    # library: the variant mask by the decoded bf16 missing plane, one matmul,
+    # as plink_tpu's _sample_miss_counts computes it
+    miss = bf16_planes(torch, packed_all, (lambda c: c == 3,))
+    vmb = vm1.t().to(torch.bfloat16).contiguous()
+    lib5 = time_ms(torch, lambda: torch.matmul(vmb, miss), 5)
+    del miss
+    bytes5 = packed_all.numel() + vm1.numel() * 4 + k5.numel() * 4
+    log(f"K5 sample_counts [{V}x{packed_all.shape[1]}B]: exact (G=1,2; missing "
+        f"and het/hom modes); {ms5:.3f} ms (missing, G=1), {ms5f:.3f} ms "
+        f"(het/hom, G=2), plain {pms5:.1f} ms, bf16 matmul {lib5:.3f} ms")
+    return dict(name="sample_counts", source="plink_torch/csrc/sample_counts.cu",
+                replaces="plink_tpu/ops/counts.py:72",
+                also_replaces="plink_tpu/ops/counts.py:84", max_abs_err=0.0,
+                tol=0.0, ms=ms5, plain_ms=pms5,
+                bound_ms=1e3 * bytes5 / HBM_BYTES_PER_S, bound_by="bytes",
+                library_ms=lib5, het_hom_g2_ms=ms5f)
+
+
+def _chunked_dict(torch, fn, n_rows, step):
+    outs = [fn(slice(r0, min(n_rows, r0 + step))) for r0 in range(0, n_rows, step)]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def check_linear_sums(torch, dev, prefix, pk, feat):
+    """K6 on block 0 at the QC + linear path's width (c = [1 | SEX | PC1..10],
+    y = QT1, all 500,000 samples) against its plain version in f32 and in
+    f64; every entry normalised by a Cauchy-Schwarz bound on its plane sum
+    (sqrt(s_jj s_kk) for c_j c_k, sqrt(s_jj * sum y^2) for c_j y)."""
+    import numpy as np
+
+    from plink_torch.ops import glm as G
+
+    vb, nb = pk.shape
+    npad = 4 * nb
+    dc = feat.shape[1] - 2
+    qt = np.loadtxt(prefix + ".qt", skiprows=1, usecols=1, dtype=np.float64)
+    n = qt.size
+    y = torch.zeros(npad, dtype=torch.float64, device=dev)
+    y[:n] = torch.from_numpy(qt).to(dev)
+    c = feat[:, :dc].double()
+    ins64 = ((c[:, :, None] * c[:, None, :]).reshape(npad, dc * dc),
+             c * y[:, None], y * y)
+    ins32 = tuple(t.float().contiguous() for t in ins64)
+    k6 = G.linear_sums(pk, *ins32)
+    p6 = _chunked_dict(torch, lambda sl: G.linear_sums_plain(pk[sl], *ins32), vb, 256)
+    r6 = _chunked_dict(torch, lambda sl: G.linear_sums_plain(pk[sl], *ins64), vb, 128)
+    # sum y^2 over each plane: the plain version with y^2 as its one-column
+    # c c^T table (read back as ?cc)
+    yy = _chunked_dict(torch, lambda sl: G.linear_sums_plain(
+        pk[sl], ins64[2][:, None], ins64[2][:, None], ins64[2]), vb, 128)
+    errs = {"plain": 0.0, "f64": 0.0, "plain_vs_f64": 0.0}
+    mae = 0.0
+    for pl in "ham":
+        dg = torch.diagonal(r6[pl + "cc"].reshape(vb, dc, dc), dim1=1,
+                            dim2=2).clamp(min=1e-30)
+        scales = {pl + "cc": torch.sqrt(dg[:, :, None] * dg[:, None, :]).reshape(vb, -1),
+                  pl + "cy": torch.sqrt(dg * yy[pl + "cc"].clamp(min=1e-30))}
+        if pl == "m":
+            scales["myy"] = r6["myy"].clamp(min=1e-30)
+        for key, sc in scales.items():
+            errs["plain"] = max(errs["plain"], norm_err(torch, k6[key], p6[key], sc))
+            errs["f64"] = max(errs["f64"], norm_err(torch, k6[key], r6[key], sc))
+            errs["plain_vs_f64"] = max(errs["plain_vs_f64"],
+                                       norm_err(torch, p6[key], r6[key], sc))
+            mae = max(mae, float((k6[key] - p6[key]).abs().max()))
+    assert errs["plain"] <= TOL_VS_PLAIN and errs["f64"] <= TOL_VS_F64, errs
+    again = G.linear_sums(pk, *ins32)
+    assert all(torch.equal(k6[k], again[k]) for k in k6), "K6 is not deterministic"
+    ms6 = time_ms(torch, lambda: G.linear_sums(pk, *ins32), 5)
+    pms6 = time_ms(torch, lambda: _chunked_dict(
+        torch, lambda sl: G.linear_sums_plain(pk[sl], *ins32), vb, 256), 1)
+    # library: the decoded planes [3 vb, n] by the per-sample table
+    # [n, dc^2 + dc + 1] (plink_tpu's three plane products), one matmul
+    codes = unpack_codes(pk)
+    nz = int((codes != 0).sum())  # (variant, sample) pairs that add a row
+    planes = torch.cat([(codes == k).float() for k in (1, 2, 3)])
+    del codes
+    table = torch.cat([ins32[0], ins32[1], ins32[2][:, None]], 1)
+    lib6 = time_ms(torch, lambda: torch.matmul(planes, table), 3)
+    del planes, table
+    nf = dc * (dc + 1) // 2 + dc + 1
+    ops6 = nz * nf  # one FP32 add per feature entry of each such pair
+    bytes6 = pk.numel() + npad * nf * 4 + 3 * vb * (dc * dc + dc + 1) * 8
+    log(f"K6 linear_sums [{vb}x{npad}, dc={dc}, {nf} entries]: norm err vs "
+        f"plain {errs['plain']:.2e} (tol {TOL_VS_PLAIN:g}), vs f64 "
+        f"{errs['f64']:.2e} (tol {TOL_VS_F64:g}; plain vs f64 "
+        f"{errs['plain_vs_f64']:.2e}), two runs identical; {ms6:.3f} ms, plain "
+        f"{pms6:.1f} ms, matmul {lib6:.3f} ms; {nz} non-hom-REF pairs")
+    return dict(name="linear_sums", source="plink_torch/csrc/linear_sums.cu",
+                replaces="plink_tpu/ops/glm.py:46", max_abs_err=mae,
+                max_norm_err=errs["plain"], tol=TOL_VS_PLAIN,
+                max_norm_err_f64=errs["f64"], tol_f64=TOL_VS_F64, ms=ms6,
+                plain_ms=pms6, **_bound(ops6, bytes6), library_ms=lib6)
 
 
 def _bound(ops, nbytes):
@@ -366,12 +558,13 @@ def write_golden():
 
 
 def float_allowed(col, y):
-    """bench.py's GLM parity rule for P; OR and SE relative; Z relative to
-    max(|Z|, 1), as a Z near 0 comes from a beta near 0 whose f32 noise is
-    large relative to itself."""
+    """bench.py's GLM parity rule for P; OR, BETA and SE relative; Z and T
+    relative to max(|Z|, 1), as a Z near 0 comes from a beta near 0 whose
+    f32 noise is large relative to itself."""
     if col == "P":
         return GLM_FLOAT_RTOL * max(1e-8, abs(y)) + 1e-9
-    return GLM_FLOAT_RTOL * (max(abs(y), 1.0) if col == "Z_STAT" else abs(y))
+    return GLM_FLOAT_RTOL * (max(abs(y), 1.0) if col in ("Z_STAT", "T_STAT")
+                             else abs(y))
 
 
 def compare_reports(a, b):
@@ -381,7 +574,7 @@ def compare_reports(a, b):
     ha, ra = read_report(a)
     hb, rb = read_report(b, limit=len(ra))
     assert ha == hb and len(ra) == len(rb), (a, b, ha, hb, len(ra), len(rb))
-    floats = {"OR", "LOG(OR)_SE", "Z_STAT", "P"}
+    floats = {"OR", "LOG(OR)_SE", "Z_STAT", "BETA", "SE", "T_STAT", "P"}
     worst, bad = 0.0, []
     for x, y in zip(ra, rb):
         for col, u, v in zip(ha, x, y):
@@ -397,12 +590,18 @@ def compare_reports(a, b):
     return worst
 
 
-def run_main_path(torch, prefix, out, card, n_variants):
+def logistic_argv(prefix, out):
+    return ["--pfile", prefix, "--glm", "hide-covar", "--covar",
+            prefix + ".cov", "--out", out, "--silent"]
+
+
+def drive(torch, argv, out):
+    """One run of the CLI with PLINK_TORCH_TIMING=1, the launch counts set
+    to 0 just before it and read just after; prints the log's [phase] and
+    [timing] lines.  Returns (wall seconds, launches)."""
     from plink_torch import cli
     from plink_torch.ops import _cuda
 
-    argv = ["--pfile", prefix, "--glm", "hide-covar", "--covar",
-            prefix + ".cov", "--out", out, "--silent"]
     os.environ["PLINK_TORCH_TIMING"] = "1"
     torch.cuda.synchronize()
     _cuda.reset_launches()
@@ -419,6 +618,11 @@ def run_main_path(torch, prefix, out, card, n_variants):
         for ln in f:
             if ln.startswith(("[timing]", "[phase]")):
                 log("  " + ln.rstrip())
+    return wall, launches
+
+
+def run_main_path(torch, prefix, out, card, n_variants):
+    wall, launches = drive(torch, logistic_argv(prefix, out), out)
     hdr, rows = read_report(out + ".PHENO1.glm.logistic.hybrid")
     assert len(rows) == n_variants, len(rows)
     ie, ifi = hdr.index("ERRCODE"), hdr.index("FIRTH?")
@@ -429,7 +633,7 @@ def run_main_path(torch, prefix, out, card, n_variants):
     ip = hdr.index("P")
     finite = sum(1 for r in rows if r[ip] != "NA" and math.isfinite(float(r[ip])))
     assert finite > 0.9 * n_variants, finite
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in LOGISTIC_KERNELS), launches
     log(f"main path: {N_SAMPLES} samples x {n_variants} variants, d=13: "
         f"{wall:.2f}s wall, {n_variants / wall:.0f} variants/s on {card}; "
         f"ERRCODE {errs}; launches {launches}")
@@ -440,16 +644,14 @@ def run_main_path(torch, prefix, out, card, n_variants):
     return launches
 
 
-def trace_main_path(torch, prefix, out):
-    """The main path once more under torch.profiler: the card's busy time
-    (kernels and copies, one stream) against the wall, and the kernels that
-    take it."""
+def trace_path(torch, argv, label):
+    """A path once more under torch.profiler: the card's busy time (kernels
+    and copies, one stream) against the wall, and the kernels that take
+    it."""
     from torch.profiler import ProfilerActivity, profile
 
     from plink_torch import cli
 
-    argv = ["--pfile", prefix, "--glm", "hide-covar", "--covar",
-            prefix + ".cov", "--out", out, "--silent"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         assert cli.main(argv) == 0
@@ -465,41 +667,158 @@ def trace_main_path(torch, prefix, out):
             by_name[name] = by_name.get(name, 0.0) + us
     assert busy > 0, "the trace saw no device work"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"trace: wall {wall:.3f}s (under the profiler), device busy "
+    log(f"trace {label}: wall {wall:.3f}s (under the profiler), device busy "
         f"{busy / 1e6:.3f}s, idle {100 * (1 - busy / 1e6 / wall):.1f}%; "
         + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in top))
 
 
+def removal_counts(log_path):
+    """{tag: count} of the filter lines in a run's .log."""
+    out = {}
+    with open(log_path) as f:
+        for ln in f:
+            m = re.search(r"(\d+) (?:sample|variant)s? removed", ln)
+            for tag in QC_REMOVALS:
+                if m and tag in ln:
+                    out[tag] = int(m.group(1))
+    return out
+
+
+def run_qc_linear(torch, prefix, out, card, n_variants):
+    """Phase 5: the QC + linear path on the card, its integer reports
+    against a CPU run of the same flags, and 64 report rows against numpy."""
+    from plink_torch import cli
+
+    wall, launches = drive(torch, qc_argv(prefix, out), out)
+    assert all(launches[k] > 0 for k in QC_KERNELS), launches
+    removed = removal_counts(out + ".log")
+    assert len(removed) == len(QC_REMOVALS) and all(removed.values()), removed
+    hdr, rows = read_report(out + ".QT1.glm.linear")
+    kept = n_variants - sum(v for k, v in removed.items() if k != "(--mind)")
+    assert len(rows) == kept, (len(rows), kept)
+    ip = hdr.index("P")
+    finite = sum(1 for r in rows if r[ip] != "NA" and math.isfinite(float(r[ip])))
+    assert finite > 0.9 * kept, finite
+    log(f"QC + linear path: {N_SAMPLES} samples x {n_variants} variants, d=13: "
+        f"{wall:.2f}s wall on {card}; removed {removed}; {len(rows)} report "
+        f"rows; launches {launches}")
+    cpu_out = out + "_cpu"
+    os.environ["PLINK_TORCH_DEVICE"] = "cpu"
+    t0 = time.perf_counter()
+    try:
+        assert cli.main(qc_argv(prefix, cpu_out, glm=False)) == 0
+    finally:
+        os.environ.pop("PLINK_TORCH_DEVICE")
+    for ext in QC_REPORTS:
+        assert filecmp.cmp(out + ext, cpu_out + ext, shallow=False), ext
+    log(f"QC reports {' '.join(QC_REPORTS)} = the CPU run's, byte for byte "
+        f"(CPU run {time.perf_counter() - t0:.1f}s)")
+    check_ols(prefix, out)
+    return launches
+
+
+def check_ols(prefix, out):
+    """N_OLS_ROWS rows of <out>.QT1.glm.linear, spread over both variant
+    blocks, against a numpy f64 least-squares fit of QT1 on [1 | SEX |
+    PC1..PC10 | A1 dosage] over the variant's valid calls among the samples
+    --mind kept (those of <out>.smiss); genotypes read straight from the
+    fixed-width .pgen.  OBS_CT and A1_FREQ exact; BETA, SE, T, P by
+    float_allowed."""
+    import numpy as np
+    from scipy.special import stdtr
+
+    from plink_torch.utils.fmt import g6
+
+    hdr, rows = read_report(out + ".QT1.glm.linear")
+    col = {c: hdr.index(c) for c in ("ID", "ALT", "A1", "A1_FREQ", "OBS_CT",
+                                     "BETA", "SE", "T_STAT", "P", "ERRCODE")}
+    with open(prefix + ".psam") as f:
+        f.readline()
+        pos = {ln.split("\t", 1)[0]: k for k, ln in enumerate(f)}
+    with open(out + ".smiss") as f:
+        f.readline()
+        idx = np.array([pos[ln.split("\t", 1)[0]] for ln in f])
+    cov = np.loadtxt(prefix + ".cov", skiprows=1, usecols=range(1, 12))[idx]
+    qt = np.loadtxt(prefix + ".qt", skiprows=1, usecols=1)[idx]
+    with open(prefix + ".pgen", "rb") as f:
+        head = f.read(12)
+    assert head[:3] == b"\x6c\x1b\x02", head  # fixed-width 2-bit records
+    M, N = (int(x) for x in np.frombuffer(head[3:11], "<u4"))
+    pg = np.memmap(prefix + ".pgen", np.uint8, "r", offset=12,
+                   shape=(M, (N + 3) // 4))
+    shifts = np.arange(0, 8, 2, dtype=np.uint8)
+    worst, blocks = 0.0, set()
+    for r in np.linspace(0, len(rows) - 1, N_OLS_ROWS).round().astype(int):
+        row = rows[r]
+        v = int(row[col["ID"]][3:])  # snp<v>
+        blocks.add(v // 2048)
+        g = ((pg[v][:, None] >> shifts) & 3).reshape(-1)[:N][idx]
+        ok = g != 3
+        dos = g[ok].astype(np.float64)
+        if row[col["A1"]] != row[col["ALT"]]:
+            dos = 2.0 - dos
+        X = np.column_stack([np.ones(dos.size), cov[ok], dos])
+        xtx_inv = np.linalg.inv(X.T @ X)
+        beta = xtx_inv @ (X.T @ qt[ok])
+        resid = qt[ok] - X @ beta
+        df = dos.size - X.shape[1]
+        se = math.sqrt(resid @ resid / df * xtx_inv[-1, -1])
+        t = beta[-1] / se
+        ref = {"BETA": beta[-1], "SE": se, "T_STAT": t,
+               "P": 2.0 * stdtr(df, -abs(t))}
+        assert row[col["ERRCODE"]] == ".", row
+        assert row[col["OBS_CT"]] == str(dos.size), (row, dos.size)
+        assert row[col["A1_FREQ"]] == g6(dos.sum() / (2 * dos.size)), row
+        for c, y in ref.items():
+            frac = abs(float(row[col[c]]) - y) / float_allowed(c, y)
+            assert frac <= 1.0, (c, row, y)
+            worst = max(worst, frac)
+    assert blocks == {0, 1} or M <= 2048, blocks
+    log(f"{N_OLS_ROWS} .glm.linear rows = numpy f64 OLS: OBS_CT and A1_FREQ "
+        f"exact, BETA/SE/T/P within {worst:.3f} of their tolerance")
+
+
 def run_parity(tmp):
+    """Phase 6: the 2,000 x 1,200 panel through the port on the card and on
+    the CPU (plain versions): hybrid, firth and the QC + linear path."""
     from plink_torch import cli
 
     n, m, seed = SMALL
     prefix = os.path.join(tmp, "small")
     make_panel(prefix, n, m, seed)
+    cases = (
+        ("hybrid", lambda o: logistic_argv(prefix, o), ["PHENO1.glm.logistic.hybrid"], ()),
+        ("firth", lambda o: logistic_argv(prefix, o)[:3] + ["firth"]
+         + logistic_argv(prefix, o)[3:], ["PHENO1.glm.firth"], ()),
+        ("qc_linear", lambda o: qc_argv(prefix, o), ["QT1.glm.linear"],
+         QC_REPORTS),
+    )
     os.environ["PLINK_TORCH_VB"] = "256"
     try:
-        for mod, ext in ((None, "glm.logistic.hybrid"), ("firth", "glm.firth")):
-            mods = ["hide-covar"] + ([mod] if mod else [])
+        for label, argv_of, glm_exts, exact_exts in cases:
             outs = {}
             for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"),
                                  ("cuda2", "cuda")):
                 os.environ["PLINK_TORCH_DEVICE"] = devname
-                out = os.path.join(tmp, f"{tag}_{mod}")
-                rc = cli.main(["--pfile", prefix, "--glm", *mods, "--covar",
-                               prefix + ".cov", "--out", out, "--silent"])
-                assert rc == 0, (tag, rc)
-                outs[tag] = f"{out}.PHENO1.{ext}"
-            worst = compare_reports(outs["cuda1"], outs["cpu"])
-            with open(outs["cuda1"], "rb") as f1, open(outs["cuda2"], "rb") as f2:
-                assert f1.read() == f2.read(), "two CUDA runs differ"
-            hdr, rows = read_report(outs["cuda1"])
-            firth_y = 0
-            if "FIRTH?" in hdr:
-                firth_y = sum(r[hdr.index("FIRTH?")] == "Y" for r in rows)
-                assert firth_y > 0, "no Firth fallback row on the parity panel"
-            log(f"parity {ext} [{n}x{m}]: CUDA = CPU (exact columns, floats "
-                f"within {worst:.2f} of their tolerance), two CUDA runs "
-                f"byte-identical, FIRTH?=Y rows {firth_y}")
+                outs[tag] = os.path.join(tmp, f"{tag}_{label}")
+                rc = cli.main(argv_of(outs[tag]))
+                assert rc == 0, (label, tag, rc)
+            for ext in exact_exts:
+                assert filecmp.cmp(outs["cuda1"] + ext, outs["cpu"] + ext,
+                                   shallow=False), (label, ext)
+            for ext in glm_exts:
+                a, b, c2 = (f"{outs[t]}.{ext}" for t in ("cuda1", "cpu", "cuda2"))
+                worst = compare_reports(a, b)
+                assert filecmp.cmp(a, c2, shallow=False), "two CUDA runs differ"
+                hdr, rows = read_report(a)
+                firth_y = 0
+                if "FIRTH?" in hdr:
+                    firth_y = sum(r[hdr.index("FIRTH?")] == "Y" for r in rows)
+                    assert firth_y > 0, "no Firth fallback row on the parity panel"
+                log(f"parity {label} {ext} [{n}x{m}]: CUDA = CPU (exact columns"
+                    f"{' and ' + ' '.join(exact_exts) if exact_exts else ''}, "
+                    f"floats within {worst:.2f} of their tolerance), two CUDA "
+                    f"runs byte-identical, {len(rows)} rows, FIRTH?=Y rows {firth_y}")
     finally:
         os.environ.pop("PLINK_TORCH_VB", None)
         os.environ.pop("PLINK_TORCH_DEVICE", None)
@@ -534,18 +853,31 @@ def main(argv=None):
         t0 = time.perf_counter()
         make_panel(prefix, N_SAMPLES, args.variants, 42)
         log(f"panel {N_SAMPLES}x{args.variants}: {time.perf_counter() - t0:.1f}s")
+        stamp("kernels")
         rows = check_kernels(torch, dev, prefix)
         torch.cuda.empty_cache()
-        launches = run_main_path(torch, prefix, os.path.join(tmp, "main"),
-                                 card, args.variants)
-        trace_main_path(torch, prefix, os.path.join(tmp, "traced"))
+        stamp("logistic main path")
+        paths = {"logistic": run_main_path(torch, prefix, os.path.join(tmp, "main"),
+                                           card, args.variants)}
+        trace_path(torch, logistic_argv(prefix, os.path.join(tmp, "traced")),
+                   "logistic")
+        stamp("QC + linear path")
+        paths["qc_linear"] = run_qc_linear(torch, prefix, os.path.join(tmp, "qc"),
+                                           card, args.variants)
+        trace_path(torch, qc_argv(prefix, os.path.join(tmp, "qc_traced")),
+                   "QC + linear")
+        stamp("parity")
         run_parity(tmp)
+        stamp("done")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lib_names = {"glm_irls_pass": "glm_irls"}
     for r in rows:
         r["route"] = "cuda"
-        r["launches"] = launches.get(lib_names.get(r["name"], r["name"]), 0)
+        by_path = {p: ln[lib_names.get(r["name"], r["name"])]
+                   for p, ln in paths.items()}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

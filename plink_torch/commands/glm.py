@@ -1,31 +1,35 @@
-"""--glm on case/control phenotypes: logistic / Firth / logistic-hybrid.
+"""--glm: logistic / Firth / logistic-hybrid on case/control phenotypes,
+linear regression on quantitative ones.
 
-Port of the logistic path of plink_tpu/commands/glm.py (run_glm,
-_glm_logistic, _emit_logistic_rows and their host helpers).  Behaviour
-reference: GlmMain (2.0/plink2_glm.cc:2395) and GlmLogistic
-(2.0/plink2_glm_logistic.cc) with the glm.fit()-imitating IRLS of
-LogisticRegressionD (:3590).
+Port of plink_tpu/commands/glm.py (run_glm, _glm_logistic,
+_emit_logistic_rows, _glm_linear, _emit_linear_rows and their host
+helpers).  Behaviour reference: GlmMain (2.0/plink2_glm.cc:2395),
+GlmLogistic (2.0/plink2_glm_logistic.cc) with the glm.fit()-imitating IRLS
+of LogisticRegressionD (:3590), and GlmLinear (2.0/plink2_glm_linear.cc).
 
 - A1 = minor allele by default; 'omit-ref' makes A1 = ALT.
 - Output <out>.<pheno>.glm.logistic[.hybrid] / .glm.firth with columns
   #CHROM POS ID REF ALT [PROVISIONAL_REF?] A1 OMITTED A1_FREQ [FIRTH?] TEST
-  OBS_CT OR LOG(OR)_SE Z_STAT P ERRCODE.
+  OBS_CT OR LOG(OR)_SE Z_STAT P ERRCODE, and <out>.<pheno>.glm.linear with
+  ... TEST OBS_CT BETA SE T_STAT P ERRCODE.
 - hybrid Firth fallback triggers: separation (A1 case dosage 0 or total,
   plink2_glm_logistic.cc:2224-2236) or logistic convergence failure.
 
-The device pass is ops/glm.py (kernels K2-K4); the A1 choice counts with
-K1.  Rows the f32 device fit cannot resolve to reference precision are
-refitted per variant in f64 on the host, as in plink_tpu.
+The device passes are ops/glm.py: kernels K2-K4 (logistic) and K6 (the
+linear plane sums, solved per variant in f64 on the host); the A1 choice
+counts with K1.  Rows the f32 device fit cannot resolve to reference
+precision are refitted per variant in f64 on the host, as in plink_tpu.
 
-Not yet ported (each raises NotPortedError): quantitative phenotypes,
-dosage, --xchr-model 0/1, and every --glm modifier except the hybrid
-default, firth, no-firth, hide-covar, intercept, log10 and omit-ref.
+Not yet ported (each raises NotPortedError): dosage, --xchr-model 0/1, and
+every --glm modifier except the hybrid default, firth, no-firth, hide-covar,
+intercept, log10 and omit-ref.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -34,7 +38,7 @@ from .. import NotPortedError
 from ..dataset import Dataset
 from ..ops.pairwise import PackedDevice
 from ..ops.planes import _unpack_np
-from ..stats.distributions import zstat_logp_2sided
+from ..stats.distributions import f_logsf, t_logp_2sided, zstat_logp_2sided
 from ..utils.chrom import X_CODE, Y_CODE
 from ..utils.fmt import g6, logp_to_str
 from ..utils.logging import RunLogger
@@ -314,9 +318,6 @@ def run_glm(ds: Dataset, cfg, log: RunLogger) -> None:
     phenos = _load_phenos(ds, cfg, log)
     if not phenos:
         raise ValueError("--glm: no phenotypes loaded")
-    if any(kind == "qt" for _, kind, _, _ in phenos):
-        raise NotPortedError("--glm linear regression (quantitative "
-                             "phenotypes) is not yet ported to plink_torch.")
     mark("covariates+phenotypes")
 
     # A1 selection (minor allele unless omit-ref)
@@ -349,15 +350,25 @@ def run_glm(ds: Dataset, cfg, log: RunLogger) -> None:
                 keep.append(j)
         p_names = [p_names[j] for j in keep]
         p_data = p_data[:, keep]
-        case_ct = int(ydata[smask].sum())
-        log.log(
-            f"--glm {'Firth' if always_firth else 'logistic'} regression on "
-            f"phenotype '{name}': {case_ct} cases, {nm_ct - case_ct} controls."
-        )
+        if kind == "cc":
+            case_ct = int(ydata[smask].sum())
+            log.log(
+                f"--glm {'Firth' if always_firth else 'logistic'} regression on "
+                f"phenotype '{name}': {case_ct} cases, {nm_ct - case_ct} controls."
+            )
+            report = f"{cfg.out}.{name}.{suffix}"
+            fit = partial(_glm_logistic, ds, cfg, log, name, ydata,
+                          a1_is_alt=a1_is_alt, hide_covar=hide_covar,
+                          always_firth=always_firth, no_firth=no_firth)
+        else:
+            log.log(f"--glm linear regression on phenotype '{name}': {nm_ct} samples.")
+            report = f"{cfg.out}.{name}.glm.linear"
+            fit = partial(_glm_linear, ds, cfg, log, name, ydata,
+                          a1_is_alt=a1_is_alt, hide_covar=hide_covar)
+        # fit(sample mask, covariate names, covariate data, **pass options)
         groups = _ploidy_groups(ds, cfg, smask, p_names, p_data, log)
         if groups is None:
-            _glm_logistic(ds, cfg, log, name, ydata, smask, p_names, p_data,
-                          a1_is_alt, hide_covar, always_firth, no_firth)
+            fit(smask, p_names, p_data)
             continue
         sink: list = []
         hdr_box: list = []
@@ -365,10 +376,8 @@ def run_glm(ds: Dataset, cfg, log: RunLogger) -> None:
             if not vm_g.any() or not sm_g.any():
                 continue
             nm_g, dt_g = _drop_const_covars(sm_g, nm_g, dt_g)
-            _glm_logistic(ds, cfg, log, name, ydata, sm_g, nm_g, dt_g,
-                          a1_is_alt, hide_covar, always_firth, no_firth,
-                          vmask=vm_g, sink=sink, header_out=hdr_box)
-        _write_sink(f"{cfg.out}.{name}.{suffix}", hdr_box[0], sink, log)
+            fit(sm_g, nm_g, dt_g, vmask=vm_g, sink=sink, header_out=hdr_box)
+        _write_sink(report, hdr_box[0], sink, log)
 
 
 def _row_meta(ds: Dataset, a1_is_alt):
@@ -409,6 +418,287 @@ def _auto_vb(npad: int) -> int:
 # the additive predictor: plane weights over (het, hom-ALT, valid) when A1 is
 # ALT, and after the A1=REF flip g' = 2*valid - g
 _ADD = ("ADD", (1, 2, 0), (-1, -2, 2))
+
+
+def _geno_predictors(mods: set):
+    """Genotype predictor descriptors for the requested model.
+
+    Each predictor is (test_name, weights_when_A1_is_ALT,
+    weights_when_A1_is_REF) with weights over the (H, A, V) planes; the
+    A1=REF flip follows g' = 2*valid - g algebra (ADD' = -H - 2A + 2V, etc).
+    Returns (preds, joint_name) where joint_name is e.g. GENO_2DF.
+    """
+    if "dominant" in mods:
+        return [("DOM", (1, 1, 0), (0, -1, 1))], None
+    if "recessive" in mods:
+        return [("REC", (0, 1, 0), (-1, -1, 1))], None
+    if "hetonly" in mods:
+        return [("HET", (1, 0, 0), (1, 0, 0))], None
+    if "genotypic" in mods:
+        return (
+            [("ADD", (1, 2, 0), (-1, -2, 2)), ("DOMDEV", (1, 0, 0), (1, 0, 0))],
+            "GENO_2DF",
+        )
+    if "hethom" in mods:
+        # HOM = hom-A1 indicator, HET = het indicator
+        return (
+            [("HOM", (0, 1, 0), (-1, -1, 1)), ("HET", (1, 0, 0), (1, 0, 0))],
+            "GENO_2DF",
+        )
+    return [_ADD], None
+
+
+def _glm_linear(
+    ds, cfg, log, pheno_name, ydata, smask, cov_names, cov_data, a1_is_alt,
+    hide_covar, vmask=None, sink=None, header_out=None,
+):
+    """Runs one linear-GLM pass over `vmask` (default: all included
+    variants) for one sample set / covariate set.  Writes
+    <out>.<pheno>.glm.linear, or with `sink` appends per-variant row strings
+    to it and the header to `header_out` (the per-ploidy passes share one
+    report; ref: GlmMain's per-chromosome sample/covariate switching,
+    2.0/plink2_glm.cc:3154-3240).
+
+    K6 gives every variant's plane sums in one pass per block; X^T X, X^T y
+    and y^T y of any model are their linear combinations with the
+    sample-set totals (the role RegressionNmPrecomp plays in the
+    reference), solved per variant in f64 on the host."""
+    from ..ops.glm import linear_sums_scan
+
+    mods = set(cfg.glm_modifiers)
+    geno_preds, joint_name = _geno_predictors(mods)
+    inc = np.flatnonzero(smask)
+    n = inc.size
+    y = ydata[inc].astype(np.float64)
+    dc = len(cov_names) + 1
+    vb = _auto_vb(-(-n // 4) * 4)
+    c = np.concatenate([np.ones((n, 1)), cov_data[inc]], axis=1)
+
+    # predictors: const, genotype predictors, covariates; each is (name,
+    # plane weights (wH, wA, wV) when A1 is ALT, when A1 is REF, c column)
+    pred_specs = [("CONST", (0, 0, 1), (0, 0, 1), 0)]
+    pred_specs += [(nm_, wa, wr, 0) for nm_, wa, wr in geno_preds]
+    pred_specs += [(cn, (0, 0, 1), (0, 0, 1), j + 1)
+                   for j, cn in enumerate(cov_names)]
+    d = len(pred_specs)
+    geno_idx = list(range(1, 1 + len(geno_preds)))
+    tests = [s_[0] for s_ in pred_specs[1:]]
+    if hide_covar:
+        tests = [t for t in tests if t not in cov_names]
+    if joint_name:
+        tests = tests + [joint_name]
+    if "intercept" in mods:
+        tests = ["INTERCEPT"] + tests
+    log10 = "log10" in mods
+    exact_s_fn = _exact_s_builder(ds, inc, c, a1_is_alt, geno_preds)
+
+    # shared f64 blocks (role of RegressionNmPrecomp)
+    ctc_full = c.T @ c
+    cty_full = c.T @ y
+    yy_full = float(y @ y)
+
+    if vmask is None:
+        vmask = ds.variant_mask
+    standalone = sink is None
+    if standalone:
+        sink = []
+    mark = _phase_timer(log)
+    pd = PackedDevice(ds, vmask, vb=vb, sample_mask=smask)
+    npad = pd.npad
+    cp = np.zeros((npad, dc))
+    cp[:n] = c
+    yp = np.zeros(npad)
+    yp[:n] = y
+
+    def dev32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(ds.device)
+
+    ccfl = dev32((cp[:, :, None] * cp[:, None, :]).reshape(npad, dc * dc))
+    cy32 = dev32(cp * yp[:, None])
+    y232 = dev32(yp * yp)
+
+    M = ds.raw_variant_ct
+    chrom, provref, a1, omitted = _row_meta(ds, a1_is_alt)
+    vi = ds.vi
+    stat_col = "T_OR_F_STAT" if joint_name else "T_STAT"
+    p_col = "NEG_LOG10_P" if log10 else "P"
+    header = (
+        "#CHROM\tPOS\tID\tREF\tALT\tPROVISIONAL_REF?\tA1\tOMITTED\tA1_FREQ\t"
+        f"TEST\tOBS_CT\tBETA\tSE\t{stat_col}\t{p_col}\tERRCODE\n"
+    )
+    if header_out is not None:
+        header_out.append(header)
+    mark("pack+upload")
+    sums_all = {k: v.cpu().numpy().astype(np.float64)
+                for k, v in linear_sums_scan(pd.packed, ccfl, cy32, y232).items()}
+    mark("device scan+fetch")
+    hs_all = _hap_scale(ds).astype(np.float64)
+    for bi in range(pd.nblocks):
+        v0 = bi * pd.vb
+        vct = min(pd.vb, M - v0)
+        ia = np.flatnonzero(vmask[v0 : v0 + vct])
+        if ia.size == 0:
+            continue
+        b = len(ia)
+        hcc = sums_all["hcc"][bi][ia].reshape(b, dc, dc)
+        acc = sums_all["acc"][bi][ia].reshape(b, dc, dc)
+        vcc = ctc_full[None] - sums_all["mcc"][bi][ia].reshape(b, dc, dc)
+        hcy = sums_all["hcy"][bi][ia]
+        acy = sums_all["acy"][bi][ia]
+        vcy = cty_full[None] - sums_all["mcy"][bi][ia]
+        yy_v = yy_full - sums_all["myy"][bi][ia]
+        nm = vcc[:, 0, 0]
+        flip = ~a1_is_alt[v0 + ia]
+
+        def cross(w1, w2, j1, j2):
+            # plane products collapse: H*H = H, H*V = H, A*V = A, H*A = 0
+            h1, a1_, v1 = w1
+            h2, a2_, v2 = w2
+            coef_h = h1 * h2 + h1 * v2 + v1 * h2
+            coef_a = a1_ * a2_ + a1_ * v2 + v1 * a2_
+            coef_v = v1 * v2
+            return (coef_h * hcc[:, j1, j2] + coef_a * acc[:, j1, j2]
+                    + coef_v * vcc[:, j1, j2])
+
+        def xy(w, j):
+            h, a_, v = w
+            return h * hcy[:, j] + a_ * acy[:, j] + v * vcy[:, j]
+
+        xtx = np.zeros((b, d, d))
+        xty = np.zeros((b, d))
+        for p in range(d):
+            _, wa1, wr1, j1 = pred_specs[p]
+            for q in range(p, d):
+                _, wa2, wr2, j2 = pred_specs[q]
+                val = np.where(flip, cross(wr1, wr2, j1, j2),
+                               cross(wa1, wa2, j1, j2))
+                xtx[:, p, q] = val
+                xtx[:, q, p] = val
+            xty[:, p] = np.where(flip, xy(wr1, j1), xy(wa1, j1))
+
+        # A1 dosage sums for A1_FREQ / const-allele detection
+        g1 = np.where(flip, cross((-1, -2, 2), (0, 0, 1), 0, 0),
+                      cross((1, 2, 0), (0, 0, 1), 0, 0))
+        gg1 = np.where(flip, cross((-1, -2, 2), (-1, -2, 2), 0, 0),
+                       cross((1, 2, 0), (1, 2, 0), 0, 0))
+
+        # haploid genotype coding 0..1: scale geno rows/cols of the
+        # sufficient statistics (s for cross terms, s^2 for geno-geno)
+        hs_b = hs_all[v0 + ia]
+        if (hs_b != 1.0).any():
+            for p in geno_idx:
+                xtx[:, p, :] *= hs_b[:, None]
+                xtx[:, :, p] *= hs_b[:, None]
+                xty[:, p] *= hs_b
+        _emit_linear_rows(
+            sink, v0, ia, nm, g1, gg1, xtx, xty, yy_v, d, tests, chrom,
+            provref, a1, omitted, vi, pred_specs, geno_idx, joint_name,
+            exact_s_fn, log10,
+        )
+    mark("host postprocess+emit")
+    if standalone:
+        _write_sink(f"{cfg.out}.{pheno_name}.glm.linear", header, sink, log)
+
+
+def _emit_linear_rows(
+    sink, v0, ia, nm, g1, gg1, xtx, xty, yy_v, d, tests, chrom, provref, a1,
+    omitted, vi, pred_specs, geno_idx, joint_name, exact_s_fn, log10,
+):
+    b = len(ia)
+    beta = np.full((b, d), np.nan)
+    se = np.full((b, d), np.nan)
+    tstat = np.full((b, d), np.nan)
+    logp = np.full((b, d), np.nan)
+    fstat = np.full(b, np.nan)
+    logp_joint = np.full(b, np.nan)
+    err = [ERR_OK] * b
+    dof = nm - d
+    gvar = gg1 - np.where(nm > 0, g1 * g1 / np.maximum(nm, 1), 0.0)
+    q_joint = len(geno_idx)
+    for i in range(b):
+        if nm[i] <= d:
+            err[i] = "SAMPLE_CT<=PREDICTOR_CT"
+            continue
+        if gvar[i] <= 1e-12:
+            # biallelic const genotype: the reference's check order flags the
+            # omitted (major) allele first (plink2_glm_logistic.cc:1966-1969)
+            err[i] = "CONST_OMITTED_ALLELE"
+            continue
+        ce = _collinearity_err_checked(
+            xtx[i], nm[i], lambda i=i: exact_s_fn(int(v0 + ia[i]))
+        )
+        if ce is not None:
+            err[i] = ce
+            continue
+        try:
+            inv = np.linalg.inv(xtx[i])
+        except np.linalg.LinAlgError:
+            err[i] = "RANK_DEFICIENT"
+            continue
+        bvec = inv @ xty[i]
+        rss = yy_v[i] - bvec @ xty[i]
+        sigma2 = rss / dof[i]
+        diag = np.diag(inv)
+        if sigma2 < 0 or (diag <= 0).any():
+            err[i] = "INVALID_RESULT"
+            continue
+        beta[i] = bvec
+        se[i] = np.sqrt(sigma2 * diag)
+        tstat[i] = bvec / se[i]
+        if joint_name:
+            # reduced model: drop the genotype predictors
+            keep = [p for p in range(d) if p not in geno_idx]
+            try:
+                inv0 = np.linalg.inv(xtx[i][np.ix_(keep, keep)])
+                b0 = inv0 @ xty[i][keep]
+                rss0 = yy_v[i] - b0 @ xty[i][keep]
+                fstat[i] = ((rss0 - rss) / q_joint) / sigma2
+            except np.linalg.LinAlgError:
+                pass
+    ok = np.array([e == ERR_OK for e in err])
+    if ok.any():
+        logp[ok] = np.asarray(t_logp_2sided(tstat[ok], dof[ok, None]))
+        if joint_name:
+            okj = ok & np.isfinite(fstat)
+            if okj.any():
+                # second dof = sample_obs_ct (ref FstatToLnP(chisq/ct, ct,
+                # sample_obs_ct)), not the residual dof
+                logp_joint[okj] = np.asarray(
+                    f_logsf(fstat[okj], float(q_joint),
+                            nm[okj].astype(np.float64))
+                )
+
+    with np.errstate(invalid="ignore"):
+        a1f = np.where(nm > 0, g1 / np.maximum(2 * np.maximum(nm, 1), 1e-300),
+                       np.nan)
+    test_pred = {spec[0]: p for p, spec in enumerate(pred_specs)}
+    test_pred["INTERCEPT"] = 0
+    for i in range(b):
+        vidx = v0 + ia[i]
+        lines = []
+        meta = (
+            f"{chrom[vidx]}\t{vi.pos[vidx]}\t{vi.vid[vidx]}\t{vi.ref[vidx]}\t"
+            f"{vi.alt[vidx]}\t{provref[vidx]}\t{a1[vidx]}\t{omitted[vidx]}\t"
+            f"{g6(a1f[i])}"
+        )
+        for tname in tests:
+            if err[i] != ERR_OK:
+                lines.append(
+                    f"{meta}\t{tname}\t{int(nm[i])}\tNA\tNA\tNA\tNA\t{err[i]}\n"
+                )
+            elif tname == joint_name:
+                lines.append(
+                    f"{meta}\t{tname}\t{int(nm[i])}\tNA\tNA\t{g6(fstat[i])}\t"
+                    f"{_p_str(logp_joint[i], log10)}\t.\n"
+                )
+            else:
+                pi = test_pred[tname]
+                lines.append(
+                    f"{meta}\t{tname}\t{int(nm[i])}\t{g6(beta[i, pi])}\t"
+                    f"{g6(se[i, pi])}\t{g6(tstat[i, pi])}\t"
+                    f"{_p_str(logp[i, pi], log10)}\t.\n"
+                )
+        sink.append((int(vidx), "".join(lines)))
 
 
 def _write_sink(path, header, sink, log):
@@ -467,11 +757,12 @@ def _collinearity_err(s, nm_i):
     return None, decisive
 
 
-def _exact_s_builder(ds, inc, c, a1_is_alt):
+def _exact_s_builder(ds, inc, c, a1_is_alt, preds=(_ADD,)):
     """Returns a per-variant callback computing exact f64 X^T X for the
     borderline-collinearity recheck."""
     def exact_s(vidx):
-        X, _ = _variant_design_f64(ds, inc, c, bool(a1_is_alt[vidx]), vidx)
+        X, _ = _variant_design_f64(ds, inc, c, bool(a1_is_alt[vidx]), vidx,
+                                   preds)
         return X.T @ X
     return exact_s
 
@@ -557,18 +848,22 @@ def _pinv_nolapack(m):
     return (u * winv) @ vt
 
 
-def _variant_design_f64(ds, inc, c, alt_is_a1, vidx):
-    """Host f64 design matrix [nm, d] for one variant: [c | ADD] with the
-    flip-resolved additive predictor (haploid variants scale 0.5 like the
-    device kernels)."""
+def _variant_design_f64(ds, inc, c, alt_is_a1, vidx, preds=(_ADD,)):
+    """Host f64 design matrix [nm, d] for one variant: [c | G_1..G_P] with
+    the flip-resolved genotype predictors (name, plane weights when A1 is
+    ALT, when A1 is REF); haploid variants scale 0.5 like the device
+    kernels."""
     codes = _unpack_np(ds.reader.read_packed(vidx, 1))[0][: ds.raw_sample_ct][inc]
     val = codes != 3
     hp = (codes == 1).astype(np.float64)
     ap = (codes == 2).astype(np.float64)
     vp = val.astype(np.float64)
-    w = _ADD[1] if alt_is_a1 else _ADD[2]
-    g = (w[0] * hp + w[1] * ap + w[2] * vp) * float(_hap_scale(ds)[vidx])
-    return np.concatenate([c, g[:, None]], axis=1)[val], val
+    scale = float(_hap_scale(ds)[vidx])
+    cols = [c]
+    for _nm, wa, wr in preds:
+        w = wa if alt_is_a1 else wr
+        cols.append(((w[0] * hp + w[1] * ap + w[2] * vp) * scale)[:, None])
+    return np.concatenate(cols, axis=1)[val], val
 
 
 def _logistic_f64(X, yv):

@@ -1,15 +1,16 @@
 """Dataset: the shared in-memory state commands operate on.
 
 Mirrors the role of Plink2Core's shared state (2.0/plink2.cc:836):
-sample_include / variant_include bitmasks, founder info, sex.  Genotypes are
-read from the .pgen as packed 2-bit rows, which are also the host->device
-transfer format; `device_all_packed` keeps one copy on the run's device.
+sample_include / variant_include bitmasks, founder info, sex, cached
+genotype counts.  Genotypes are read from the .pgen as packed 2-bit rows,
+which are also the host->device transfer format; `device_all_packed` keeps
+one copy on the run's device.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ import torch
 from .io import PgenReader, read_bim, read_psam, read_pvar
 from .io.psam import SampleInfo
 from .io.pvar import VariantInfo
+from .ops.counts import HOST_SMALL_GENOTYPES, masked_geno_counts
 from .utils.chrom import MT_CODE, Y_CODE
 
 DEFAULT_BLOCK = 8192  # variants per streamed block (vblock analogue)
@@ -32,6 +34,7 @@ class Dataset:
     founder_mask: np.ndarray  # bool [N]
     device: torch.device
     block_size: int = DEFAULT_BLOCK
+    _counts_cache: dict = field(default_factory=dict)
 
     @property
     def sample_ct(self) -> int:
@@ -98,6 +101,53 @@ class Dataset:
                 yield vstart, cache[vstart : vstart + vct]
             else:
                 yield vstart, self.reader.read_packed(vstart, vct)
+
+    def count_matrix(self):
+        """The packed matrix the counting functions take: host numpy on
+        panels of at most HOST_SMALL_GENOTYPES genotypes (counted in numpy,
+        as plink_tpu does), else the device-resident copy."""
+        if self.raw_variant_ct * self.raw_sample_ct <= HOST_SMALL_GENOTYPES:
+            return self.all_packed()
+        return self.device_all_packed()
+
+    # -- cached whole-file counting ------------------------------------
+    def counts(self, masks: list[np.ndarray]) -> list[np.ndarray]:
+        """Per-variant (hom-REF, het, hom-ALT, missing) int64 [M, 4] over
+        each of up to three raw-sample masks, in one pass.  Cached per mask
+        set, the way the reference computes LoadAlleleAndGenoCounts once and
+        reuses it (plink2.cc:2280); sample filters call invalidate_counts."""
+        key = tuple(np.packbits(np.asarray(m, bool)).tobytes() for m in masks)
+        hit = self._counts_cache.get(key)
+        if hit is None:
+            hit = masked_geno_counts(self.count_matrix(), masks)
+            self._counts_cache[key] = hit
+        return hit
+
+    def geno_counts(self, mask: np.ndarray | None = None) -> np.ndarray:
+        """Per-variant genotype counts [M, 4] over the current sample set
+        (within `mask` when given)."""
+        smask = self.sample_mask if mask is None else self.sample_mask & mask
+        return self.counts([smask])[0]
+
+    def invalidate_counts(self) -> None:
+        self._counts_cache.clear()
+
+    _allele_cts = None
+
+    def allele_cts(self) -> np.ndarray:
+        """Alleles per variant (2 = biallelic) from the .pvar ALT column."""
+        if self._allele_cts is None:
+            self._allele_cts = np.array(
+                [str(a).count(",") + 2 for a in self.vi.alt], dtype=np.int32)
+        return self._allele_cts
+
+    def multiallelic_mask(self) -> np.ndarray:
+        return self.allele_cts() > 2
+
+    def ma_patch(self, v: int):
+        """Aux-track-1 patches for variant v: (ids01, allele01, ids10,
+        lo10, hi10); empty arrays for biallelic records."""
+        return self.reader.read_multiallelic(int(v), int(self.allele_cts()[v]))
 
     @property
     def has_dosage(self) -> bool:

@@ -40,6 +40,8 @@ _ENTRY = {
                  [_P, _L, _I, _P, _L, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P]),
     "chol_small": ("pt_chol_small", [_P, _I, _I, _P, _P, _P, _P, _P]),
+    "sample_counts": ("pt_sample_counts", [_P, _L, _I, _P, _I, _I, _P, _P]),
+    "linear_sums": ("pt_linear_sums", [_P, _L, _I, _P, _I, _L, _I, _P, _P, _P]),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(_ENTRY, 0)

@@ -1,6 +1,9 @@
-"""Logistic-hybrid GLM on the device: kernels K2-K4 and the IRLS around them.
+"""GLM on the device: the linear sums (K6), and kernels K2-K4 with the
+logistic-hybrid IRLS around them.
 
 Counterparts of plink_tpu/ops/glm.py:
+- `linear_sums` (K6, csrc/linear_sums.cu) for `_linear_sums_body`, and
+  `linear_sums_scan` for `linear_sums_scan`;
 - `glm_moments` (K2, csrc/glm_moments.cu) for `_plane_cols` +
   `_moments_from_cols`;
 - `glm_irls_pass` (K3, csrc/glm_irls.cu) for the `_design_ops`
@@ -12,7 +15,7 @@ Counterparts of plink_tpu/ops/glm.py:
   `_collin_screen_device` as tensor ops on the device (no sample axis).
 
 Each kernel wrapper takes the plain PyTorch version beside it for CPU
-tensors and launches the kernel for CUDA tensors.  The design is
+tensors and launches the kernel for CUDA tensors.  The logistic design is
 [c (dc covariates incl. intercept) | G] with one additive genotype
 predictor (P = 1); per-sample inputs travel as one table
 feat = [c | y | mask] of shape [npad, dc + 2].
@@ -25,7 +28,7 @@ import torch
 
 from . import _cuda
 from .counts import geno_counts
-from .planes import planes
+from .planes import planes, unpack_codes
 
 _GLM_MAXIT = 25  # ref: plink2_glm_logistic.cc "maxit = 25"
 _FIRTH_MAXIT = 25
@@ -89,6 +92,69 @@ def _splits(npad: int) -> tuple[int, int]:
     128-sample shared-memory tiles."""
     split_len = min(_SPLIT, -(-npad // 128) * 128)
     return split_len, -(-npad // split_len)
+
+
+# ---------------------------------------------------------------------------
+# K6: linear sums
+# ---------------------------------------------------------------------------
+
+
+def linear_sums_plain(packed, ccfl, cy, y2):
+    """Plain version of K6 (plink_tpu `_linear_sums_body`): the het,
+    hom-ALT and missing planes of packed uint8 [vb, NB] against ccfl
+    [npad, dc*dc] (c_j c_k), cy [npad, dc] (c_j y) and y2 [npad] (y^2),
+    npad = 4*NB, in their float type.  Returns hcc/acc/mcc [vb, dc*dc],
+    hcy/acy/mcy [vb, dc], myy [vb]."""
+    codes = unpack_codes(packed)
+    het, homalt, miss = ((codes == c).to(ccfl.dtype) for c in (1, 2, 3))
+    return {"hcc": het @ ccfl, "acc": homalt @ ccfl, "mcc": miss @ ccfl,
+            "hcy": het @ cy, "acy": homalt @ cy, "mcy": miss @ cy,
+            "myy": miss @ y2}
+
+
+def _linear_feat(ccfl, cy, y2):
+    """K6's per-sample table [npad, nf]: c_j c_k for j <= k (row-major),
+    then c_j y, then y^2; nf = dc(dc+1)/2 + dc + 1."""
+    dc = cy.shape[1]
+    j, k = torch.triu_indices(dc, dc, device=ccfl.device)
+    return torch.cat([ccfl[:, j * dc + k], cy, y2[:, None]], dim=1).contiguous()
+
+
+def linear_sums(packed, ccfl, cy, y2):
+    """K6: the plane sums of `linear_sums_plain` for one variant block.
+    packed uint8 [vb, NB], ccfl f32 [npad, dc*dc], cy f32 [npad, dc], y2 f32
+    [npad], with padding samples zero in all three.  CPU tensors take the
+    plain version (in their float type); CUDA tensors launch the kernel,
+    which sums at most 2,048 samples per f32 accumulator, adds the splits in
+    f64 and returns f64."""
+    vb, nb = packed.shape
+    dc = cy.shape[1]
+    dev = packed.device
+    _check("linear_sums packed", packed, torch.uint8, (vb, nb), dev)
+    _check("linear_sums ccfl", ccfl, torch.float32, (4 * nb, dc * dc), dev)
+    _check("linear_sums cy", cy, torch.float32, (4 * nb, dc), dev)
+    _check("linear_sums y2", y2, torch.float32, (4 * nb,), dev)
+    if not _kernel_device("linear_sums", packed, dc):
+        return linear_sums_plain(packed, ccfl, cy, y2)
+    feat = _linear_feat(ccfl, cy, y2)
+    split_len, splits = _splits(4 * nb)
+    part = torch.empty((splits, 3, vb, feat.shape[1]), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((3, vb, dc * dc + dc + 1), dtype=torch.float64, device=dev)
+    _cuda.launch("linear_sums", packed.data_ptr(), nb, vb, feat.data_ptr(), dc,
+                 split_len, splits, part.data_ptr(), out.data_ptr())
+    d2 = dc * dc
+    return {"hcc": out[0, :, :d2], "acc": out[1, :, :d2], "mcc": out[2, :, :d2],
+            "hcy": out[0, :, d2:d2 + dc], "acy": out[1, :, d2:d2 + dc],
+            "mcy": out[2, :, d2:d2 + dc], "myy": out[2, :, -1]}
+
+
+def linear_sums_scan(blocks, ccfl, cy, y2):
+    """Whole-dataset linear sums (plink_tpu `linear_sums_scan`): K6 per
+    block of blocks uint8 [nb, vb, NB]; returns the dict of
+    `linear_sums` stacked to [nb, vb, ...]."""
+    outs = [linear_sums(blocks[bi], ccfl, cy, y2) for bi in range(blocks.shape[0])]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 # ---------------------------------------------------------------------------

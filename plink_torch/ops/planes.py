@@ -21,17 +21,6 @@ def _unpack_np(packed: np.ndarray) -> np.ndarray:
     return out.reshape(v, nb * 4)
 
 
-def _pack_np(codes: np.ndarray, npad: int) -> np.ndarray:
-    """code matrix [V, n] -> packed uint8 [V, npad/4] on host."""
-    v, n = codes.shape
-    buf = np.zeros((v, npad), dtype=np.uint8)
-    buf[:, :n] = codes
-    buf = buf.reshape(v, npad // 4, 4)
-    return (
-        buf[:, :, 0] | (buf[:, :, 1] << 2) | (buf[:, :, 2] << 4) | (buf[:, :, 3] << 6)
-    ).astype(np.uint8)
-
-
 def unpack_codes(packed: torch.Tensor) -> torch.Tensor:
     """uint8 [..., NB] -> uint8 codes [..., NB*4]; padding samples decode to
     0 (hom-REF) and are masked by the caller."""

@@ -1,5 +1,9 @@
 """Command pipeline (ref: Plink2Core, 2.0/plink2.cc:836), as far as this port
-runs it: load a .pgen/.bed fileset, apply --pheno, run --glm.
+runs it, in plink_tpu's order (plink_tpu/pipeline.py): load a .pgen/.bed
+fileset, apply --pheno, the sample filters (keep/remove, founders, --mind),
+the variant filters (extract/exclude, chr), the counts-based reports and
+their filters (freq, geno-counts, missing, --geno, hardy, --hwe,
+--maf/--mac), then --glm.
 
 Every other flag raises NotPortedError before anything runs; the run never
 falls back to plink_tpu.
@@ -22,6 +26,13 @@ _PORTED_FIELDS = {
     "pfile", "bfile", "out", "glm", "glm_modifiers", "pheno", "pheno_name",
     "covar", "covar_name", "nonfounders", "input_missing_phenotype",
     "output_chr", "seed", "silent", "threads", "memory", "argv",
+    # sample and variant filters
+    "keep", "remove", "keep_founders", "keep_nonfounders", "mind",
+    "extract", "exclude", "chr", "not_chr", "autosome", "autosome_par",
+    # counts-based reports and their filters
+    "freq", "freq_counts", "freq_cols", "freq_zs", "geno_counts",
+    "geno_counts_zs", "missing", "missing_zs", "hardy", "hardy_midp",
+    "hardy_zs", "geno", "hwe", "hwe_midp", "maf", "max_maf", "mac", "max_mac",
 }
 
 
@@ -44,6 +55,68 @@ def _load(cfg: Config, device):
         raise ValueError("no input fileset specified (--pfile/--bfile)")
     return load_dataset(cfg.pfile or cfg.bfile, device,
                         missing_pheno=cfg.input_missing_phenotype)
+
+
+def _filter_and_report(ds, cfg: Config, log) -> None:
+    """Sample filters, variant filters, then the counts-based reports and
+    enforcement in the reference's exact order (plink2.cc:1325-1899,
+    2310-2479): freq -> geno-counts -> missing -> --geno -> hardy -> --hwe
+    -> --maf/--mac."""
+    from .commands import basic_reports as R
+    from .commands import filters as F
+
+    if cfg.keep:
+        F.keep_remove_samples(ds, cfg.keep, keep=True, log=log)
+    if cfg.remove:
+        F.keep_remove_samples(ds, cfg.remove, keep=False, log=log)
+    if cfg.keep_founders:
+        F.keep_founders_filter(ds, True, log)
+    if cfg.keep_nonfounders:
+        F.keep_founders_filter(ds, False, log)
+    if cfg.mind is not None:
+        with log.phase("--mind"):
+            F.mind_filter(ds, cfg.mind, log)
+    if ds.sample_ct == 0:
+        raise ValueError("No samples remaining after main filters.")
+
+    if cfg.extract:
+        F.extract_exclude_variants(ds, cfg.extract, extract=True, log=log)
+    if cfg.exclude:
+        F.extract_exclude_variants(ds, cfg.exclude, extract=False, log=log)
+    if cfg.chr:
+        F.filter_chr(ds, cfg.chr, log, keep=True)
+    if cfg.not_chr:
+        F.filter_chr(ds, cfg.not_chr, log, keep=False)
+    if cfg.autosome:
+        F.filter_autosomes(ds, log)
+    if cfg.autosome_par:
+        F.filter_autosomes(ds, log, include_par=True)
+
+    if cfg.freq:
+        with log.phase("--freq"):
+            R.write_freq(ds, cfg.out, log, founders_only=not cfg.nonfounders,
+                         zs=cfg.freq_zs, counts=cfg.freq_counts,
+                         cols=cfg.freq_cols)
+    if cfg.geno_counts:
+        with log.phase("--geno-counts"):
+            R.write_geno_counts(ds, cfg.out, log, zs=cfg.geno_counts_zs)
+    if cfg.missing:
+        with log.phase("--missing"):
+            R.write_missing(ds, cfg.out, log, zs=cfg.missing_zs)
+    if cfg.geno is not None:
+        with log.phase("--geno"):
+            F.geno_filter(ds, cfg.geno, log)
+    if cfg.hardy:
+        with log.phase("--hardy"):
+            R.write_hardy(ds, cfg.out, log, midp=cfg.hardy_midp,
+                          founders_only=not cfg.nonfounders, zs=cfg.hardy_zs)
+    if cfg.hwe is not None:
+        with log.phase("--hwe"):
+            F.hwe_filter(ds, cfg.hwe, cfg.hwe_midp, log)
+    if any(v is not None for v in (cfg.maf, cfg.max_maf, cfg.mac, cfg.max_mac)):
+        with log.phase("--maf"):
+            F.maf_filter(ds, log, cfg.maf, cfg.max_maf, cfg.mac, cfg.max_mac,
+                         nonfounders=cfg.nonfounders)
 
 
 def run_pipeline(cfg: Config, device) -> int:
@@ -83,6 +156,7 @@ def run_pipeline(cfg: Config, device) -> int:
                         col[idx] = vals[r_][c_]
                 phenos[nm_] = _build_pheno(nm_, col)
             ds.si.phenos = phenos
+        _filter_and_report(ds, cfg, log)
         if cfg.glm:
             from .commands.glm import run_glm
 

@@ -1,8 +1,9 @@
 """plink_torch's CUDA kernels against their plain PyTorch versions at awkward
 small shapes: sample counts that leave a ragged last byte (the unaligned
 decode path) or a ragged tile, variant counts that are not a multiple of the
-64-variant block, every covariate width the kernels are built for, inactive
-rows, and matrix sizes up to the 48-column limit of chol_small.
+64-variant block (or of K5's 256-row chunk), every covariate width the
+kernels are built for, inactive rows and masked-out variants, and matrix
+sizes up to the 48-column limit of chol_small.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card, from the
 repository root (the repo's conftest imports jax, which that machine lacks):
@@ -138,3 +139,55 @@ def test_chol_small_kernel(dev, d):
     only_x, none_i, none_d = chol_small(h, rhs)
     assert none_i is None and none_d is None
     assert torch.equal(only_x[good], kx[good]) and torch.isnan(only_x[7]).all()
+
+
+@pytest.mark.parametrize("n,vb,dc", SHAPES + [(2001, 600, 2)])
+def test_sample_counts_kernel(dev, n, vb, dc):
+    """K5 equals its plain version exactly: one and two variant masks, the
+    missing and the (het, hom-ALT, missing) modes."""
+    from plink_torch.ops.counts import sample_counts, sample_counts_plain
+
+    packed, _, _ = _inputs(n, vb, dc, 5)
+    rng = np.random.default_rng(6)
+    pk = torch.from_numpy(packed).to(dev)
+    vm = torch.from_numpy((rng.random((vb, 2)) < 0.7).astype(np.float32)).to(dev)
+    for G in (1, 2):
+        m = vm[:, :G].contiguous()
+        for het_hom in (False, True):
+            k = sample_counts(pk, m, het_hom)
+            assert torch.equal(k, sample_counts_plain(pk, m, het_hom))
+            assert torch.equal(k, sample_counts(pk, m, het_hom))
+
+
+@pytest.mark.parametrize("n,vb,dc", SHAPES)
+def test_linear_sums_kernel(dev, n, vb, dc):
+    """K6 against its plain version run in f64, each entry normalised by a
+    Cauchy-Schwarz bound on its plane sum; two runs give identical bytes."""
+    from plink_torch.ops.glm import linear_sums, linear_sums_plain
+    from plink_torch.ops.planes import unpack_codes
+
+    packed, feat, _ = _inputs(n, vb, dc, 7)
+    pk = torch.from_numpy(packed).to(dev)
+    c = feat[:, :dc].astype(np.float64)
+    y = (feat[:, dc] + np.random.default_rng(8).normal(size=feat.shape[0])) \
+        * feat[:, 0]
+    ccfl = (c[:, :, None] * c[:, None, :]).reshape(-1, dc * dc)
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (ccfl, c * y[:, None], y * y)]
+    k = linear_sums(pk, *(t.float() for t in ins))
+    again = linear_sums(pk, *(t.float() for t in ins))
+    r = linear_sums_plain(pk, *ins)
+    codes = unpack_codes(pk)
+    for code, p_ in ((1, "h"), (2, "a"), (3, "m")):
+        dg = torch.diagonal(r[p_ + "cc"].reshape(vb, dc, dc), dim1=1,
+                            dim2=2).clamp(min=1e-30)
+        sc = torch.sqrt(dg[:, :, None] * dg[:, None, :]).reshape(vb, -1)
+        assert float(((k[p_ + "cc"] - r[p_ + "cc"]).abs() / sc).max()) <= TOL
+        yy = ((codes == code).double() @ ins[2]).clamp(min=1e-30)
+        sy = torch.sqrt(dg * yy[:, None])
+        assert float(((k[p_ + "cy"] - r[p_ + "cy"]).abs() / sy).max()) <= TOL
+    assert float(((k["myy"] - r["myy"]).abs()
+                  / r["myy"].clamp(min=1e-30)).max()) <= TOL
+    for key in k:
+        assert k[key].dtype == torch.float64
+        assert torch.equal(k[key], again[key])
