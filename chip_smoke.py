@@ -23,9 +23,20 @@ Phases, each of which raises on failure (nothing is caught):
      removed something; the integer reports must equal a CPU run's byte for
      byte, and 64 report rows must agree with a numpy f64 least-squares
      fit; then once more under torch.profiler;
-  6. parity: a 2,000 x 1,200 panel through the port on the card and on the
-     CPU (plain versions), hybrid, firth and QC + linear, compared column by
-     column; two card runs must give identical bytes.
+  6. pair kernels: K7 (KING) and K8 (GRM) against their plain versions on
+     the 50,000 x 32,768 panel of bench.py's king_50k / grm_50k, timed beside
+     their bound and one library call;
+  7. relationship paths on that panel: `--make-king-table
+     --king-table-filter 0.044` (the .kin0 must equal plink2's, header only)
+     and `--make-grm-bin` (16 windows of plink2's .grm.bin, the first
+     window's .grm.N.bin against numpy counts); K5, K7 and K8 must have
+     launched; then the KING path and a `--parallel 1 4` GRM piece under
+     torch.profiler.  The GRM phase writes ~10.1 GB to the temporary
+     directory (its free space is printed first);
+  8. parity: a 2,000 x 1,200 panel through the port on the card and on the
+     CPU (plain versions), hybrid, firth, QC + linear, KING + GRM and .rel +
+     exact PCA, compared column by column; two card runs must give
+     identical bytes.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
@@ -76,6 +87,32 @@ QC_REMOVALS = ("(--mind)", "(--geno)", "Hardy-Weinberg", "allele frequency")
 N_OLS_ROWS = 64  # .glm.linear rows checked against numpy's f64 fit
 LOGISTIC_KERNELS = ("geno_counts", "glm_moments", "glm_irls", "chol_small")
 QC_KERNELS = ("geno_counts", "sample_counts", "linear_sums")
+# the relationship cells: bench.py's king_50k / grm_50k panel (p50000x32768,
+# seed 42, 2% missing calls; bench.py:455-463,593-596), full width
+REL_PANEL = (50_000, 32_768, 42)
+KING_FILTER = "0.044"
+# bench_golden/o_king.kin0.zst decompressed (plink2's .kin0 on that panel at
+# --king-table-filter 0.044: the header alone); the card's machine has no
+# zstandard
+KING_GOLDEN = "#IID1\tIID2\tNSNP\tHETHET\tIBS0\tKINSHIP\n"
+GRM_GOLDEN = os.path.join(HERE, "bench_golden", "o_grm.samples.npz")
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+# K8 against its plain version and the plain version in f64, normalised as
+# above: full-f32 products summed in <= 2,048-variant f32 runs measure
+# 4.8e-7 from f64 at 50,000 x 32,768; the same runs with TF32 inputs must
+# land above this (chip_smoke checks it)
+TOL_K8 = 2e-6
+REL_TILE, REL_CHUNK = 2048, 8192  # the commands' sample tile and GRM chunk
+GRM_BYTES_NEEDED = 10.1e9  # .grm.bin + .grm.N.bin at 50,000 samples
+# parity cases of the relationship commands: (label, flags, outputs); the
+# port's tile cut to 512 samples so the 2,000-sample panel has four a side
+REL_PARITY = (
+    ("king_grm", ["--make-king-table", "--king-table-filter", "0.05",
+                  "--make-king", "square", "bin", "--make-grm-bin"],
+     (".kin0", ".king.bin", ".king.id", ".grm.bin", ".grm.N.bin", ".grm.id")),
+    ("rel_pca", ["--make-grm-list", "--make-rel", "--pca", "4"],
+     (".grm", ".grm.id", ".rel", ".rel.id", ".eigenval", ".eigenvec")),
+)
 # plink2's own report on the headline 500,000 x 16,384 panel (the panel
 # generator is counter-based, so its first rows are a smaller panel's rows),
 # kept as gzip because the card's machine has no zstandard: `--write-golden`
@@ -410,8 +447,10 @@ def check_kernels(torch, dev, prefix):
     # B1d: the device screen and validity flags of one block (tensor ops)
     msd = time_ms(torch, lambda: (G._collin_screen_device(k2, dc),
                                   G._valid_params_flags(ki, d)), 20)
+    bytesd = (k2.numel() + ki.numel()) * 4 + 2 * vb  # f32 in, two bool [vb] out
     log(f"B1d _collin_screen_device + _valid_params_flags [{vb}]: {msd:.4f} ms "
-        "per block (CUDA events)")
+        f"per block (CUDA events), bound {1e3 * bytesd / HBM_BYTES_PER_S:.5f} ms "
+        f"(bytes: {bytesd})")
 
     rows.append(check_sample_counts(torch, dev, packed_all))
     rows.append(check_linear_sums(torch, dev, prefix, pk, feat))
@@ -530,6 +569,147 @@ def check_linear_sums(torch, dev, prefix, pk, feat):
                 max_norm_err=errs["plain"], tol=TOL_VS_PLAIN,
                 max_norm_err_f64=errs["f64"], tol_f64=TOL_VS_F64, ms=ms6,
                 plain_ms=pms6, **_bound(ops6, bytes6), library_ms=lib6)
+
+
+def check_pair_kernels(torch, dev, prefix):
+    """Phase 6: K7 on a diagonal tile and on the last (ragged) row tile, K8
+    on the last strip's last chunk (ragged rows, padded columns, the anchor
+    pulled back), each against its plain version on the relationship panel
+    as the commands lay it out (compacted, padded to 2,048-sample tiles)."""
+    import types
+
+    from plink_torch.commands.grm import _grm_setup
+    from plink_torch.dataset import load_dataset
+    from plink_torch.ops import pairwise as P
+
+    ds = load_dataset(prefix, dev)
+    pd, coef, miss = _grm_setup(ds, types.SimpleNamespace(nonfounders=False))
+    n, s, c, mv = pd.n, pd.tile, REL_CHUNK, pd.variant_ct
+    assert s == REL_TILE and pd.npad > n, (s, pd.npad, n)
+    thresh = float(KING_FILTER)
+    rows = []
+
+    def max_abs_diff(a, b):  # equal values (NaN with NaN, -inf with -inf) 0
+        a, b = a.double(), b.double()
+        same = (a == b) | (a.isnan() & b.isnan())
+        return float(torch.where(same, 0.0, (a - b).abs()).max())
+
+    # K7: every output exact (kin bit for bit), counters mode too
+    passed, err7 = [], 0.0
+    for r0, c0 in ((0, 0), (pd.npad - s, 0)):
+        k = P.king_gram(pd.packed, pd.vmask, r0, c0, s, s, n=n, thresh=thresh)
+        p = P.king_gram_plain(pd.packed, pd.vmask, r0, c0, s, s, n=n, thresh=thresh)
+        kc = P.king_gram(pd.packed, pd.vmask, r0, c0, s, s, counts=True)
+        pc = P.king_gram_plain(pd.packed, pd.vmask, r0, c0, s, s, counts=True)
+        err7 = max([err7, max_abs_diff(kc, pc)]
+                   + [max_abs_diff(a, b) for a, b in zip(k, p)])
+        assert k[0].cpu().numpy().tobytes() == p[0].cpu().numpy().tobytes(), \
+            ("king_gram kin differs from its plain version", r0, c0)
+        assert all(torch.equal(a, b) for a, b in zip(k[1:], p[1:])), (r0, c0)
+        assert torch.equal(kc, pc), (r0, c0)
+        passed.append(int(k[5]))
+    assert err7 == 0.0, err7
+    ms7 = time_ms(torch, lambda: P.king_gram(pd.packed, pd.vmask, 0, 0, s, s,
+                                             n=n, thresh=thresh), 5)
+    pms7 = time_ms(torch, lambda: P.king_gram_plain(pd.packed, pd.vmask, 0, 0,
+                                                    s, s, n=n, thresh=thresh), 1)
+    # library: the decoded H/A/V planes [V, 3s] as bf16, one matmul to f32
+    # (exact: 0/1 products, sums < 2^24)
+    flat = pd.packed.reshape(-1, pd.packed.shape[2])[:, : s // 4]
+    vmf = pd.vmask.reshape(-1, 1) != 0
+    hav = torch.cat([bf16_planes(torch, flat, (
+        lambda cd: (cd == 1), lambda cd: (cd == 2), lambda cd: (cd != 3)))
+        .reshape(3, -1, s)[i] * vmf for i in range(3)], dim=1)
+    lib7 = time_ms(torch, lambda: torch.mm(hav.t(), hav, out_dtype=torch.float32), 5)
+    del hav
+    # the six plane products the counters need on int8 tensor cores: HH, HV,
+    # VH, VV and ibs0 = AR + RA (R = hom-REF = V - H - A)
+    ops7 = 6 * s * s * mv * 2
+    bytes7 = mv * (2 * s // 4 + 1) + s * s * (8 + 3 * 4 + 1)  # in: codes, vmask
+    t_ops, t_bytes = 1e3 * ops7 / INT8_OPS_PER_S, 1e3 * bytes7 / HBM_BYTES_PER_S
+    rows.append(dict(name="king_gram", source="plink_torch/csrc/king_gram.cu",
+                     replaces="plink_tpu/ops/pairwise.py:60",
+                     also_replaces="plink_tpu/ops/pairwise.py:173",
+                     max_abs_err=err7, tol=0.0, ms=ms7, plain_ms=pms7,
+                     bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     library_ms=lib7))
+    log(f"K7 king_gram [{s}x{s} tile, V={mv}]: counters, kin (bit for bit), "
+        f"pass mask and count ({passed}) = plain on a diagonal and the last "
+        f"ragged row tile; {ms7:.3f} ms, plain {pms7:.1f} ms, bf16 matmul "
+        f"{lib7:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms")
+
+    # K8: chunk mode against the plain version in f32 and in f64
+    r0, a0 = pd.npad - s, pd.npad - c
+    g, nm = P.grm_gram(pd.packed, coef, pd.vmask, miss, mv, r0, a0, s, c)
+    pg, pnm = P.grm_gram_plain(pd.packed, coef, pd.vmask, miss, mv, r0, a0, s, c)
+    rg, rnm = P.grm_gram_plain(pd.packed, coef.double(), pd.vmask, miss, mv,
+                               r0, a0, s, c)
+    assert torch.equal(nm, pnm) and torch.equal(nm, rnm)
+    # each entry's error as a share of sqrt(sum Z_i^2 sum Z_j^2) / nm, a bound
+    # on |g_ij| (Cauchy-Schwarz)
+    d = torch.zeros(pd.npad, dtype=torch.float64, device=dev)
+    flat = pd.packed.reshape(-1, pd.packed.shape[2])
+    c2 = coef.reshape(-1, 3).double() ** 2
+    for v0 in range(0, flat.shape[0], 512):
+        cd = unpack_codes(flat[v0 : v0 + 512]).long()
+        z2 = torch.gather(c2[v0 : v0 + 512], 1, cd.clamp(max=2))
+        d += torch.where(cd == 3, 0.0, z2).sum(0)
+    scale = (torch.sqrt(d[r0 : r0 + s, None] * d[None, a0 : a0 + c])
+             .clamp(min=1e-30) / nm.double())
+    e8, e8r, e8pr = (norm_err(torch, a.double(), b.double(), scale)
+                     for a, b in ((g, pg), (g, rg), (pg, rg)))
+    assert e8 <= TOL_K8 and e8r <= TOL_K8, (e8, e8r)
+    again = P.grm_gram(pd.packed, coef, pd.vmask, miss, mv, r0, a0, s, c)
+    assert torch.equal(g, again[0]), "K8 is not deterministic"
+    ms8 = time_ms(torch, lambda: P.grm_gram(pd.packed, coef, pd.vmask, miss, mv,
+                                            r0, a0, s, c), 3)
+    pms8 = time_ms(torch, lambda: P.grm_gram_plain(pd.packed, coef, pd.vmask,
+                                                   miss, mv, r0, a0, s, c), 1)
+
+    def decoded(a, w):  # Z [V, w] f32 of samples [a, a + w)
+        out = torch.empty((flat.shape[0], w), dtype=torch.float32, device=dev)
+        cf = coef.reshape(-1, 3)
+        for v0 in range(0, flat.shape[0], 512):
+            cd = unpack_codes(flat[v0 : v0 + 512, a // 4 : (a + w) // 4]).long()
+            z = torch.gather(cf[v0 : v0 + 512], 1, cd.clamp(max=2))
+            out[v0 : v0 + 512] = torch.where(cd == 3, 0.0, z)
+        return out
+
+    zr, zc = decoded(r0, s), decoded(a0, c)
+    lib8 = time_ms(torch, lambda: torch.matmul(zr.t(), zc), 3)
+    # control: K8's run structure (<= 2,048-variant f32 products added in
+    # f64) with TF32 inputs must fail TOL_K8, or the check could not tell a
+    # TF32 kernel from a full-f32 one
+    acc32 = torch.zeros((s, c), dtype=torch.float64, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for v0 in range(0, zr.shape[0], 2048):
+            acc32 += torch.matmul(zr[v0 : v0 + 2048].t(), zc[v0 : v0 + 2048]).double()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    g32 = (acc32 / nm.double()).float()
+    del acc32
+    e8tf32 = norm_err(torch, g32.double(), rg.double(), scale)
+    assert e8tf32 > TOL_K8, ("the TF32 control passes K8's limit", e8tf32)
+    del zr, zc, g32
+    ops8 = 2 * s * c * mv
+    bytes8 = mv * (s + c) // 4 + mv * 13 + 4 * (s + c) + s * c * 5
+    rows.append(dict(name="grm_gram", source="plink_torch/csrc/grm_gram.cu",
+                     replaces="plink_tpu/ops/pairwise.py:355",
+                     also_replaces="plink_tpu/ops/pairwise.py:215",
+                     max_abs_err=float((g - pg).abs().nan_to_num(0.0).max()),
+                     max_norm_err=e8, tol=TOL_K8, max_norm_err_f64=e8r,
+                     tol_f64=TOL_K8, tf32_control_norm_err=e8tf32, ms=ms8,
+                     plain_ms=pms8,
+                     **_bound(ops8, bytes8), library_ms=lib8))
+    log(f"K8 grm_gram [{s}x{c} chunk, V={mv}]: norm err vs plain {e8:.2e}, vs "
+        f"f64 {e8r:.2e} (tol {TOL_K8:g} each; plain vs f64 {e8pr:.2e}; the TF32 "
+        f"control {e8tf32:.2e} fails it), pair counts exact, two runs "
+        f"identical; {ms8:.3f} ms, plain {pms8:.1f} ms, f32 matmul "
+        f"{lib8:.3f} ms")
+    del pd, coef, miss, ds
+    return rows
 
 
 def _bound(ops, nbytes):
@@ -778,10 +958,108 @@ def check_ols(prefix, out):
         f"exact, BETA/SE/T/P within {worst:.3f} of their tolerance")
 
 
+def king_argv(prefix, out):
+    return ["--pfile", prefix, "--make-king-table", "--king-table-filter",
+            KING_FILTER, "--out", out, "--silent"]
+
+
+def grm_argv(prefix, out):
+    return ["--pfile", prefix, "--make-grm-bin", "--out", out, "--silent"]
+
+
+def run_king_path(torch, prefix, out, card):
+    """Phase 7a: the KING path; its .kin0 must equal plink2's."""
+    from plink_torch.ops.pairwise import iter_lower_tiles
+
+    n = REL_PANEL[0]
+    wall, launches = drive(torch, king_argv(prefix, out), out)
+    with open(out + ".kin0") as f:
+        assert f.read() == KING_GOLDEN, "the .kin0 differs from plink2's"
+    pairs = n * (n - 1) // 2
+    with open(out + ".log") as f:
+        text = f.read()
+    want = f"0 relationships reported ({pairs} filtered out)"
+    assert want in text, want
+    tiles = len(list(iter_lower_tiles(-(-n // REL_TILE) * REL_TILE, REL_TILE)))
+    assert launches["king_gram"] == tiles, (launches, tiles)
+    log(f"KING path {n}x{REL_PANEL[1]}: {wall:.2f}s wall on {card}; .kin0 = "
+        f"plink2's (header only), {want}; launches {launches}")
+    return launches
+
+
+def check_grm_outputs(prefix, out):
+    """The .grm.bin's size and plink2's 16 sampled windows (bench.py's rule,
+    rtol 2e-4 / atol 2e-5); the .grm.N.bin's first window against counts
+    from the genotypes (numpy, from the fixed-width .pgen)."""
+    import numpy as np
+
+    rec = np.load(GRM_GOLDEN)
+    n_entries = int(rec["n_entries"])
+    assert os.path.getsize(out + ".grm.bin") == 4 * n_entries
+    assert os.path.getsize(out + ".grm.N.bin") == 4 * n_entries
+    offs, vals = rec["offsets"], rec["values"]
+    stride = vals.shape[1]
+    worst = 0.0
+    with open(out + ".grm.bin", "rb") as f:
+        for off, ref in zip(offs, vals):
+            f.seek(int(off) * 4)
+            got = np.frombuffer(f.read(stride * 4), np.float32)
+            assert np.allclose(got, ref, rtol=2e-4, atol=2e-5), int(off)
+            worst = max(worst, float((np.abs(got.astype(np.float64) - ref)
+                                      / (2e-5 + 2e-4 * np.abs(ref))).max()))
+    assert int(offs[0]) == 0
+    rows = int(np.ceil((np.sqrt(8 * stride + 1) - 1) / 2)) + 1
+    with open(prefix + ".pgen", "rb") as f:
+        head = f.read(12)
+    assert head[:3] == b"\x6c\x1b\x02", head  # fixed-width 2-bit records
+    M, N = (int(x) for x in np.frombuffer(head[3:11], "<u4"))
+    pg = np.memmap(prefix + ".pgen", np.uint8, "r", offset=12,
+                   shape=(M, (N + 3) // 4))
+    shifts = np.arange(0, 8, 2, dtype=np.uint8)
+    codes = ((np.asarray(pg[:, : -(-rows // 4)])[:, :, None] >> shifts) & 3)
+    valid = (codes.reshape(M, -1)[:, :rows] != 3).astype(np.int64)
+    nvalid = valid.T @ valid
+    ii, jj = np.tril_indices(rows)
+    want = nvalid[ii, jj][:stride].astype(np.float32)
+    got = np.fromfile(out + ".grm.N.bin", np.float32, count=stride)
+    assert np.array_equal(got, want), "the .grm.N.bin differs from numpy's counts"
+    return len(offs), worst
+
+
+def run_grm_path(torch, prefix, out, card):
+    """Phase 7b: the streaming --make-grm-bin path against plink2's windows;
+    its 10 GB of output is deleted once checked."""
+    free = shutil.disk_usage(os.path.dirname(out)).free
+    assert free > GRM_BYTES_NEEDED, f"{free / 1e9:.1f} GB free"
+    wall, launches = drive(torch, grm_argv(prefix, out), out)
+    # one K8 launch per chunk of the streaming grid (2,048-row strips, 8,192-
+    # column chunks, the last anchor pulled back inside the padded rows)
+    n, npad = REL_PANEL[0], -(-REL_PANEL[0] // REL_TILE) * REL_TILE
+    chunks = sum(len({min(a, npad - REL_CHUNK)
+                      for a in range(0, min(r0 + REL_TILE, n), REL_CHUNK)})
+                 for r0 in range(0, n, REL_TILE))
+    assert launches["grm_gram"] == chunks and launches["sample_counts"] > 0, \
+        (launches, chunks)
+    try:
+        windows, worst = check_grm_outputs(prefix, out)
+    finally:
+        for ext in (".grm.bin", ".grm.N.bin"):
+            os.remove(out + ext)
+    log(f"GRM path {REL_PANEL[0]}x{REL_PANEL[1]}: {wall:.2f}s wall on {card}; "
+        f".grm.bin = plink2's in {windows} windows (within {worst:.3f} of "
+        f"bench.py's tolerance), .grm.N.bin window 0 = numpy's counts; "
+        f"launches {launches}")
+    return launches
+
+
 def run_parity(tmp):
-    """Phase 6: the 2,000 x 1,200 panel through the port on the card and on
-    the CPU (plain versions): hybrid, firth and the QC + linear path."""
+    """Phase 8: the 2,000 x 1,200 panel through the port on the card and on
+    the CPU (plain versions): hybrid, firth, the QC + linear path, and the
+    relationship commands (plink_torch.testing's rules, the text floats
+    within 1e-5 of max(|x|, 1): the GRM's f32 sums are taken in another
+    order on the card, and entries near 0 print few exact digits)."""
     from plink_torch import cli
+    from plink_torch.testing import relationship_output_close
 
     n, m, seed = SMALL
     prefix = os.path.join(tmp, "small")
@@ -819,8 +1097,32 @@ def run_parity(tmp):
                     f"{' and ' + ' '.join(exact_exts) if exact_exts else ''}, "
                     f"floats within {worst:.2f} of their tolerance), two CUDA "
                     f"runs byte-identical, {len(rows)} rows, FIRTH?=Y rows {firth_y}")
+        os.environ["PLINK_TORCH_TILE"] = "512"
+        for label, flags, exts in REL_PARITY:
+            outs = {}
+            for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"),
+                                 ("cuda2", "cuda")):
+                os.environ["PLINK_TORCH_DEVICE"] = devname
+                outs[tag] = os.path.join(tmp, f"{tag}_{label}")
+                t0 = time.perf_counter()
+                rc = cli.main(["--pfile", prefix, *flags, "--out", outs[tag],
+                               "--silent"])
+                assert rc == 0, (label, tag, rc)
+                outs[tag + "_s"] = time.perf_counter() - t0
+            for ext in exts:
+                a, b, c2 = (outs[t] + ext for t in ("cuda1", "cpu", "cuda2"))
+                assert relationship_output_close(ext, b, a, text_floor=1.0), \
+                    (label, ext)
+                assert filecmp.cmp(a, c2, shallow=False), ("two CUDA runs differ", ext)
+            with open(outs["cuda1"] + ".log") as f:
+                said = [ln.strip() for ln in f if "relationships reported" in ln]
+            log(f"parity {label} [{n}x{m}, tile 512]: CUDA = CPU ({' '.join(exts)}"
+                f" by the relationship rules), two CUDA runs byte-identical; "
+                f"{' '.join(said)} (CUDA {outs['cuda1_s']:.1f}s, CPU "
+                f"{outs['cpu_s']:.1f}s)")
     finally:
         os.environ.pop("PLINK_TORCH_VB", None)
+        os.environ.pop("PLINK_TORCH_TILE", None)
         os.environ.pop("PLINK_TORCH_DEVICE", None)
 
 
@@ -848,6 +1150,8 @@ def main(argv=None):
     dev, card = card_report(torch)
     build()
     tmp = tempfile.mkdtemp(prefix="plink_torch_smoke_")
+    log(f"temporary directory {tmp}: {shutil.disk_usage(tmp).free / 1e9:.1f} GB "
+        f"free (the GRM phase needs {GRM_BYTES_NEEDED / 1e9:.1f} GB)")
     try:
         prefix = os.path.join(tmp, "panel")
         t0 = time.perf_counter()
@@ -866,6 +1170,25 @@ def main(argv=None):
                                            card, args.variants)
         trace_path(torch, qc_argv(prefix, os.path.join(tmp, "qc_traced")),
                    "QC + linear")
+        stamp("pair kernels")
+        from plink_torch.bench_gen import gen_panel
+
+        rel = os.path.join(tmp, "rel")
+        t0 = time.perf_counter()
+        gen_panel(rel, REL_PANEL[0], REL_PANEL[1], miss_rate=0.02, seed=REL_PANEL[2])
+        log(f"panel {REL_PANEL[0]}x{REL_PANEL[1]}: {time.perf_counter() - t0:.1f}s")
+        rows += check_pair_kernels(torch, dev, rel)
+        torch.cuda.empty_cache()
+        stamp("KING path")
+        paths["king"] = run_king_path(torch, rel, os.path.join(tmp, "king"), card)
+        trace_path(torch, king_argv(rel, os.path.join(tmp, "king_traced")), "KING")
+        stamp("GRM path")
+        paths["grm"] = run_grm_path(torch, rel, os.path.join(tmp, "grm"), card)
+        piece = os.path.join(tmp, "grm_traced")
+        trace_path(torch, grm_argv(rel, piece) + ["--parallel", "1", "4"],
+                   "GRM piece 1/4")
+        for ext in (".grm.bin.1", ".grm.N.bin.1"):
+            os.remove(piece + ext)
         stamp("parity")
         run_parity(tmp)
         stamp("done")

@@ -7,8 +7,8 @@ with ctypes.  The hash covers the sources and the flags, so an edited
 kernel is rebuilt and a stale library is never loaded.
 
 ``LAUNCHES`` counts, per kernel, the launches made by the wrappers in
-``ops/counts.py`` and ``ops/glm.py``; it is the only module state the port
-keeps besides the loaded libraries.
+``ops/counts.py``, ``ops/glm.py`` and ``ops/pairwise.py``; it is the only
+module state the port keeps besides the loaded libraries.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C entry point and argument types of each kernel library
 _ENTRY = {
     "geno_counts": ("pt_geno_counts", [_P, _L, _P, _P, _I, _I, _P, _P]),
@@ -42,6 +43,10 @@ _ENTRY = {
     "chol_small": ("pt_chol_small", [_P, _I, _I, _P, _P, _P, _P, _P]),
     "sample_counts": ("pt_sample_counts", [_P, _L, _I, _P, _I, _I, _P, _P]),
     "linear_sums": ("pt_linear_sums", [_P, _L, _I, _P, _I, _L, _I, _P, _P, _P]),
+    "king_gram": ("pt_king_gram", [_P, _L, _L, _P, _L, _I, _L, _I, _L, _D, _I,
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "grm_gram": ("pt_grm_gram", [_P, _L, _L, _P, _P, _P, _L, _L, _I, _L, _I,
+                                 _I, _P, _P, _P]),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(_ENTRY, 0)

@@ -3,7 +3,8 @@ runs it, in plink_tpu's order (plink_tpu/pipeline.py): load a .pgen/.bed
 fileset, apply --pheno, the sample filters (keep/remove, founders, --mind),
 the variant filters (extract/exclude, chr), the counts-based reports and
 their filters (freq, geno-counts, missing, --geno, hardy, --hwe,
---maf/--mac), then --glm.
+--maf/--mac), the relationship commands (KING, then GRM / exact PCA), then
+--glm.
 
 Every other flag raises NotPortedError before anything runs; the run never
 falls back to plink_tpu.
@@ -33,6 +34,10 @@ _PORTED_FIELDS = {
     "freq", "freq_counts", "freq_cols", "freq_zs", "geno_counts",
     "geno_counts_zs", "missing", "missing_zs", "hardy", "hardy_midp",
     "hardy_zs", "geno", "hwe", "hwe_midp", "maf", "max_maf", "mac", "max_mac",
+    # relationship commands (--pca approx / allele-wts are not ported)
+    "make_king", "make_king_mods", "make_king_table", "king_cutoff",
+    "king_cutoff_prefix", "king_table_subset", "king_table_filter",
+    "make_grm_bin", "make_grm_list", "make_rel", "pca", "parallel",
 }
 
 
@@ -157,6 +162,17 @@ def run_pipeline(cfg: Config, device) -> int:
                 phenos[nm_] = _build_pheno(nm_, col)
             ds.si.phenos = phenos
         _filter_and_report(ds, cfg, log)
+        if cfg.make_king or cfg.make_king_table or cfg.king_cutoff is not None:
+            from .commands.king import run_king
+
+            with log.phase("--make-king"):
+                run_king(ds, cfg, log)
+        if cfg.make_grm_bin or cfg.make_grm_list or cfg.make_rel \
+                or cfg.pca is not None:
+            from .commands.grm import run_grm_pca
+
+            with log.phase("--make-grm/--pca"):
+                run_grm_pca(ds, cfg, log)
         if cfg.glm:
             from .commands.glm import run_glm
 

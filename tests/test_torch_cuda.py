@@ -191,3 +191,89 @@ def test_linear_sums_kernel(dev, n, vb, dc):
     for key in k:
         assert k[key].dtype == torch.float64
         assert torch.equal(k[key], again[key])
+
+
+PAIR_SHAPES = [(150, 5, 64), (1001, 3, 700), (2300, 2, 2048)]
+
+
+def _pair_inputs(n, nb, vb, seed):
+    """Packed [nb, vb, NB] codes of n samples (NB padded to a multiple of 4
+    samples), an int8 variant mask with zeros, and GRM coefficients."""
+    rng = np.random.default_rng(seed)
+    packed, _, _ = _inputs(n, nb * vb, 2, seed)
+    vmask = (rng.random((nb, vb)) < 0.9).astype(np.int8)
+    coef = (rng.normal(size=(nb, vb, 3)) * vmask[..., None]).astype(np.float32)
+    return packed.reshape(nb, vb, -1), vmask, coef
+
+
+def _pair_tiles(npad):
+    """The whole panel as one diagonal tile, and an off-diagonal tile whose
+    sides are not multiples of the kernels' 64 / 128-sample blocks."""
+    s = (npad // 3) // 4 * 4
+    return [(0, 0, npad, npad), (npad - s, 4, s, s - 8)]
+
+
+@pytest.mark.parametrize("n,nb,vb", PAIR_SHAPES)
+def test_king_gram_kernel(dev, n, nb, vb):
+    """K7 equals its plain version exactly: the six counters, and kin (bit
+    for bit), nsnp / hethet / ibs0, the pass mask and count; twice."""
+    from plink_torch.ops.pairwise import (king_gram, king_gram_plain,
+                                          pairwise_inputs_from_numpy)
+
+    packed, vmask, _ = _pair_inputs(n, nb, vb, 11)
+    pk, vm = pairwise_inputs_from_numpy(packed, vmask, device=dev)
+    for r0, c0, s, t in _pair_tiles(pk.shape[2] * 4):
+        k = king_gram(pk, vm, r0, c0, s, t, counts=True)
+        assert torch.equal(k, king_gram_plain(pk, vm, r0, c0, s, t, counts=True))
+        for thresh in (-np.inf, 0.02):
+            k = king_gram(pk, vm, r0, c0, s, t, n=n, thresh=thresh)
+            p = king_gram_plain(pk, vm, r0, c0, s, t, n=n, thresh=thresh)
+            assert k[0].cpu().numpy().tobytes() == p[0].cpu().numpy().tobytes()
+            assert all(torch.equal(a, b) for a, b in zip(k[1:], p[1:]))
+            again = king_gram(pk, vm, r0, c0, s, t, n=n, thresh=thresh)
+            assert all(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+                       for a, b in zip(k, again))
+
+
+@pytest.mark.parametrize("n,nb,vb", PAIR_SHAPES)
+def test_grm_gram_kernel(dev, n, nb, vb):
+    """K8 against its plain version and an f64 numpy product, each entry
+    normalised by sqrt(sum Z_i^2 sum Z_j^2): tile and chunk modes, the pair
+    counts exact, two runs identical."""
+    from plink_torch.ops.pairwise import (grm_gram, grm_gram_plain,
+                                          pairwise_inputs_from_numpy,
+                                          sample_miss_counts)
+    from plink_torch.ops.planes import _unpack_np
+
+    packed, vmask, coef = _pair_inputs(n, nb, vb, 12)
+    pk, vm, cf = pairwise_inputs_from_numpy(packed, vmask, coef, dev)
+    miss = sample_miss_counts(pk, vm)
+    mv = int(vmask.sum())
+    codes = _unpack_np(packed.reshape(nb * vb, -1)).astype(np.int64)
+    z = np.take_along_axis(coef.reshape(-1, 3).astype(np.float64),
+                           np.minimum(codes, 2), axis=1)
+    z[codes == 3] = 0.0
+    for r0, c0, s, t in _pair_tiles(pk.shape[2] * 4):
+        ref = z[:, r0 : r0 + s].T @ z[:, c0 : c0 + t]
+        d_r = (z[:, r0 : r0 + s] ** 2).sum(0)
+        d_c = (z[:, c0 : c0 + t] ** 2).sum(0)
+        scale = np.sqrt(np.outer(d_r, d_c)).clip(min=1e-30)
+        for fetch32 in (False, True):
+            acc, nm = grm_gram(pk, cf, vm, miss, mv, r0, c0, s, t, tile=True,
+                               fetch32=fetch32)
+            pacc, pnm = grm_gram_plain(pk, cf, vm, miss, mv, r0, c0, s, t,
+                                       tile=True, fetch32=fetch32)
+            assert torch.equal(nm, pnm)
+            for a in (acc, pacc):
+                assert float((np.abs(a.double().cpu().numpy() - ref) / scale).max()) <= TOL
+            again = grm_gram(pk, cf, vm, miss, mv, r0, c0, s, t, tile=True,
+                             fetch32=fetch32)
+            assert torch.equal(acc, again[0])
+        g, gnm = grm_gram(pk, cf, vm, miss, mv, r0, c0, s, t)
+        pg, pgnm = grm_gram_plain(pk, cf, vm, miss, mv, r0, c0, s, t)
+        assert gnm.dtype == torch.float32
+        assert torch.equal(gnm, pgnm) and torch.equal(gnm, pnm.float())
+        nmv = pnm.double().cpu().numpy()
+        err = np.abs(g.double().cpu().numpy() - ref / nmv) * nmv / scale
+        assert float(np.nanmax(err)) <= TOL
+        assert torch.equal(g, grm_gram(pk, cf, vm, miss, mv, r0, c0, s, t)[0])

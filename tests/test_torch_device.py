@@ -67,14 +67,14 @@ def test_bad_device_name_refused(tiny, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--make-king-table"],
+    ["--pca", "4", "approx"],
     ["--freq", "cols=+machr2"],
     ["--glm", "interaction", "--covar", "{p}.cov"],
     ["--glm", "cc-residualize", "hide-covar", "--covar", "{p}.cov"],
     ["--glm", "--covar", "{p}.cov", "--maf", "0.01", "--af-pseudocount", "1"],
     ["--glm", "hide-covar", "qt-residualize", "--covar", "{p}.cov", "--pheno",
      "{p}.qt"],
-], ids=["king", "freq", "interaction", "cc-residualize", "maf-filter",
+], ids=["pca-approx", "freq", "interaction", "cc-residualize", "maf-filter",
         "quantitative"])
 def test_unported_flag_says_so(tiny, tmp_path, args, monkeypatch, capsys):
     args = [a.format(p=tiny) for a in args]
