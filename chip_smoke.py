@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which raises on failure (nothing is caught):
   1. card report: name and power limit, torch / CUDA versions, TF32 off;
   2. build: every kernel under plink_torch/csrc with nvcc (in parallel);
-  3. kernels: each kernel (K1-K6) against its plain PyTorch version on the
+  3. kernels: K1-K6 against their plain PyTorch versions on the
      card, at the main paths' shapes (500,000 samples, d = 13), with its
      time, the plain version's time, one library call's time and the card's
      bound;
@@ -33,10 +33,23 @@ Phases, each of which raises on failure (nothing is caught):
      launched; then the KING path and a `--parallel 1 4` GRM piece under
      torch.profiler.  The GRM phase writes ~10.1 GB to the temporary
      directory (its free space is printed first);
-  8. parity: a 2,000 x 1,200 panel through the port on the card and on the
-     CPU (plain versions), hybrid, firth, QC + linear, KING + GRM and .rel +
-     exact PCA, compared column by column; two card runs must give
-     identical bytes.
+  8. PCA / LD kernels: K9 (X q at L = 20 and 220) and K10 (X^T b at L = 20)
+     over every block of bench.py's pca_100k panel (100,000 x 32,768, 10
+     planted axes) against their plain versions in f32 and in f64, with a
+     TF32 control that must fail the f64 limit; K11 on the whole indep_10k
+     subcontig (10,000 x 32,768, width 200), bits and counts exact; each
+     timed beside its bound and one library call;
+  9. PCA path: `--pca 10 approx --seed 13` on pca_100k against plink2's
+     .eigenvec (every 5th row, |corr| > 0.98 per PC) and .eigenval (1%),
+     then with allele-wts (64 variants' weights against numpy's f64); K1,
+     K9 and K10 must have launched; then under torch.profiler;
+ 10. indep path: `--indep-pairwise 200 50 0.2` on indep_10k, the .prune.in
+     set-equal to plink2's; K1 and K11 launched; then under torch.profiler;
+ 11. parity: a 2,000 x 1,200 panel through the port on the card and on the
+     CPU (plain versions), hybrid, firth, QC + linear, KING + GRM, .rel +
+     exact PCA, approx PCA + allele-wts (on a panel of that size with 5
+     planted axes) and --indep-pairwise, compared column by column; two
+     card runs must give identical bytes.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
@@ -119,6 +132,38 @@ REL_PARITY = (
 GOLDEN = os.path.join(HERE, "chip_smoke_golden.tsv.gz")
 GOLDEN_SRC = os.path.join(HERE, "bench_golden",
                           "o_glm.PHENO1.glm.logistic.hybrid.zst")
+# the PCA and LD cells: bench.py's pca_100k (`--pca 10 approx --seed 13` on
+# p100000x32768s: seed 7, 10 planted structure axes, no missing calls;
+# bench.py:464-466,597-598) and indep_10k (`--indep-pairwise 200 50 0.2` on
+# p10000x32768: seed 42, 2% missing calls; bench.py:451-453,591-592), full
+# width
+PCA_PANEL = (100_000, 32_768, 7, 10)  # samples, variants, seed, axes
+IND_PANEL = (10_000, 32_768, 42)
+PCA_ARGS = ["--pca", "10", "approx", "--seed", "13"]
+IND_ARGS = ["--indep-pairwise", "200", "50", "0.2"]
+# plink2's outputs on those panels (bench_golden/o_pca.eigenvec.sub5.zst,
+# every 5th row; o_indep.prune.in.zst), gzip copies for the card's machine
+# (`--write-golden`); o_pca.eigenval is plain text
+PCA_GOLDEN = os.path.join(HERE, "chip_smoke_golden_pca.eigenvec.sub5.gz")
+IND_GOLDEN = os.path.join(HERE, "chip_smoke_golden_indep.prune.in.gz")
+PCA_EIGENVAL = os.path.join(HERE, "bench_golden", "o_pca.eigenval")
+# K9 / K10 against the plain version in f64, normalised as above: <= 2,048-
+# term f32 runs added in f64 (K9 over samples, K10 over a block's variants);
+# the same runs with TF32 inputs must land above it (chip_smoke checks it)
+TOL_PCA_F64 = 2e-6
+N_WTS_ROWS = 64  # .eigenvec.allele rows checked against numpy's f64 weights
+# parity cases of the PCA / LD paths (the PCA case on a panel of the parity
+# panel's size with 5 planted axes, so that all 4 PCs are planted: a PC in
+# the noise bulk has no well-determined direction, and with 3 axes the 4th
+# PC's weights differ by more than the 1e-4 rule between two f32 summation
+# orders)
+PCA_LD_PARITY = (
+    ("pca_approx_wts", "structured", ["--pca", "4", "approx", "allele-wts",
+                                      "--seed", "5"],
+     (".eigenval", ".eigenvec", ".eigenvec.allele")),
+    ("indep", "small", ["--indep-pairwise", "50", "5", "0.2"],
+     (".prune.in", ".prune.out")),
+)
 
 
 _T0 = time.perf_counter()
@@ -151,7 +196,8 @@ def card_report(torch):
 def build():
     """Build every kernel library; print per kernel entry (template
     arguments from the mangled name) its registers and spill bytes, for the
-    covariate width of the main path (dc = 12) and wherever ptxas spilled."""
+    untemplated kernels, the covariate width of the main path (dc = 12) and
+    wherever ptxas spilled."""
     from plink_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -172,7 +218,7 @@ def build():
                 args = re.findall(r"Li(\d+)E", entry)
                 short = re.search(r"\d+([a-z_]+_kernel)", entry)
                 short = short.group(1) if short else entry
-                if spill or (args and args[0] in ("12", "13", "15")):
+                if spill or not args or args[0] in ("12", "13", "15"):
                     log(f"  {short}<{','.join(args)}>: {m.group(1)} registers, "
                         f"{spill} bytes spilled")
                 entry, spill = None, 0
@@ -712,6 +758,206 @@ def check_pair_kernels(torch, dev, prefix):
     return rows
 
 
+def pca_operands(torch, prefix, dev):
+    """The PCA path's operands on the card (commands/pca.py `_Operands`:
+    packed blocks, coefficients from the founders' allele frequencies, the
+    sample mask) and the per-variant / per-sample sums of Z^2 in f64."""
+    import types
+
+    from plink_torch.commands.pca import _Operands
+    from plink_torch.dataset import load_dataset
+    from plink_torch.ops.pca import _normed_block
+
+    ops = _Operands(load_dataset(prefix, dev), types.SimpleNamespace(nonfounders=False))
+    pk, cf, sm = ops.pd.packed, ops.coef, ops.smask
+    nb, vb, _ = pk.shape
+    z2v = torch.empty(nb * vb, dtype=torch.float64, device=dev)
+    z2s = torch.zeros(sm.shape[0], dtype=torch.float64, device=dev)
+    for k in range(nb):
+        z2 = _normed_block(pk[k], cf[k].double(), sm) ** 2
+        z2v[k * vb : (k + 1) * vb] = z2.sum(1)
+        z2s += z2.sum(0)
+        del z2
+    return ops, z2v, z2s
+
+
+def check_pca_kernels(torch, dev, prefix):
+    """Phase 9a: K9 at L = 20 (the power iterations) and L = 220 (the
+    projection) and K10 at L = 20, over every block of the pca_100k panel as
+    the path lays it out, against the plain version in f32 (TOL_VS_PLAIN)
+    and in f64 (TOL_PCA_F64), each entry normalised by its Cauchy-Schwarz
+    scale sqrt(sum Z^2 * sum q^2) over the contracted axis; a TF32 control
+    of the same runs must fail the f64 limit; two runs identical."""
+    from plink_torch.ops import pca as P
+
+    ops, z2v, z2s = pca_operands(torch, prefix, dev)
+    pk, cf, sm = ops.pd.packed, ops.coef, ops.smask
+    nb, vb, nbytes = pk.shape
+    npad, n = sm.shape[0], ops.pd.n
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+
+    def errs(got, plain, ref, scale):
+        return tuple(norm_err(torch, a.double(), b.double(), scale)
+                     for a, b in ((got, plain), (got, ref), (plain, ref)))
+
+    def tf32_runs(fn):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    z0 = P._normed_block(pk[0], cf[0], sm)  # the library calls' input
+    for L in (20, 220):
+        q = torch.randn((npad, L), generator=gen, device=dev)
+        q[n:] = 0.0
+        got = P.x_apply(pk, cf, sm, q)
+        plain = P.x_apply_plain(pk, cf, sm, q)
+        ref = P.x_apply_plain(pk, cf.double(), sm, q.double())
+        scale = torch.sqrt(z2v[:, None] * (q.double() ** 2).sum(0)[None, :]
+                           ).clamp(min=1e-30).reshape(nb, vb, L)
+        e, er, epr = errs(got, plain, ref, scale)
+        assert e <= TOL_VS_PLAIN and er <= TOL_PCA_F64, ("K9", L, e, er)
+        assert torch.equal(got, P.x_apply(pk, cf, sm, q)), "K9 is not deterministic"
+        line = ""
+        extra = {}
+        if L == 20:
+            # K9's runs (2,048 samples in f32, added in f64) with TF32 inputs
+            def ctl_x():
+                out = torch.zeros_like(ref)
+                for k in range(nb):
+                    z = P._normed_block(pk[k], cf[k], sm)
+                    for r0 in range(0, npad, P.RUN):
+                        out[k] += (z[:, r0 : r0 + P.RUN] @ q[r0 : r0 + P.RUN]).double()
+                return out
+            ectl = norm_err(torch, tf32_runs(ctl_x), ref, scale)
+            assert ectl > TOL_PCA_F64, ("the TF32 control passes K9's limit", ectl)
+            extra = dict(tf32_control_norm_err=ectl)
+            line = f"; the TF32 control {ectl:.2e} fails it"
+        ms = time_ms(torch, lambda: P.x_apply(pk, cf, sm, q), 3) / nb
+        pms = time_ms(torch, lambda: P.x_apply_plain(pk[:1], cf[:1], sm, q), 1)
+        lib = time_ms(torch, lambda: torch.matmul(z0, q), 5)
+        flops = 2 * vb * n * L
+        nbytes_io = vb * nbytes + vb * 12 + npad * 4 + npad * L * 4 + vb * L * 4
+        row = dict(name="pca_x", source="plink_torch/csrc/pca_apply.cu",
+                   replaces="plink_tpu/ops/pca.py:64",
+                   also_replaces="plink_tpu/ops/pca.py:37", L=L,
+                   max_abs_err=float((got - plain).abs().max()),
+                   max_norm_err=e, tol=TOL_VS_PLAIN, max_norm_err_f64=er,
+                   tol_f64=TOL_PCA_F64, ms=ms, plain_ms=pms,
+                   **_bound(flops, nbytes_io), library_ms=lib, **extra)
+        if rows:  # the projection's width rides in the L = 20 row
+            rows[0][f"at_L{L}"] = row
+        else:
+            rows.append(row)
+        log(f"K9 pca_x [{vb}x{npad}, L={L}, {nb} blocks]: norm err vs plain "
+            f"{e:.2e} (tol {TOL_VS_PLAIN:g}), vs f64 {er:.2e} (tol {TOL_PCA_F64:g};"
+            f" plain vs f64 {epr:.2e}){line}, two runs identical; {ms:.3f} ms a "
+            f"launch, plain {pms:.1f} ms, f32 matmul {lib:.3f} ms, bound "
+            f"{row['bound_ms']:.3f} ms")
+        del got, plain, ref, scale, q
+
+    L = 20
+    b = torch.randn((nb, vb, L), generator=gen, device=dev)
+    got = P.xt_apply(pk, cf, sm, b)
+    plain = P.xt_apply_plain(pk, cf, sm, b)
+    ref = P.xt_apply_plain(pk, cf.double(), sm, b.double())
+    scale = torch.sqrt(z2s[:, None] * (b.double().reshape(-1, L) ** 2).sum(0)[None, :]
+                       ).clamp(min=1e-30)
+    e, er, epr = errs(got, plain, ref, scale)
+    assert e <= TOL_VS_PLAIN and er <= TOL_PCA_F64, ("K10", e, er)
+    assert torch.equal(got, P.xt_apply(pk, cf, sm, b)), "K10 is not deterministic"
+
+    def ctl_xt():  # K10's runs (one block's variants) with TF32 inputs
+        out = torch.zeros_like(ref)
+        for k in range(nb):
+            out += (P._normed_block(pk[k], cf[k], sm).t() @ b[k]).double()
+        return out
+    ectl = norm_err(torch, tf32_runs(ctl_xt), ref, scale)
+    assert ectl > TOL_PCA_F64, ("the TF32 control passes K10's limit", ectl)
+    ms = time_ms(torch, lambda: P.xt_apply(pk, cf, sm, b), 3) / nb
+    pms = time_ms(torch, lambda: P.xt_apply_plain(pk[:1], cf[:1], sm, b[:1]), 1)
+    lib = time_ms(torch, lambda: torch.matmul(z0.t(), b[0]), 5)
+    flops = 2 * vb * n * L
+    nbytes_io = vb * nbytes + vb * 12 + npad * 4 + vb * L * 4 + 2 * npad * L * 8
+    rows.append(dict(name="pca_xt", source="plink_torch/csrc/pca_apply.cu",
+                     replaces="plink_tpu/ops/pca.py:82",
+                     also_replaces="plink_tpu/ops/pca.py:37", L=L,
+                     max_abs_err=float((got - plain).abs().max()), max_norm_err=e,
+                     tol=TOL_VS_PLAIN, max_norm_err_f64=er, tol_f64=TOL_PCA_F64,
+                     tf32_control_norm_err=ectl, ms=ms, plain_ms=pms,
+                     **_bound(flops, nbytes_io), library_ms=lib))
+    log(f"K10 pca_xt [{vb}x{npad}, L={L}, {nb} blocks]: norm err vs plain "
+        f"{e:.2e} (tol {TOL_VS_PLAIN:g}), vs f64 {er:.2e} (tol {TOL_PCA_F64:g}; "
+        f"plain vs f64 {epr:.2e}); the TF32 control {ectl:.2e} fails it, two "
+        f"runs identical; {ms:.3f} ms a launch, plain {pms:.1f} ms, f32 matmul "
+        f"{lib:.3f} ms, bound {rows[-1]['bound_ms']:.3f} ms")
+    del ops, z2v, z2s, z0, got, plain, ref, scale, b
+    return rows
+
+
+def check_ld_kernel(torch, dev, prefix):
+    """Phase 9b: K11 on the whole indep_10k subcontig (32,768 variants, all
+    10,000 samples founders, width 200) against its plain version: bits and
+    counts equal at r^2 0.2 (the path's threshold; iid genotypes, so few or
+    no pairs pass) and at 0.001 (thousands pass, the f64 products past 2^53
+    decide); two runs identical; timed at 0.2."""
+    import numpy as np
+
+    from plink_torch.commands.ld import _subcontig_rows
+    from plink_torch.dataset import load_dataset
+    from plink_torch.ops import ld as LD
+
+    ds = load_dataset(prefix, dev)
+    n, V = ds.raw_sample_ct, ds.raw_variant_ct
+    npad = -(-n // 4) * 4
+    smask = np.zeros(npad, np.int8)
+    smask[:n] = 1
+    rows = _subcontig_rows(ds, np.arange(V), np.arange(n), npad)
+    sm = torch.from_numpy(smask).to(dev)
+    width = int(IND_ARGS[1])
+    set_bits = {}
+    for r2t in (float(IND_ARGS[3]), 0.001):
+        got = LD.ld_band_bits(rows, sm, width, r2t)
+        ref = LD.ld_band_bits_plain(rows, sm, width, r2t)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), ("K11", r2t)
+        again = LD.ld_band_bits(rows, sm, width, r2t)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), "K11 not deterministic"
+        set_bits[r2t] = int(got[0].sum())
+    assert set_bits[0.001] > 1000, set_bits
+    r2t = float(IND_ARGS[3])
+    ms = time_ms(torch, lambda: LD.ld_band_bits(rows, sm, width, r2t), 5)
+    pms = time_ms(torch, lambda: LD.ld_band_bits_plain(rows, sm, width, r2t), 1)
+    # library: plink_tpu's form, the bf16 RAV planes of each 512-variant chunk
+    # against those of the chunk and the next, one batched matmul to f32
+    c = 512
+    nc = -(-V // c)
+    pl = torch.zeros((nc + 1, 3 * c, npad), dtype=torch.bfloat16, device=dev)
+    for k in range(nc):
+        blk = LD._planes_rav(rows[k * c : (k + 1) * c], sm).to(torch.bfloat16)
+        pl[k, : blk.shape[0]] = blk
+    a = pl[:nc]
+    bb = torch.cat([pl[:nc], pl[1:]], dim=1)
+    lib = time_ms(torch, lambda: torch.bmm(a, bb.transpose(1, 2),
+                                           out_dtype=torch.float32), 3)
+    del pl, a, bb
+    pairs = sum(min(width, V - 1 - i) for i in range(V))
+    ops = 6 * 2 * pairs * n  # x x, x V, |x| V, V x, V |x|, V V on int8 cores
+    nbytes_io = rows.numel() + npad + V * (width + 1) + 3 * 4 * V
+    t_ops, t_bytes = 1e3 * ops / INT8_OPS_PER_S, 1e3 * nbytes_io / HBM_BYTES_PER_S
+    log(f"K11 ld_band_bits [{V} variants x {n} samples, w={width}]: bits and "
+        f"counts = plain at r^2 0.2 ({set_bits[0.2]} pairs pass) and 0.001 "
+        f"({set_bits[0.001]} pass), two runs identical; {ms:.3f} ms, plain "
+        f"{pms:.1f} ms, bf16 bmm {lib:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms")
+    return [dict(name="ld_band_bits", source="plink_torch/csrc/ld_band.cu",
+                 replaces="plink_tpu/ops/ld.py:127", max_abs_err=0.0, tol=0.0,
+                 pairs_set=set_bits, ms=ms, plain_ms=pms,
+                 bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 library_ms=lib)]
+
+
 def _bound(ops, nbytes):
     t_ops = 1e3 * ops / FP32_FLOP_PER_S
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -728,13 +974,20 @@ def read_report(path, limit=None):
 
 
 def write_golden():
+    """gzip copies (mtime 0) of the plink2 outputs chip_smoke reads, from
+    bench_golden/'s zstandard files."""
     import zstandard
 
-    with open(GOLDEN_SRC, "rb") as f:
-        text = zstandard.ZstdDecompressor().stream_reader(f).read().decode()
-    with open(GOLDEN, "wb") as raw, \
-            gzip.GzipFile(fileobj=raw, mode="wb", mtime=0) as g:
-        g.write(text.encode())
+    for src, dst in ((GOLDEN_SRC, GOLDEN),
+                     (os.path.join(HERE, "bench_golden", "o_pca.eigenvec.sub5.zst"),
+                      PCA_GOLDEN),
+                     (os.path.join(HERE, "bench_golden", "o_indep.prune.in.zst"),
+                      IND_GOLDEN)):
+        with open(src, "rb") as f:
+            text = zstandard.ZstdDecompressor().stream_reader(f).read()
+        with open(dst, "wb") as raw, \
+                gzip.GzipFile(fileobj=raw, mode="wb", mtime=0) as g:
+            g.write(text)
 
 
 def float_allowed(col, y):
@@ -1052,6 +1305,114 @@ def run_grm_path(torch, prefix, out, card):
     return launches
 
 
+def pca_argv(prefix, out, wts=False):
+    mods = ["allele-wts"] if wts else []  # a modifier of --pca: before --seed
+    return (["--pfile", prefix, *PCA_ARGS[:3], *mods, *PCA_ARGS[3:], "--out",
+             out, "--silent"])
+
+
+def ind_argv(prefix, out):
+    return ["--pfile", prefix, *IND_ARGS, "--out", out, "--silent"]
+
+
+def check_pca_golden(out):
+    """bench.py's rule (`_parity_pca`): every 5th .eigenvec row against
+    plink2's, |corr| > 0.98 per PC, and each eigenvalue within 1% of
+    plink2's.  Returns (smallest |corr|, largest eigenvalue error)."""
+    import numpy as np
+
+    with open(out + ".eigenvec") as f:
+        f.readline()
+        a = np.array([[float(x) for x in ln.split()[1:]]
+                      for i, ln in enumerate(f) if i % 5 == 0])
+    with gzip.open(PCA_GOLDEN, "rt") as f:
+        f.readline()
+        b = np.array([[float(x) for x in ln.split()[1:]] for ln in f])
+    assert a.shape == b.shape, (a.shape, b.shape)
+    corr = [abs(np.corrcoef(a[:, j], b[:, j])[0, 1]) for j in range(a.shape[1])]
+    va, vb = np.loadtxt(out + ".eigenval"), np.loadtxt(PCA_EIGENVAL)
+    rel = np.abs(va - vb) / np.abs(vb)
+    assert min(corr) > 0.98 and rel.max() <= 0.01, (corr, rel)
+    return min(corr), float(rel.max())
+
+
+def check_allele_wts(prefix, out):
+    """The .eigenvec.allele of the allele-wts run: two rows a variant (REF
+    +w, ALT -w), and N_WTS_ROWS variants' weights equal to numpy's f64
+    0.5 (Z_v . u) / sqrt(lambda) within 1e-4, Z from the fixed-width .pgen
+    (every sample a founder), u and lambda the run's own outputs."""
+    import numpy as np
+
+    with open(out + ".eigenvec.allele") as f:
+        rows = [ln.rstrip("\n").split("\t") for ln in f][1:]
+    V, n = PCA_PANEL[1], PCA_PANEL[0]
+    assert len(rows) == 2 * V, len(rows)
+    with open(prefix + ".pgen", "rb") as f:
+        head = f.read(12)
+    assert head[:3] == b"\x6c\x1b\x02", head  # fixed-width 2-bit records
+    M, N = (int(x) for x in np.frombuffer(head[3:11], "<u4"))
+    pg = np.memmap(prefix + ".pgen", np.uint8, "r", offset=12, shape=(M, (N + 3) // 4))
+    lam = np.loadtxt(out + ".eigenval")
+    u = np.loadtxt(out + ".eigenvec", skiprows=1, usecols=range(1, 11))
+    shifts = np.arange(0, 8, 2, dtype=np.uint8)
+    worst = 0.0
+    for v in np.linspace(0, V - 1, N_WTS_ROWS).round().astype(int):
+        g = ((pg[v][:, None] >> shifts) & 3).reshape(-1)[:n].astype(np.float64)
+        ok = g != 3
+        p = g[ok].sum() / (2 * ok.sum())
+        z = np.where(ok, (g - 2 * p) / np.sqrt(2 * p * (1 - p)), 0.0)
+        want = 0.5 * (z @ u) / np.sqrt(lam)
+        r, a = rows[2 * v], rows[2 * v + 1]
+        assert r[1] == a[1] == f"snp{v}", (r[:2], v)
+        got = np.array(r[-10:], np.float64)
+        assert np.array_equal(np.array(a[-10:], np.float64), -got), v
+        worst = max(worst, float(np.abs(got - want).max()))
+    assert worst <= 1e-4, worst
+    return worst
+
+
+def run_pca_path(torch, prefix, out, card):
+    """Phase 10: `--pca 10 approx --seed 13` on the pca_100k panel against
+    plink2's goldens, then with allele-wts; K1, K9 and K10 launched."""
+    n_blocks = -(-PCA_PANEL[1] // 2048)
+    wall, launches = drive(torch, pca_argv(prefix, out), out)
+    corr, rel = check_pca_golden(out)
+    pc_ct = int(PCA_ARGS[1])
+    assert launches["geno_counts"] > 0, launches
+    assert launches["pca_x"] == n_blocks * (pc_ct + 1), launches
+    assert launches["pca_xt"] == n_blocks * pc_ct, launches
+    log(f"PCA path {PCA_PANEL[0]}x{PCA_PANEL[1]} ({' '.join(PCA_ARGS)}): "
+        f"{wall:.2f}s wall on {card}; = plink2's (every 5th .eigenvec row, "
+        f"|corr| >= {corr:.6f} per PC; eigenvalues within {100 * rel:.3f}%); "
+        f"launches {launches}")
+    wts_out = out + "_wts"
+    wall_w, launches_w = drive(torch, pca_argv(prefix, wts_out, wts=True), wts_out)
+    corr_w, _ = check_pca_golden(wts_out)
+    worst = check_allele_wts(prefix, wts_out)
+    assert launches_w["pca_x"] == n_blocks * (pc_ct + 2), launches_w
+    log(f"PCA allele-wts path: {wall_w:.2f}s wall on {card}; .eigenvec "
+        f"|corr| >= {corr_w:.6f}; {2 * PCA_PANEL[1]} .eigenvec.allele rows, "
+        f"{N_WTS_ROWS} variants = numpy f64 within {worst:.2e}; launches "
+        f"{launches_w}")
+    return launches, launches_w
+
+
+def run_indep_path(torch, prefix, out, card):
+    """Phase 11: `--indep-pairwise 200 50 0.2` on the indep_10k panel; the
+    .prune.in set-equal to plink2's; K1 and K11 launched."""
+    wall, launches = drive(torch, ind_argv(prefix, out), out)
+    with open(out + ".prune.in") as f:
+        got = set(f.read().split())
+    with gzip.open(IND_GOLDEN, "rt") as f:
+        want = set(f.read().split())
+    assert got == want, f"{len(got ^ want)} IDs differ from plink2's .prune.in"
+    assert launches["ld_band_bits"] == 1 and launches["geno_counts"] > 0, launches
+    log(f"indep path {IND_PANEL[0]}x{IND_PANEL[1]} ({' '.join(IND_ARGS)}): "
+        f"{wall:.2f}s wall on {card}; .prune.in set-equal to plink2's "
+        f"({len(got)} kept); launches {launches}")
+    return launches
+
+
 def run_parity(tmp):
     """Phase 8: the 2,000 x 1,200 panel through the port on the card and on
     the CPU (plain versions): hybrid, firth, the QC + linear path, and the
@@ -1118,6 +1479,32 @@ def run_parity(tmp):
                 said = [ln.strip() for ln in f if "relationships reported" in ln]
             log(f"parity {label} [{n}x{m}, tile 512]: CUDA = CPU ({' '.join(exts)}"
                 f" by the relationship rules), two CUDA runs byte-identical; "
+                f"{' '.join(said)} (CUDA {outs['cuda1_s']:.1f}s, CPU "
+                f"{outs['cpu_s']:.1f}s)")
+        os.environ.pop("PLINK_TORCH_TILE")
+        from plink_torch.bench_gen import gen_panel
+
+        panels = {"small": prefix, "structured": os.path.join(tmp, "small_k5")}
+        gen_panel(panels["structured"], n, m, seed=7, k=5)
+        for label, panel, flags, exts in PCA_LD_PARITY:
+            outs = {}
+            for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"),
+                                 ("cuda2", "cuda")):
+                os.environ["PLINK_TORCH_DEVICE"] = devname
+                outs[tag] = os.path.join(tmp, f"{tag}_{label}")
+                t0 = time.perf_counter()
+                rc = cli.main(["--pfile", panels[panel], *flags, "--out",
+                               outs[tag], "--silent"])
+                assert rc == 0, (label, tag, rc)
+                outs[tag + "_s"] = time.perf_counter() - t0
+            for ext in exts:
+                a, b, c2 = (outs[t] + ext for t in ("cuda1", "cpu", "cuda2"))
+                assert relationship_output_close(ext, b, a), (label, ext)
+                assert filecmp.cmp(a, c2, shallow=False), ("two CUDA runs differ", ext)
+            with open(outs["cuda1"] + ".log") as f:
+                said = [ln.strip() for ln in f if "variants removed" in ln]
+            log(f"parity {label} [{n}x{m}, {panel}]: CUDA = CPU ({' '.join(exts)}"
+                f" by the CLI tests' rules), two CUDA runs byte-identical; "
                 f"{' '.join(said)} (CUDA {outs['cuda1_s']:.1f}s, CPU "
                 f"{outs['cpu_s']:.1f}s)")
     finally:
@@ -1189,6 +1576,25 @@ def main(argv=None):
                    "GRM piece 1/4")
         for ext in (".grm.bin.1", ".grm.N.bin.1"):
             os.remove(piece + ext)
+        stamp("PCA / LD kernels")
+        p4, p2 = os.path.join(tmp, "pca"), os.path.join(tmp, "ind")
+        t0 = time.perf_counter()
+        gen_panel(p4, PCA_PANEL[0], PCA_PANEL[1], miss_rate=0.0, seed=PCA_PANEL[2],
+                  k=PCA_PANEL[3])
+        gen_panel(p2, IND_PANEL[0], IND_PANEL[1], miss_rate=0.02, seed=IND_PANEL[2])
+        log(f"panels {PCA_PANEL[0]}x{PCA_PANEL[1]} (k={PCA_PANEL[3]}) and "
+            f"{IND_PANEL[0]}x{IND_PANEL[1]}: {time.perf_counter() - t0:.1f}s")
+        rows += check_pca_kernels(torch, dev, p4)
+        rows += check_ld_kernel(torch, dev, p2)
+        torch.cuda.empty_cache()
+        stamp("PCA path")
+        paths["pca"], paths["pca_wts"] = run_pca_path(
+            torch, p4, os.path.join(tmp, "pca_out"), card)
+        trace_path(torch, pca_argv(p4, os.path.join(tmp, "pca_traced")), "PCA approx")
+        stamp("indep path")
+        paths["indep"] = run_indep_path(torch, p2, os.path.join(tmp, "ind_out"), card)
+        trace_path(torch, ind_argv(p2, os.path.join(tmp, "ind_traced")),
+                   "indep-pairwise")
         stamp("parity")
         run_parity(tmp)
         stamp("done")

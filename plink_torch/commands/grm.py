@@ -14,7 +14,8 @@ Output formats (verified against a locally built plink2):
 - .rel / .rel.id : text relationship matrix (triangle incl. diagonal by
   default; 'square'/'square0' modifiers), GCTA-compatible.
 - .eigenvec / .eigenval : unit-norm GRM eigenvectors (sample-major) and
-  eigenvalues; exact mode = full eigendecomposition of the GRM.
+  eigenvalues; exact mode = full eigendecomposition of the GRM; approx
+  mode streams the genotypes (commands/pca.py) without the matrix.
 """
 
 from __future__ import annotations
@@ -232,9 +233,13 @@ def _write_id_file(path: str, si, inc) -> None:
 
 
 def run_grm_pca(ds: Dataset, cfg, log: RunLogger) -> None:
+    from .pca import run_pca
+
     inc = np.flatnonzero(ds.sample_mask)
     n = inc.size
-    needs_matrix = cfg.make_grm_list or cfg.make_rel or cfg.pca is not None
+    # --pca approx streams the genotypes and never builds the N x N matrix
+    want_exact_pca = cfg.pca is not None and not cfg.pca_approx
+    needs_matrix = cfg.make_grm_list or cfg.make_rel or want_exact_pca
     if getattr(cfg, "parallel", None) is not None and cfg.make_grm_bin \
             and needs_matrix:
         raise ValueError(
@@ -243,9 +248,13 @@ def run_grm_pca(ds: Dataset, cfg, log: RunLogger) -> None:
     if cfg.make_grm_bin and not needs_matrix:
         # streaming path: nothing else needs the resident N x N matrix
         _stream_grm_bin(ds, cfg, log)
+        if cfg.pca is not None:
+            run_pca(ds, cfg, log, grm=None)
         return
-    grm, nm = _grm_matrix(ds, cfg, log)
-    log.log(f"{ds.variant_ct} variants used in GRM computation.")
+    grm = None
+    if cfg.make_grm_bin or needs_matrix:
+        grm, nm = _grm_matrix(ds, cfg, log)
+        log.log(f"{ds.variant_ct} variants used in GRM computation.")
 
     si = ds.si
     if cfg.make_grm_list:
@@ -294,6 +303,4 @@ def run_grm_pca(ds: Dataset, cfg, log: RunLogger) -> None:
         log.log(f"--make-rel: Matrix written to {path} + {cfg.out}.rel.id .")
 
     if cfg.pca is not None:
-        from .pca import run_pca
-
         run_pca(ds, cfg, log, grm=grm)

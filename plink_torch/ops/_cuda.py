@@ -6,9 +6,11 @@ under the repository root, a shared library with a plain C interface loaded
 with ctypes.  The hash covers the sources and the flags, so an edited
 kernel is rebuilt and a stale library is never loaded.
 
-``LAUNCHES`` counts, per kernel, the launches made by the wrappers in
-``ops/counts.py``, ``ops/glm.py`` and ``ops/pairwise.py``; it is the only
-module state the port keeps besides the loaded libraries.
+``LAUNCHES`` counts, per kernel entry point, the launches made by the
+wrappers in ``ops/counts.py``, ``ops/glm.py``, ``ops/pairwise.py``,
+``ops/pca.py`` and ``ops/ld.py``; it is the only module state the port keeps
+besides the loaded libraries.  An entry point lives in ``csrc/<name>.cu``
+unless ``_SOURCE`` names another file (K9 and K10 share one).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
-# C entry point and argument types of each kernel library
+# C entry point and argument types of each kernel library (the last is the
+# stream, which `launch` appends)
 _ENTRY = {
     "geno_counts": ("pt_geno_counts", [_P, _L, _P, _P, _I, _I, _P, _P]),
     "glm_moments": ("pt_glm_moments",
@@ -47,7 +50,14 @@ _ENTRY = {
                                    _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "grm_gram": ("pt_grm_gram", [_P, _L, _L, _P, _P, _P, _L, _L, _I, _L, _I,
                                  _I, _P, _P, _P]),
+    "pca_x": ("pt_pca_x", [_P, _L, _L, _P, _P, _L, _P, _I, _P, _P, _P]),
+    "pca_xt": ("pt_pca_xt", [_P, _L, _L, _P, _P, _L, _P, _I, _P, _P]),
+    "ld_band_bits": ("pt_ld_band_bits", [_P, _L, _L, _P, _L, _I, _D, _P, _P,
+                                         _P, _P, _P, _P, _P]),
 }
+# entry points whose source file is not named after them
+_SOURCE = {"pca_x": "pca_apply", "pca_xt": "pca_apply", "ld_band_bits": "ld_band"}
+_SOURCES = sorted({_SOURCE.get(k, k) for k in _ENTRY})
 
 LAUNCHES: dict[str, int] = dict.fromkeys(_ENTRY, 0)
 
@@ -69,22 +79,23 @@ def _nvcc() -> str:
                        "built on first use and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(src: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fn in (name + ".cu", "common.cuh"):
+    for fn in (src + ".cu", "common.cuh"):
         with open(os.path.join(_CSRC, fn), "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{src}-{h.hexdigest()[:16]}.so")
 
 
 def build_all() -> dict[str, float]:
     """Compile every kernel library that is not built yet, one nvcc process
-    per source, all at once.  Returns the seconds each build took (0.0 for
-    a library already present).  Raises with nvcc's output on failure."""
+    per source, all at once.  Returns the seconds each source's build took
+    (0.0 for a library already present).  Raises with nvcc's output on
+    failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     times = {}
-    for name in _ENTRY:
+    for name in _SOURCES:
         path = _lib_path(name)
         if os.path.exists(path):
             times[name] = 0.0
@@ -110,9 +121,10 @@ def build_all() -> dict[str, float]:
     return times
 
 
-def build_log(name: str) -> str:
-    """nvcc/ptxas output of the last build of `name` (registers, spills)."""
-    with open(_lib_path(name)[:-3] + ".log") as f:
+def build_log(src: str) -> str:
+    """nvcc/ptxas output of the last build of source `src` (registers,
+    spills)."""
+    with open(_lib_path(src)[:-3] + ".log") as f:
         return f.read()
 
 
@@ -123,14 +135,17 @@ def _lib(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             build_all()
+            cdlls = {}
             for nm, (fn, argtypes) in _ENTRY.items():
-                cdll = ctypes.CDLL(_lib_path(nm))
-                entry = getattr(cdll, fn)
+                src = _SOURCE.get(nm, nm)
+                if src not in cdlls:
+                    cdlls[src] = ctypes.CDLL(_lib_path(src))
+                    cdlls[src].pt_error_string.argtypes = [ctypes.c_int]
+                    cdlls[src].pt_error_string.restype = ctypes.c_char_p
+                entry = getattr(cdlls[src], fn)
                 entry.argtypes = argtypes
                 entry.restype = ctypes.c_int
-                cdll.pt_error_string.argtypes = [ctypes.c_int]
-                cdll.pt_error_string.restype = ctypes.c_char_p
-                _libs[nm] = cdll
+                _libs[nm] = cdlls[src]
     return _libs[name]
 
 

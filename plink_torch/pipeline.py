@@ -3,8 +3,8 @@ runs it, in plink_tpu's order (plink_tpu/pipeline.py): load a .pgen/.bed
 fileset, apply --pheno, the sample filters (keep/remove, founders, --mind),
 the variant filters (extract/exclude, chr), the counts-based reports and
 their filters (freq, geno-counts, missing, --geno, hardy, --hwe,
---maf/--mac), the relationship commands (KING, then GRM / exact PCA), then
---glm.
+--maf/--mac), the relationship commands (KING, then GRM / PCA),
+--indep-pairwise, then --glm.
 
 Every other flag raises NotPortedError before anything runs; the run never
 falls back to plink_tpu.
@@ -34,10 +34,13 @@ _PORTED_FIELDS = {
     "freq", "freq_counts", "freq_cols", "freq_zs", "geno_counts",
     "geno_counts_zs", "missing", "missing_zs", "hardy", "hardy_midp",
     "hardy_zs", "geno", "hwe", "hwe_midp", "maf", "max_maf", "mac", "max_mac",
-    # relationship commands (--pca approx / allele-wts are not ported)
+    # relationship commands
     "make_king", "make_king_mods", "make_king_table", "king_cutoff",
     "king_cutoff_prefix", "king_table_subset", "king_table_filter",
-    "make_grm_bin", "make_grm_list", "make_rel", "pca", "parallel",
+    "make_grm_bin", "make_grm_list", "make_rel", "pca", "pca_approx",
+    "pca_allele_wts", "parallel",
+    # LD pruning
+    "indep_pairwise", "bad_ld",
 }
 
 
@@ -60,6 +63,28 @@ def _load(cfg: Config, device):
         raise ValueError("no input fileset specified (--pfile/--bfile)")
     return load_dataset(cfg.pfile or cfg.bfile, device,
                         missing_pheno=cfg.input_missing_phenotype)
+
+
+def _degenerate_data_checks(cfg: Config, ds) -> None:
+    """The LD guard of plink_tpu's degenerate-data checks (ref
+    2.0/plink2.cc:2065-2105): LD-estimating commands with < 50 founders
+    error unless --bad-ld."""
+    if not cfg.indep_pairwise or cfg.bad_ld or int(ds.founder_mask.sum()) >= 50:
+        return
+    if ds.raw_sample_ct < 50:
+        raise ValueError(
+            "This run estimates linkage disequilibrium between "
+            "variants, but there are less than 50 samples to estimate "
+            "from.  You should perform this operation on a larger "
+            "dataset.\n(Strictly speaking, you can also override this "
+            "error with --bad-ld, but this is almost always a bad "
+            "idea.)")
+    raise ValueError(
+        "This run estimates linkage disequilibrium between variants, "
+        "but there are less than 50 founders to estimate from.  "
+        "--make-founders may help.\n(Strictly speaking, you can also "
+        "override this error with --bad-ld, but this is almost always "
+        "a bad idea.)")
 
 
 def _filter_and_report(ds, cfg: Config, log) -> None:
@@ -141,6 +166,7 @@ def run_pipeline(cfg: Config, device) -> int:
         )
         if cfg.output_chr != "MT":
             ds.vi.chr_info.set_output_chr(cfg.output_chr)
+        _degenerate_data_checks(cfg, ds)
         if cfg.pheno:
             # 2.0 psam input: --pheno APPENDS to the psam phenotype columns;
             # they are only dropped when --pheno-name is also given (ref
@@ -173,6 +199,11 @@ def run_pipeline(cfg: Config, device) -> int:
 
             with log.phase("--make-grm/--pca"):
                 run_grm_pca(ds, cfg, log)
+        if cfg.indep_pairwise:
+            from .commands.ld import indep_pairwise
+
+            with log.phase("--indep-pairwise"):
+                indep_pairwise(ds, cfg, log)
         if cfg.glm:
             from .commands.glm import run_glm
 

@@ -9,6 +9,8 @@ and chip_smoke.py (the card against the CPU) hold two runs' files to:
 - .rel: every value within `text_rtol` of max(|ref|, text_floor);
 - .eigenval: within EIG_TOL relative; .eigenvec: the header and the ids
   exact, each column within EIG_TOL after matching its sign;
+- .eigenvec.allele: the header and the variant / allele columns exact, each
+  PC column within EIG_TOL absolute after matching its sign;
 - everything else (.kin0, .king*, id files, cutoff lists, .grm.N.bin):
   byte-identical.
 """
@@ -56,12 +58,14 @@ def relationship_output_close(ext: str, ref: str, got: str,
                 and close_floats(sum(ra, []), sum(rb, []), text_rtol, text_floor))
     if kind == ".eigenval":
         return close_floats(np.loadtxt(ref), np.loadtxt(got), EIG_TOL)
-    if kind == ".eigenvec":
+    if kind in (".eigenvec", ".eigenvec.allele"):
         ra, rb = _rows(ref), _rows(got)
-        if ra[0] != rb[0] or [r[0] for r in ra] != [r[0] for r in rb]:
+        k = 1 if kind == ".eigenvec" else len(ra[0]) - sum(
+            c.startswith("PC") for c in ra[0])
+        if ra[0] != rb[0] or [r[:k] for r in ra] != [r[:k] for r in rb]:
             return False
-        a = np.array([r[1:] for r in ra[1:]], np.float64)
-        b = np.array([r[1:] for r in rb[1:]], np.float64)
+        a = np.array([r[k:] for r in ra[1:]], np.float64)
+        b = np.array([r[k:] for r in rb[1:]], np.float64)
         if a.shape != b.shape:
             return False
         b = b * np.sign((a * b).sum(axis=0))

@@ -277,3 +277,81 @@ def test_grm_gram_kernel(dev, n, nb, vb):
         err = np.abs(g.double().cpu().numpy() - ref / nmv) * nmv / scale
         assert float(np.nanmax(err)) <= TOL
         assert torch.equal(g, grm_gram(pk, cf, vm, miss, mv, r0, c0, s, t)[0])
+
+
+PCA_SHAPES = [(150, 3, 64, 3), (4099, 2, 200, 20), (2301, 3, 2048, 37)]
+
+
+def _pca_inputs(n, nb, vb, L, seed):
+    """Packed [nb, vb, NB] codes, GRM-style coefficients with zeroed rows,
+    the sample mask of n samples, q [npad, L] and b [nb, vb, L]."""
+    rng = np.random.default_rng(seed)
+    packed, _, _ = _inputs(n, nb * vb, 2, seed)
+    npad = packed.shape[1] * 4
+    coef = rng.normal(size=(nb * vb, 3)).astype(np.float32)
+    coef[rng.random(nb * vb) < 0.1] = 0.0
+    smask = np.zeros(npad, np.float32)
+    smask[:n] = 1.0
+    q = rng.standard_normal((npad, L)).astype(np.float32) * 1e3
+    b = rng.standard_normal((nb, vb, L)).astype(np.float32)
+    return packed.reshape(nb, vb, -1), coef.reshape(nb, vb, 3), smask, q, b
+
+
+@pytest.mark.parametrize("n,nb,vb,L", PCA_SHAPES)
+def test_pca_kernels(dev, n, nb, vb, L):
+    """K9 (x_apply), K10 (xt_apply) and K9 + K10 (xtx_apply) against their
+    plain versions run in f64, each entry normalised by sqrt(sum Z^2 sum
+    q^2) over the contracted axis; two runs give identical bytes."""
+    from plink_torch.ops import pca as P
+
+    packed, coef, smask, q, b = _pca_inputs(n, nb, vb, L, 13)
+    pk, cf, sm, qd = P.pca_inputs_from_numpy(packed, coef, smask, q, dev)
+    bd = torch.from_numpy(b).to(dev)
+    z = torch.stack([P._normed_block(pk[k], cf[k].double(), sm) for k in range(nb)])
+    zf = z.reshape(nb * vb, -1)
+    z2v, z2s = (zf ** 2).sum(1), (zf ** 2).sum(0)
+    got = P.x_apply(pk, cf, sm, qd)
+    ref = P.x_apply_plain(pk, cf.double(), sm, qd.double())
+    sc = torch.sqrt(z2v[:, None] * (qd.double() ** 2).sum(0)[None, :])
+    assert float(((got.double() - ref).reshape(-1, L).abs() / sc.clamp(min=1e-30)).max()) <= TOL
+    assert torch.equal(got, P.x_apply(pk, cf, sm, qd))
+    got = P.xt_apply(pk, cf, sm, bd)
+    ref = P.xt_apply_plain(pk, cf.double(), sm, bd.double())
+    sc = torch.sqrt(z2s[:, None] * (bd.double().reshape(-1, L) ** 2).sum(0)[None, :])
+    assert float(((got.double() - ref).abs() / sc.clamp(min=1e-30)).max()) <= TOL
+    assert torch.equal(got, P.xt_apply(pk, cf, sm, bd))
+    got = P.xtx_apply(pk, cf, sm, qd)
+    ref = P.xtx_apply_plain(pk, cf.double(), sm, qd.double())
+    t = zf @ qd.double()
+    sc = torch.sqrt(z2s[:, None] * (t ** 2).sum(0)[None, :])
+    assert float(((got.double() - ref).abs() / sc.clamp(min=1e-30)).max()) <= TOL
+    assert torch.equal(got, P.xtx_apply(pk, cf, sm, qd))
+
+
+LD_SHAPES = [(150, 300, 20), (1001, 700, 200), (77, 130, 129), (2300, 64, 0)]
+
+
+@pytest.mark.parametrize("n,V,width", LD_SHAPES)
+def test_ld_band_bits_kernel(dev, n, V, width):
+    """K11 equals its plain version exactly (bits and the three count
+    vectors) at thresholds 0.2 and 0.5, with masked samples, LD runs and
+    monomorphic variants; the band's edges (d = 0, i + d >= n) are 0."""
+    from plink_torch.ops.ld import ld_band_bits, ld_band_bits_plain
+
+    rng = np.random.default_rng(n)
+    packed, _, _ = _inputs(n, V, 2, 21)
+    for v0 in range(0, V - 4, 11):  # copies of a variant: r^2 near 1
+        packed[v0 + 1] = packed[v0]
+    packed[3] = 0  # monomorphic hom-REF
+    npad = packed.shape[1] * 4
+    smask = (rng.random(npad) < 0.9).astype(np.int8)
+    smask[n:] = 0
+    pk = torch.from_numpy(packed).to(dev)
+    sm = torch.from_numpy(smask).to(dev)
+    width = min(width, V - 1)
+    for r2t in (0.2, 0.5):
+        got = ld_band_bits(pk, sm, width, r2t)
+        ref = ld_band_bits_plain(pk, sm, width, r2t)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        assert all(torch.equal(a, b) for a, b in zip(got, ld_band_bits(pk, sm, width, r2t)))
+    assert not got[0][:, 0].any()

@@ -67,14 +67,14 @@ def test_bad_device_name_refused(tiny, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--pca", "4", "approx"],
+    ["--indep-pairphase", "50", "5", "0.2"],
     ["--freq", "cols=+machr2"],
     ["--glm", "interaction", "--covar", "{p}.cov"],
     ["--glm", "cc-residualize", "hide-covar", "--covar", "{p}.cov"],
     ["--glm", "--covar", "{p}.cov", "--maf", "0.01", "--af-pseudocount", "1"],
     ["--glm", "hide-covar", "qt-residualize", "--covar", "{p}.cov", "--pheno",
      "{p}.qt"],
-], ids=["pca-approx", "freq", "interaction", "cc-residualize", "maf-filter",
+], ids=["indep-pairphase", "freq", "interaction", "cc-residualize", "maf-filter",
         "quantitative"])
 def test_unported_flag_says_so(tiny, tmp_path, args, monkeypatch, capsys):
     args = [a.format(p=tiny) for a in args]
@@ -101,3 +101,25 @@ def test_vb_env(monkeypatch):
     assert _auto_vb(40_000_000) == 64
     monkeypatch.setenv("PLINK_TORCH_VB", "100")
     assert _auto_vb(500_000) == 96
+
+
+def test_kernel_entry_argtypes_match_c_signatures():
+    """Each kernel entry's ctypes argtypes match its C function's parameters
+    (the stream included): a missing pointer type would pass a 64-bit
+    pointer as a 32-bit int."""
+    import re
+
+    from plink_torch.ops import _cuda
+
+    for name, (fn, argtypes) in _cuda._ENTRY.items():
+        src = _cuda._SOURCE.get(name, name)
+        with open(os.path.join(_cuda._CSRC, src + ".cu")) as f:
+            text = f.read()
+        m = re.search(r"PT_EXPORT int " + fn + r"\(([^)]*)\)", text)
+        assert m, (name, fn)
+        params = [p.strip() for p in m.group(1).split(",")]
+        assert len(params) == len(argtypes), (name, params)
+        for p, t in zip(params, argtypes):
+            want = (_cuda._P if "*" in p else _cuda._D if p.startswith("double")
+                    else _cuda._L if "long long" in p else _cuda._I)
+            assert t is want, (name, p, t)

@@ -24,7 +24,8 @@ def test_import_leaves_jax_out():
         "import plink_torch.ops.counts, plink_torch.stats.hwe, plink_torch.stats.hwe_x\n"
         "import plink_torch.bench_gen, plink_torch.ops.pairwise\n"
         "import plink_torch.commands.king, plink_torch.commands.grm\n"
-        "import plink_torch.commands.pca\n"
+        "import plink_torch.commands.pca, plink_torch.ops.pca\n"
+        "import plink_torch.commands.ld, plink_torch.ops.ld\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n"
