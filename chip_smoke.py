@@ -45,11 +45,30 @@ Phases, each of which raises on failure (nothing is caught):
      K9 and K10 must have launched; then under torch.profiler;
  10. indep path: `--indep-pairwise 200 50 0.2` on indep_10k, the .prune.in
      set-equal to plink2's; K1 and K11 launched; then under torch.profiler;
- 11. parity: a 2,000 x 1,200 panel through the port on the card and on the
+ 11. LD report kernels: K12 on the whole indep_10k subcontig at width 200
+     and K13 over the 136 chunk pairs of the matrix cell, each exactly
+     equal to its plain version, timed beside its bound and a bf16 matmul;
+ 12. LD tables on indep_10k: `--r2-unphased --ld-window-kb 0.2
+     --ld-window-r2 0.001` (K12; then under torch.profiler) and
+     `--r2-phased --ld-window-kb 0.01 --ld-window-r2 0.001` (K12, K13),
+     64 rows of each against numpy;
+ 13. LD matrix: `--r-unphased square bin4 --extract bed1` of variants
+     1..8,192 of indep_10k (K13), 64 rows against numpy's f64 r;
+     in phases 12, 13 and 16 every K11-K13 launch of the path is run again
+     on the inputs it got there and held exactly against the plain version;
+ 14. `--ld snp100 snp101` on indep_10k, against numpy's counts;
+ 15. `--clump` of phase 4's report on its panel (loading, K1 and the host's
+     pair decodes: no member on an iid panel), the .clumps equal to one
+     recomputed on the host from the report and numpy's codes;
+ 16. `--indep-pairphase 200 50 0.2` on a phased copy of the whole
+     indep_10k: K11 on the 20,000 haplotype columns, checked against
+     numpy's haplotypes of the copy;
+ 17. parity: a 2,000 x 1,200 panel through the port on the card and on the
      CPU (plain versions), hybrid, firth, QC + linear, KING + GRM, .rel +
      exact PCA, approx PCA + allele-wts (on a panel of that size with 5
-     planted axes) and --indep-pairwise, compared column by column; two
-     card runs must give identical bytes.
+     planted axes), --indep-pairwise and the LD reports (LD_PARITY, byte
+     for byte), compared column by column; two card runs must give
+     identical bytes.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
@@ -59,6 +78,7 @@ without the plink_torch package beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import filecmp
 import gzip
 import json
@@ -162,6 +182,45 @@ PCA_LD_PARITY = (
                                       "--seed", "5"],
      (".eigenval", ".eigenvec", ".eigenvec.allele")),
     ("indep", "small", ["--indep-pairwise", "50", "5", "0.2"],
+     (".prune.in", ".prune.out")),
+)
+# the LD report cells, all on indep_10k (positions 1..M, so a kb window of
+# w / 1000 is a window of w variants): the unphased table at width 200
+# (plink 1.9's `--r2 --ld-window 200`; r^2 >= 0.001 keeps ~0.2% of iid
+# pairs, so the filter and the writer both run), the phased table at width
+# 10 (plink 1.9's default --ld-window), the r matrix of a fine-mapping
+# region (variants 1..8,192: 16 x 17 / 2 = 136 chunk pairs of 512), --ld on
+# one pair, and --indep-pairphase on a phased copy of the whole panel
+VCOR_TABLE_ARGS = {
+    False: ["--r2-unphased", "--ld-window-kb", "0.2", "--ld-window-r2", "0.001"],
+    True: ["--r2-phased", "--ld-window-kb", "0.01", "--ld-window-r2", "0.001"],
+}
+REGION_VARIANTS = 8_192
+VCOR_MATRIX_ARGS = ["--r-unphased", "square", "bin4", "--extract", "bed1"]
+LD_PAIR = ("snp100", "snp101")
+# --clump of the logistic main path's own report (the step after every scan):
+# index p <= 1e-3, members within 50 bp (variants 1 bp apart) of r^2 >= 0.5
+# (the default), p <= 0.01 (the default) listed in SP2
+CLUMP_ARGS = ["--clump-p1", "1e-3", "--clump-kb", "0.05"]
+CLUMP_P1, CLUMP_P2, CLUMP_R2, CLUMP_RADIUS = 1e-3, 0.01, 0.5, 49
+CLUMP_BINS = (0.0001, 0.001, 0.01, 0.05)  # the default S<b> columns
+PAIRPHASE_ARGS = ["--indep-pairphase", "200", "50", "0.2"]
+PHASE_SEED = 43  # each het's phase in the phased copies
+N_LD_ROWS = 64  # table / matrix rows checked against numpy
+# parity cases of the LD reports on the parity panel, byte for byte: (label,
+# panel, flags, outputs); {region} is its first 300 variants (each phased
+# matrix pair costs one host phased_r2), {report} the hybrid case's report
+LD_PARITY = (
+    ("r2u_ld", "small", ["--r2-unphased", "--ld", "snp5", "snp6"], (".vcor",)),
+    ("r2u_all", "small", ["--r2-unphased", "--ld-window-r2", "0"], (".vcor",)),
+    ("rp_w", "small", ["--r-phased", "--ld-window-kb", "0.05"], (".vcor",)),
+    ("r2p_sq", "small", ["--r2-phased", "square", "--extract", "bed1", "{region}"],
+     (".phased.vcor2", ".phased.vcor2.vars")),
+    ("ru_tri_bin", "small", ["--r-unphased", "triangle", "bin"],
+     (".unphased.vcor1.bin", ".unphased.vcor1.vars")),
+    ("clump", "small", ["--clump", "{report}", "--clump-p1", "0.01", "--clump-p2",
+                        "0.05"], (".clumps",)),
+    ("pairphase", "phased", ["--indep-pairphase", "50", "5", "0.2"],
      (".prune.in", ".prune.out")),
 )
 
@@ -903,19 +962,10 @@ def check_ld_kernel(torch, dev, prefix):
     counts equal at r^2 0.2 (the path's threshold; iid genotypes, so few or
     no pairs pass) and at 0.001 (thousands pass, the f64 products past 2^53
     decide); two runs identical; timed at 0.2."""
-    import numpy as np
-
-    from plink_torch.commands.ld import _subcontig_rows
-    from plink_torch.dataset import load_dataset
     from plink_torch.ops import ld as LD
 
-    ds = load_dataset(prefix, dev)
-    n, V = ds.raw_sample_ct, ds.raw_variant_ct
-    npad = -(-n // 4) * 4
-    smask = np.zeros(npad, np.int8)
-    smask[:n] = 1
-    rows = _subcontig_rows(ds, np.arange(V), np.arange(n), npad)
-    sm = torch.from_numpy(smask).to(dev)
+    rows, sm, n = indep_rows(torch, dev, prefix)
+    V, npad = rows.shape[0], sm.shape[0]
     width = int(IND_ARGS[1])
     set_bits = {}
     for r2t in (float(IND_ARGS[3]), 0.001):
@@ -929,37 +979,125 @@ def check_ld_kernel(torch, dev, prefix):
     r2t = float(IND_ARGS[3])
     ms = time_ms(torch, lambda: LD.ld_band_bits(rows, sm, width, r2t), 5)
     pms = time_ms(torch, lambda: LD.ld_band_bits_plain(rows, sm, width, r2t), 1)
-    # library: plink_tpu's form, the bf16 RAV planes of each 512-variant chunk
-    # against those of the chunk and the next, one batched matmul to f32
-    c = 512
+    lib = band_library_ms(torch, rows, sm)
+    pairs = sum(min(width, V - 1 - i) for i in range(V))
+    ops = 6 * 2 * pairs * n  # x x, x V, |x| V, V x, V |x|, V V on int8 cores
+    nbytes_io = rows.numel() + npad + V * (width + 1) + 3 * 4 * V
+    bound = _bound(ops, nbytes_io, INT8_OPS_PER_S)
+    log(f"K11 ld_band_bits [{V} variants x {n} samples, w={width}]: bits and "
+        f"counts = plain at r^2 0.2 ({set_bits[0.2]} pairs pass) and 0.001 "
+        f"({set_bits[0.001]} pass), two runs identical; {ms:.3f} ms, plain "
+        f"{pms:.1f} ms, bf16 bmm {lib:.3f} ms, bound {bound['bound_ms']:.3f} ms")
+    return [dict(name="ld_band_bits", source="plink_torch/csrc/ld_band.cu",
+                 replaces="plink_tpu/ops/ld.py:127", max_abs_err=0.0, tol=0.0,
+                 pairs_set=set_bits, ms=ms, plain_ms=pms, **bound, library_ms=lib)]
+
+
+def band_library_ms(torch, rows, sm, c=512):
+    """The library call of the band kernels K11 / K12: plink_tpu's form, the
+    bf16 RAV planes of each c-variant chunk against those of the chunk and
+    the next, one batched matmul to f32."""
+    from plink_torch.ops import ld as LD
+
+    V, npad = rows.shape[0], sm.shape[0]
     nc = -(-V // c)
-    pl = torch.zeros((nc + 1, 3 * c, npad), dtype=torch.bfloat16, device=dev)
+    pl = torch.zeros((nc + 1, 3 * c, npad), dtype=torch.bfloat16, device=rows.device)
     for k in range(nc):
         blk = LD._planes_rav(rows[k * c : (k + 1) * c], sm).to(torch.bfloat16)
         pl[k, : blk.shape[0]] = blk
     a = pl[:nc]
     bb = torch.cat([pl[:nc], pl[1:]], dim=1)
-    lib = time_ms(torch, lambda: torch.bmm(a, bb.transpose(1, 2),
-                                           out_dtype=torch.float32), 3)
-    del pl, a, bb
-    pairs = sum(min(width, V - 1 - i) for i in range(V))
-    ops = 6 * 2 * pairs * n  # x x, x V, |x| V, V x, V |x|, V V on int8 cores
-    nbytes_io = rows.numel() + npad + V * (width + 1) + 3 * 4 * V
-    t_ops, t_bytes = 1e3 * ops / INT8_OPS_PER_S, 1e3 * nbytes_io / HBM_BYTES_PER_S
-    log(f"K11 ld_band_bits [{V} variants x {n} samples, w={width}]: bits and "
-        f"counts = plain at r^2 0.2 ({set_bits[0.2]} pairs pass) and 0.001 "
-        f"({set_bits[0.001]} pass), two runs identical; {ms:.3f} ms, plain "
-        f"{pms:.1f} ms, bf16 bmm {lib:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms")
-    return [dict(name="ld_band_bits", source="plink_torch/csrc/ld_band.cu",
-                 replaces="plink_tpu/ops/ld.py:127", max_abs_err=0.0, tol=0.0,
-                 pairs_set=set_bits, ms=ms, plain_ms=pms,
-                 bound_ms=max(t_ops, t_bytes),
-                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 library_ms=lib)]
+    return time_ms(torch, lambda: torch.bmm(a, bb.transpose(1, 2),
+                                            out_dtype=torch.float32), 3)
 
 
-def _bound(ops, nbytes):
-    t_ops = 1e3 * ops / FP32_FLOP_PER_S
+def indep_rows(torch, dev, prefix):
+    """indep_10k's one subcontig as the LD commands lay it out on the card:
+    the packed rows of every variant with every sample (all founders), and
+    the int8 sample mask."""
+    import numpy as np
+
+    from plink_torch.commands.ld import _subcontig_rows
+    from plink_torch.dataset import load_dataset
+
+    ds = load_dataset(prefix, dev)
+    n, V = ds.raw_sample_ct, ds.raw_variant_ct
+    npad = -(-n // 4) * 4
+    smask = np.zeros(npad, np.int8)
+    smask[:n] = 1
+    rows = _subcontig_rows(ds, np.arange(V), np.arange(n), npad)
+    return rows, torch.from_numpy(smask).to(dev), n
+
+
+def check_ld_report_kernels(torch, dev, prefix):
+    """K12 over the whole indep_10k subcontig at the unphased table's width
+    (200: all six bands, d = 0 included, and the three count vectors) and
+    K13 over every chunk pair of the matrix cell (the first REGION_VARIANTS
+    variants in 512-variant chunks, as commands/vcor.py walks them), each
+    exactly equal to its plain version, two runs identical; timed beside
+    their bounds and one library call."""
+    from plink_torch.commands.vcor import MATRIX_CHUNK
+    from plink_torch.ops import ld as LD
+
+    rows, sm, n = indep_rows(torch, dev, prefix)
+    V, nbytes = rows.shape
+    npad = sm.shape[0]
+    width = 200
+    got = LD.ld_band_stats(rows, sm, width)
+    ref = LD.ld_band_stats_plain(rows, sm, width)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref)), "K12"
+    again = LD.ld_band_stats(rows, sm, width)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "K12 not deterministic"
+    nm_max = int(got[0][1].max())
+    del ref, again
+    ms = time_ms(torch, lambda: LD.ld_band_stats(rows, sm, width), 5)
+    pms = time_ms(torch, lambda: LD.ld_band_stats_plain(rows, sm, width), 1)
+    lib = band_library_ms(torch, rows, sm)
+    cells = sum(min(width, V - 1 - i) + 1 for i in range(V))  # d = 0 included
+    bound = _bound(6 * 2 * cells * n, rows.numel() + npad + 6 * 4 * V * (width + 1)
+                   + 3 * 4 * V, INT8_OPS_PER_S)
+    log(f"K12 ld_band_stats [{V} variants x {n} samples, w={width}]: the six "
+        f"bands and three counts = plain ({cells} cells, nm <= {nm_max}), two "
+        f"runs identical; {ms:.3f} ms, plain {pms:.1f} ms, bf16 bmm {lib:.3f} ms, "
+        f"bound {bound['bound_ms']:.3f} ms")
+    out = [dict(name="ld_band_stats", source="plink_torch/csrc/ld_band.cu",
+                replaces="plink_tpu/ops/ld.py:73", max_abs_err=0.0, tol=0.0,
+                ms=ms, plain_ms=pms, **bound, library_ms=lib)]
+    del got
+
+    c = MATRIX_CHUNK
+    reg = rows[:REGION_VARIANTS]
+    pairs = 0
+    for a0 in range(0, REGION_VARIANTS, c):
+        for b0 in range(0, a0 + c, c):
+            g = LD.ld_gram_pair(reg[a0 : a0 + c], reg[b0 : b0 + c], sm)
+            assert torch.equal(g, LD.ld_gram_pair_plain(reg[a0 : a0 + c],
+                                                        reg[b0 : b0 + c], sm)), \
+                ("K13", a0, b0)
+            pairs += 1
+    assert torch.equal(g, LD.ld_gram_pair(reg[a0 : a0 + c], reg[b0 : b0 + c], sm)), \
+        "K13 not deterministic"
+    pa, pb = reg[:c], reg[c : 2 * c]
+    ms = time_ms(torch, lambda: LD.ld_gram_pair(pa, pb, sm), 20)
+    pms = time_ms(torch, lambda: LD.ld_gram_pair_plain(pa, pb, sm), 3)
+    qa = LD._planes_rav(pa, sm).to(torch.bfloat16)[None]
+    qb = LD._planes_rav(pb, sm).to(torch.bfloat16).t()[None]
+    lib = time_ms(torch, lambda: torch.bmm(qa, qb, out_dtype=torch.float32), 20)
+    bound = _bound(9 * 2 * c * c * n, 2 * c * nbytes + npad + 9 * c * c * 4,
+                   INT8_OPS_PER_S)
+    log(f"K13 ld_gram_pair [{c}x{c} chunks x {n} samples]: = plain over all "
+        f"{pairs} chunk pairs of the {REGION_VARIANTS}-variant region, two runs "
+        f"identical; {ms:.3f} ms a launch, plain {pms:.2f} ms, bf16 matmul "
+        f"{lib:.3f} ms, bound {bound['bound_ms']:.4f} ms")
+    out.append(dict(name="ld_gram_pair", source="plink_torch/csrc/ld_band.cu",
+                    replaces="plink_tpu/ops/ld.py:44", max_abs_err=0.0, tol=0.0,
+                    chunk_pairs_checked=pairs, ms=ms, plain_ms=pms, **bound,
+                    library_ms=lib))
+    return out
+
+
+def _bound(ops, nbytes, ops_per_s=FP32_FLOP_PER_S):
+    t_ops = 1e3 * ops / ops_per_s
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -1413,6 +1551,438 @@ def run_indep_path(torch, prefix, out, card):
     return launches
 
 
+def pgen_codes(prefix, variants):
+    """2-bit codes [len(variants), N] (0 hom-REF, 1 het, 2 hom-ALT, 3
+    missing) of those variants of a fixed-width .pgen, read with numpy."""
+    import numpy as np
+
+    with open(prefix + ".pgen", "rb") as f:
+        head = f.read(12)
+    assert head[:3] == b"\x6c\x1b\x02", head  # fixed-width 2-bit records
+    M, N = (int(x) for x in np.frombuffer(head[3:11], "<u4"))
+    pg = np.memmap(prefix + ".pgen", np.uint8, "r", offset=12, shape=(M, (N + 3) // 4))
+    packed = np.asarray(pg[np.asarray(variants)])
+    shifts = np.arange(0, 8, 2, dtype=np.uint8)
+    return ((packed[:, :, None] >> shifts) & 3).reshape(len(packed), -1)[:, :N]
+
+
+def minor_counts(a, b):
+    """PhasedLD's inputs for two variants' codes over the samples where both
+    are called, in minor-allele space (each variant's major allele from its
+    ALT frequency over its own calls, every sample a founder):
+    (nmin1, nmin2, known minor-minor, double hets, valid)."""
+    import numpy as np
+
+    def major_is_alt(g):
+        ok = g != 3
+        return g[ok].sum() / (2 * ok.sum()) > 0.5
+
+    ok = (a != 3) & (b != 3)
+    x, y = a[ok].astype(np.int64), b[ok].astype(np.int64)
+    xm = 2 - x if major_is_alt(a) else x
+    ym = 2 - y if major_is_alt(b) else y
+    dh = (x == 1) & (y == 1)
+    return (float(xm.sum()), float(ym.sum()), float((np.minimum(xm, ym) * ~dh).sum()),
+            float(dh.sum()), float(ok.sum()))
+
+
+def vcor_argv(prefix, out, args):
+    return ["--pfile", prefix, *args, "--out", out, "--silent"]
+
+
+@contextlib.contextmanager
+def spying(name, *modules):
+    """Wrap the kernel wrapper `name` where each of `modules` looks it up,
+    keeping the arguments of every call: the inputs the kernel gets on the
+    path (the wrapper still counts its launches).  Yields (calls,
+    wrapper)."""
+    real, calls = getattr(modules[0], name), []
+    assert all(getattr(m, name) is real for m in modules), name
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    for m in modules:
+        setattr(m, name, spy)
+    try:
+        yield calls, real
+    finally:
+        for m in modules:
+            setattr(m, name, real)
+
+
+def check_calls(torch, calls, kernel, plain, label):
+    """Every kept call of a kernel's wrapper launched again on its inputs,
+    exactly equal to the plain version on them.  Returns a note of the
+    shapes checked."""
+    shapes = set()
+    for args in calls:
+        got, want = kernel(*args), plain(*args)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            (label, [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)])
+        shapes.add("x".join(str(a.shape[0]) for a in args[:-1]
+                            if isinstance(a, torch.Tensor) and a.dim() == 2))
+    return f"{label} = plain on all {len(calls)} launches ({', '.join(sorted(shapes))} rows)"
+
+
+def check_table_rows(prefix, rows, phased, window):
+    """N_LD_ROWS rows of a .vcor table, spread over it, against numpy: the
+    unphased r^2 as numpy's f64 Pearson r^2 of the two ALT-dosage vectors
+    over the samples where both are called (relative 1e-5: the 6 digits
+    printed); the phased r^2 as g6 of plink_torch.stats.phased_ld's
+    `phased_r2` on joint counts numpy takes from the codes, equal as
+    printed. Returns the largest relative error."""
+    import numpy as np
+
+    from plink_torch.stats.phased_ld import phased_r2
+    from plink_torch.utils.fmt import g6
+
+    pick = [rows[k] for k in np.linspace(0, len(rows) - 1, N_LD_ROWS).round().astype(int)]
+    ids = sorted({int(r[c][3:]) for r in pick for c in (2, 5)})  # snp<v>
+    codes = dict(zip(ids, pgen_codes(prefix, ids)))
+    worst = 0.0
+    for r in pick:
+        a, b = codes[int(r[2][3:])], codes[int(r[5][3:])]
+        assert 1 <= int(r[4]) - int(r[1]) <= window and float(r[6]) >= 0.001, r
+        if phased:
+            want = phased_r2(*minor_counts(a, b)) ** 2
+            assert r[6] == g6(want), (r, want)
+        else:
+            ok = (a != 3) & (b != 3)
+            want = np.corrcoef(a[ok].astype(np.float64), b[ok].astype(np.float64))[0, 1] ** 2
+        err = abs(float(r[6]) - want) / want
+        assert err <= 1e-5, (r, want)
+        worst = max(worst, err)
+    return worst
+
+
+def run_vcor_table(torch, prefix, out, card, phased):
+    """The --r2 table on indep_10k (unphased at width 200, phased at width
+    10) and N_LD_ROWS of its rows against numpy; K12 launched once (one
+    subcontig); the phased table also launches K13 on each 256-variant chunk
+    with itself and with the next (LdJointBand)."""
+    from plink_torch.commands import vcor as VC
+    from plink_torch.ops import ld as LD
+
+    args = VCOR_TABLE_ARGS[phased]
+    window = round(float(args[2]) * 1000)
+    with spying("ld_band_stats", LD) as (k12, real12), \
+            spying("ld_gram_pair", LD, VC) as (k13, real13):
+        wall, launches = drive(torch, vcor_argv(prefix, out, args), out)
+    assert launches["ld_band_stats"] == len(k12) == 1, launches
+    nc = -(-IND_PANEL[1] // 256)
+    assert launches["ld_gram_pair"] == len(k13) == (2 * nc - 1 if phased else 0), \
+        launches
+    held = [check_calls(torch, k12, real12, LD.ld_band_stats_plain,
+                        f"K12 (width {k12[0][2]})")]
+    if phased:
+        held.append(check_calls(torch, k13, real13, LD.ld_gram_pair_plain, "K13"))
+    del k12, k13
+    hdr, rows = read_report(out + ".vcor")
+    assert hdr[-1] == ("PHASED_R2" if phased else "UNPHASED_R2") \
+        and len(rows) >= N_LD_ROWS, (hdr, len(rows))
+    worst = check_table_rows(prefix, rows, phased, window)
+    log(f"{args[0]} table {IND_PANEL[0]}x{IND_PANEL[1]} ({' '.join(args[1:])}): "
+        f"{wall:.2f}s wall on {card}; {len(rows)} rows; {N_LD_ROWS} rows = numpy "
+        f"({'phased_r2 of numpy joint counts, as printed' if phased else 'f64 Pearson'}"
+        f"; relative error <= {worst:.2e}); {'; '.join(held)}; launches {launches}")
+    return launches
+
+
+def run_vcor_matrix(torch, prefix, tmp, card):
+    """`--r-unphased square bin4` of the fine-mapping region (variants
+    1..REGION_VARIANTS by `--extract bed1`): K13 on every 512-variant chunk
+    pair; the .vars lists the region's IDs; N_LD_ROWS rows of the f32 .bin
+    within 1e-6 of numpy's f64 r (pairwise-complete Pearson of the codes,
+    the counts as exact f32 matrix products) after the major-allele signs,
+    NaN where numpy's is NaN, 1 on the diagonal."""
+    import numpy as np
+
+    from plink_torch.commands import vcor as VC
+    from plink_torch.ops import ld as LD
+
+    R, c = REGION_VARIANTS, 512
+    region = os.path.join(tmp, "region.bed")
+    with open(region, "w") as f:
+        f.write(f"1\t1\t{R}\n")
+    out = os.path.join(tmp, "vcor_matrix")
+    with spying("ld_gram_pair", LD, VC) as (k13, real13):
+        wall, launches = drive(torch, vcor_argv(prefix, out, VCOR_MATRIX_ARGS + [region]),
+                               out)
+    nch = R // c
+    assert launches["ld_gram_pair"] == len(k13) == nch * (nch + 1) // 2, launches
+    held = check_calls(torch, k13, real13, LD.ld_gram_pair_plain, "K13")
+    del k13
+    base = out + ".unphased.vcor1"
+    with open(base + ".vars") as f:
+        assert f.read().split() == [f"snp{i}" for i in range(R)], "the .vars differs"
+    assert os.path.getsize(base + ".bin") == 4 * R * R
+    codes = pgen_codes(prefix, np.arange(R))
+    valid = codes != 3
+    x = np.where(valid, codes, 0).astype(np.float32)
+    v = valid.astype(np.float32)
+    ri = np.linspace(0, R - 1, N_LD_ROWS).round().astype(int)
+    # pairwise-complete sums; f32 products of small integers are exact here
+    nm, sx, sy = v[ri] @ v.T, x[ri] @ v.T, v[ri] @ x.T
+    sxx, syy, sxy = (x[ri] ** 2) @ v.T, v[ri] @ (x ** 2).T, x[ri] @ x.T
+    nm, sx, sy, sxx, syy, sxy = (m.astype(np.float64) for m in (nm, sx, sy, sxx, syy, sxy))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        r = (nm * sxy - sx * sy) / np.sqrt((nm * sxx - sx * sx) * (nm * syy - sy * sy))
+    sgn = np.where(x.sum(1) / (2 * v.sum(1)) > 0.5, -1.0, 1.0)
+    want = r * sgn[ri, None] * sgn[None, :]
+    want[np.arange(N_LD_ROWS), ri] = 1.0
+    got = np.memmap(base + ".bin", np.float32, "r", shape=(R, R))[ri].astype(np.float64)
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan), "NaN entries differ from numpy's"
+    err = float(np.abs(got - want)[~nan].max())
+    assert err <= 1e-6, err
+    log(f"--r-unphased square bin4 matrix {R}x{R} ({IND_PANEL[0]} samples): "
+        f"{wall:.2f}s wall on {card}; .vars = the region's {R} IDs; {N_LD_ROWS} "
+        f"rows of the f32 .bin = numpy f64 r within {err:.2e} ({int(nan.sum())} "
+        f"NaN entries alike); {held}; launches {launches}")
+    return launches
+
+
+def ld_block(log_path):
+    """The --ld report block of a run's .log: from its '--ld' line to its
+    last in/out-of-phase line."""
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    i0 = next(k for k, ln in enumerate(lines) if ln.startswith("--ld "))
+    i1 = max(k for k, ln in enumerate(lines) if "alleles are" in ln)
+    return lines[i0 : i1 + 1]
+
+
+def run_ld_pair(torch, prefix, out, card):
+    """`--ld snp100 snp101` on indep_10k: the log block printed, its valid
+    sample count and best solution's r^2 equal to numpy's counts through
+    phased_ld_detail."""
+    from plink_torch.stats.phased_ld import phased_ld_detail
+    from plink_torch.utils.fmt import g6
+
+    wall, launches = drive(torch, ["--pfile", prefix, "--ld", *LD_PAIR, "--out", out,
+                                   "--silent"], out)
+    block = ld_block(out + ".log")
+    a, b = pgen_codes(prefix, [int(v[3:]) for v in LD_PAIR])
+    counts = minor_counts(a, b)
+    sols, best, _ = phased_ld_detail(*counts)
+    text = "\n".join(block)
+    assert f"{int(counts[-1])} valid samples;" in text, text
+    assert f"r^2 = {g6(sols[best]['r2'])}" in text, text
+    log(f"--ld {' '.join(LD_PAIR)} on {IND_PANEL[0]}x{IND_PANEL[1]}: {wall:.2f}s "
+        f"wall on {card}; valid samples and r^2 = numpy's; launches {launches}")
+    for ln in block:
+        log("  | " + ln)
+    return launches
+
+
+def expected_clumps(prefix, report):
+    """The .clumps of CLUMP_ARGS recomputed on the host from the report's
+    ADD rows and numpy's codes of the panel (every sample a founder): index
+    candidates (p <= CLUMP_P1) in ascending p, each taking the variants within
+    CLUMP_RADIUS bp that no clump holds yet and whose phased_r2 of numpy's
+    joint counts has r^2 >= CLUMP_R2.  Returns (the file's text, or None
+    without a clump; the pairs scored; their largest r^2)."""
+    import numpy as np
+
+    from plink_torch.stats.phased_ld import phased_r2
+    from plink_torch.utils.fmt import g6
+
+    eps = 1 + 2.0 ** -44  # plink2's kSmallEpsilon on every threshold
+    hdr, rows = read_report(report)
+    ic, ipos, iid, ip = (hdr.index(k) for k in ("#CHROM", "POS", "ID", "P"))
+    it = hdr.index("TEST") if "TEST" in hdr else None
+    var = {int(r[iid][3:]): (r[ic], int(r[ipos]), r[iid], float(r[ip])) for r in rows
+           if r[ip] != "NA" and (it is None or r[it] == "ADD")}
+    codes = {}
+
+    def codes_of(v):
+        if v not in codes:
+            codes[v] = pgen_codes(prefix, [v])[0]
+        return codes[v]
+
+    assigned, clumps, pairs, r2max = set(), [], 0, 0.0
+    for p, i in sorted((p, v) for v, (_, _, _, p) in var.items() if p <= CLUMP_P1 * eps):
+        if i in assigned:
+            continue
+        assigned.add(i)
+        members = []
+        for j in sorted(var):
+            if j in assigned or var[j][0] != var[i][0] \
+                    or abs(var[j][1] - var[i][1]) > CLUMP_RADIUS:
+                continue
+            counts = minor_counts(codes_of(i), codes_of(j))
+            if counts[-1] < 2:
+                continue
+            r = phased_r2(*counts)
+            pairs += 1
+            if np.isfinite(r):
+                r2max = max(r2max, r * r)
+                if r * r >= CLUMP_R2 * eps:
+                    members.append(j)
+        assigned.update(members)
+        clumps.append((p, i, members))
+    if not clumps:
+        return None, pairs, r2max
+    text = ["\t".join(["#CHROM", "POS", "ID", "P", "TOTAL", "NONSIG"]
+                      + [f"S{b:g}" for b in reversed(CLUMP_BINS)] + ["SP2"])]
+    for p, i, members in clumps:
+        bins = [0] * (len(CLUMP_BINS) + 1)
+        for j in members:
+            bins[sum(var[j][3] < b for b in CLUMP_BINS)] += 1
+        sp2 = ",".join(var[j][2] for j in members if var[j][3] <= CLUMP_P2 * eps)
+        chrom, pos, vid, _ = var[i]
+        text.append("\t".join([chrom, str(pos), vid, g6(p), str(len(members)),
+                               *map(str, bins), sp2 or "."]))
+    return "\n".join(text) + "\n", pairs, r2max
+
+
+def run_clump(torch, prefix, report, out, card):
+    """`--clump` of the logistic main path's report on its 500,000-sample
+    panel: what it measures is loading, K1 and the host's pair decodes (no
+    member on an iid panel).  The .clumps (or the "No significant --clump
+    results" warning) equal to expected_clumps's."""
+    wall, launches = drive(torch, ["--pfile", prefix, "--clump", report, *CLUMP_ARGS,
+                                   "--out", out, "--silent"], out)
+    assert launches["geno_counts"] >= 1, launches
+    t0 = time.perf_counter()
+    want, pairs, r2max = expected_clumps(prefix, report)
+    host_s = time.perf_counter() - t0
+    with open(out + ".log") as f:
+        said = [ln.strip() for ln in f
+                if "clumps formed" in ln or "No significant --clump" in ln]
+    assert said, "the run logged no --clump result"
+    if want is None:
+        assert not os.path.exists(out + ".clumps") and "No significant" in said[0], said
+        what = "no clump, as recomputed"
+    else:
+        with open(out + ".clumps") as f:
+            assert f.read() == want, "the .clumps differs from the host's recomputation"
+        what = ".clumps = the host's recomputation, byte for byte"
+    log(f"--clump {' '.join(CLUMP_ARGS)} of the main path's report "
+        f"({N_SAMPLES} samples): {wall:.2f}s wall on {card}; {said[0]}; {what} "
+        f"({pairs} pairs scored, largest r^2 {r2max:.3g}; recomputed in "
+        f"{host_s:.1f}s); launches {launches}")
+    return launches
+
+
+def write_phased_copy(src, dst, n_variants):
+    """The first n_variants of the fixed-width fileset src as dst, written by
+    the port's PgenWriter with every het call phased ("1|0", swapped, with
+    probability 1/2 from numpy seed PHASE_SEED). Returns the haplotype codes
+    [n_variants, 2 N] (sample s's in columns 2s and 2s + 1: 0 REF, 2 ALT, 3
+    missing) that --indep-pairphase must hand K11."""
+    import numpy as np
+
+    from plink_torch.io.pgen_write import PgenWriter
+
+    codes = pgen_codes(src, np.arange(n_variants))
+    N = codes.shape[1]
+    rng = np.random.default_rng(PHASE_SEED)
+    everyone = np.ones(N, bool)
+    haps = np.empty((n_variants, 2 * N), np.uint8)
+    with PgenWriter(dst + ".pgen", N, n_variants, with_phase=True) as w:
+        for v in range(n_variants):
+            c = codes[v]
+            swapped = rng.random(N) < 0.5
+            w.append_codes_with_phase(c, everyone, swapped)
+            het = c == 1
+            h1 = np.where((c == 2) | (het & swapped), 2, 0).astype(np.uint8)
+            h2 = np.where((c == 2) | (het & ~swapped), 2, 0).astype(np.uint8)
+            h1[c == 3] = h2[c == 3] = 3
+            haps[v, 0::2], haps[v, 1::2] = h1, h2
+    shutil.copy(src + ".psam", dst + ".psam")
+    with open(src + ".pvar") as f, open(dst + ".pvar", "w") as g:
+        kept = 0
+        for ln in f:
+            if not ln.startswith("#"):
+                if kept == n_variants:
+                    break
+                kept += 1
+            g.write(ln)
+    return haps
+
+
+def run_pairphase(torch, prefix, tmp, card):
+    """`--indep-pairphase 200 50 0.2` on a phased copy of the whole
+    indep_10k: K11 launched once, on the 2 x 10,000 haplotype columns,
+    which must be numpy's haplotypes of the copy; its decisions equal to
+    its plain version's on them; .prune.in and .prune.out partition the
+    IDs."""
+    import numpy as np
+
+    from plink_torch.ops import ld as LD
+
+    V = IND_PANEL[1]
+    ph = os.path.join(tmp, "phased")
+    t0 = time.perf_counter()
+    haps = write_phased_copy(prefix, ph, V)
+    t_copy = time.perf_counter() - t0
+    out = os.path.join(tmp, "pairphase")
+    with spying("ld_band_bits", LD) as (k11, real11):
+        wall, launches = drive(torch, ["--pfile", ph, *PAIRPHASE_ARGS, "--out", out,
+                                       "--silent"], out)
+    assert launches["ld_band_bits"] == len(k11) == 1, launches
+    packed, smask = k11[0][:2]
+    nh = int(smask.sum())
+    assert nh == 2 * IND_PANEL[0] and packed.shape[0] == V, (nh, packed.shape)
+    got = unpack_codes(packed)[:, :nh].cpu().numpy()
+    assert np.array_equal(got, haps), "K11's haplotype columns differ from the copy's"
+    del got, haps
+    held = check_calls(torch, k11, real11, LD.ld_band_bits_plain, "K11")
+    del k11, packed, smask
+    ids = {}
+    for ext in (".prune.in", ".prune.out"):
+        with open(out + ext) as f:
+            ids[ext] = f.read().split()
+    assert sorted(ids[".prune.in"] + ids[".prune.out"], key=lambda s: int(s[3:])) \
+        == [f"snp{i}" for i in range(V)]
+    log(f"--indep-pairphase {' '.join(PAIRPHASE_ARGS[1:])} on a phased copy "
+        f"({V} variants x {IND_PANEL[0]} samples, written in {t_copy:.1f}s): "
+        f"{wall:.2f}s wall on {card}; K11 on {nh} haplotype columns = numpy's "
+        f"haplotypes; {held}; {len(ids['.prune.out'])} removed; launches {launches}")
+    return launches
+
+
+def run_ld_parity(tmp, prefix, n, m):
+    """The LD reports' parity cases on the parity panel (LD_PARITY): the
+    port on the card twice and on the CPU, every output byte for byte, and
+    the --ld block of the log."""
+    from plink_torch import cli
+
+    panels = {"small": prefix, "phased": os.path.join(tmp, "small_phased")}
+    write_phased_copy(prefix, panels["phased"], m)
+    subs = {"region": os.path.join(tmp, "small_region.bed"),
+            "report": os.path.join(tmp, "cuda1_hybrid.PHENO1.glm.logistic.hybrid")}
+    with open(subs["region"], "w") as f:
+        f.write("1\t1\t300\n")
+    for label, panel, flags, exts in LD_PARITY:
+        outs = {}
+        for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"), ("cuda2", "cuda")):
+            os.environ["PLINK_TORCH_DEVICE"] = devname
+            outs[tag] = os.path.join(tmp, f"{tag}_ld_{label}")
+            t0 = time.perf_counter()
+            rc = cli.main(["--pfile", panels[panel], *(a.format(**subs) for a in flags),
+                           "--out", outs[tag], "--silent"])
+            assert rc == 0, (label, tag, rc)
+            outs[tag + "_s"] = time.perf_counter() - t0
+        for ext in exts:
+            a, b, c2 = (outs[t] + ext for t in ("cuda1", "cpu", "cuda2"))
+            assert filecmp.cmp(a, b, shallow=False), ("CUDA differs from CPU", label, ext)
+            assert filecmp.cmp(a, c2, shallow=False), ("two CUDA runs differ", label, ext)
+        extra = ""
+        if "--ld" in flags:
+            blocks = [ld_block(outs[t] + ".log") for t in ("cuda1", "cpu", "cuda2")]
+            assert blocks[0] == blocks[1] == blocks[2], (label, "--ld block")
+            extra = f", the --ld block alike ({len(blocks[0])} lines)"
+        log(f"parity ld {label} [{n}x{m}, {panel}]: CUDA = CPU = CUDA byte for "
+            f"byte ({' '.join(exts)}{extra}; CUDA {outs['cuda1_s']:.1f}s, CPU "
+            f"{outs['cpu_s']:.1f}s)")
+
+
 def run_parity(tmp):
     """Phase 8: the 2,000 x 1,200 panel through the port on the card and on
     the CPU (plain versions): hybrid, firth, the QC + linear path, and the
@@ -1507,6 +2077,7 @@ def run_parity(tmp):
                 f" by the CLI tests' rules), two CUDA runs byte-identical; "
                 f"{' '.join(said)} (CUDA {outs['cuda1_s']:.1f}s, CPU "
                 f"{outs['cpu_s']:.1f}s)")
+        run_ld_parity(tmp, prefix, n, m)
     finally:
         os.environ.pop("PLINK_TORCH_VB", None)
         os.environ.pop("PLINK_TORCH_TILE", None)
@@ -1595,6 +2166,26 @@ def main(argv=None):
         paths["indep"] = run_indep_path(torch, p2, os.path.join(tmp, "ind_out"), card)
         trace_path(torch, ind_argv(p2, os.path.join(tmp, "ind_traced")),
                    "indep-pairwise")
+        stamp("LD report kernels")
+        rows += check_ld_report_kernels(torch, dev, p2)
+        torch.cuda.empty_cache()
+        stamp("LD table, unphased")
+        paths["r2_unphased"] = run_vcor_table(torch, p2, os.path.join(tmp, "r2u"),
+                                              card, phased=False)
+        trace_path(torch, vcor_argv(p2, os.path.join(tmp, "r2u_traced"),
+                                    VCOR_TABLE_ARGS[False]), "r2-unphased table")
+        stamp("LD table, phased")
+        paths["r2_phased"] = run_vcor_table(torch, p2, os.path.join(tmp, "r2p"),
+                                            card, phased=True)
+        stamp("LD matrix")
+        paths["r_matrix"] = run_vcor_matrix(torch, p2, tmp, card)
+        stamp("--ld")
+        paths["ld"] = run_ld_pair(torch, p2, os.path.join(tmp, "ld_pair"), card)
+        stamp("--clump")
+        paths["clump"] = run_clump(torch, prefix, os.path.join(
+            tmp, "main.PHENO1.glm.logistic.hybrid"), os.path.join(tmp, "clump"), card)
+        stamp("--indep-pairphase")
+        paths["pairphase"] = run_pairphase(torch, p2, tmp, card)
         stamp("parity")
         run_parity(tmp)
         stamp("done")

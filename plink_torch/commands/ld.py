@@ -1,4 +1,4 @@
-"""--indep-pairwise: windowed r^2 greedy LD pruning.
+"""--indep-pairwise / --indep-pairphase: windowed r^2 greedy LD pruning.
 
 Behavior reference: LdPrune / IndepPairwiseThread (2.0/plink2_ld.cc:2530,
 :801-1116) with the default (non plink1-order) scan: when a window fills,
@@ -14,13 +14,15 @@ The pair decisions come from kernel K11 (ops/ld.py `LdBitsBand`) over the
 subcontig's rows of the device-resident packed matrix, founders only; the
 serial greedy walk runs on the host over those bits (the native
 `ld_prune_walk`; `_walk_py` is the same walk in Python, the tests'
-reference).
+reference).  --indep-pairphase (IndepPairphaseThread, 2.0/plink2_ld.cc:1549)
+runs the same walk with K11 on the founders' 2n haplotype columns, built on
+the host from the phase tracks.
 
 Outputs <out>.prune.in / <out>.prune.out (variant IDs in variant order).
 
 Not yet implemented vs the reference (as in plink_tpu): chrX male/nonmale
 double-weighting (:935-947; chrX variants are treated autosomally),
---indep-preferred, --indep-order 1.  --indep-pairphase is not yet ported.
+--indep-preferred, --indep-order 1.
 """
 
 from __future__ import annotations
@@ -28,14 +30,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import NotPortedError
 from ..dataset import Dataset
+from ..io.pack import pack2, unpack2
 from ..ops.ld import LdBitsBand
 from ..ops.pairwise import compact_samples
 from ..utils.logging import RunLogger
 from .basic_reports import alt_allele_freqs
 
 _EPS = 1.0 + 2.0 ** -44  # kSmallEpsilon factor in the removal tie-break
+HAP_BLOCK = 2048  # variants a block of --indep-pairphase's haplotype expansion
 
 
 def _parse_spec(args: tuple) -> tuple[int, bool, int, float]:
@@ -88,15 +91,23 @@ def _subcontigs(sub_bps: np.ndarray, ws: int, is_kb: bool):
 
 
 def indep_pairwise(ds: Dataset, cfg, log: RunLogger, phased: bool = False) -> None:
-    if phased:
-        raise NotPortedError("--indep-pairphase: not yet ported to plink_torch.")
-    ws, is_kb, step, r2t = _parse_spec(cfg.indep_pairwise)
+    """phased=True is --indep-pairphase: the same walk, the pair r^2 that
+    of the haplotype columns."""
+    spec = cfg.indep_pairphase if phased else cfg.indep_pairwise
+    if phased and not ds.has_phase:
+        # the reference requires true phase tracks for --indep-pairphase
+        # (it does not statistically phase like --r2-phased)
+        raise ValueError(
+            "--indep-pairphase: 0-based variant #0 is not fully phased."
+        )
+    ws, is_kb, step, r2t = _parse_spec(spec)
     vmask = ds.variant_mask.copy()
+    flagname = "indep-pairphase" if phased else "indep-pairwise"
     chr0 = vmask & (ds.vi.chrom == 0)
     if chr0.any():
         ct = int(chr0.sum())
         log.log(
-            f"--indep-pairwise: Ignoring {ct} chromosome 0 "
+            f"--{flagname}: Ignoring {ct} chromosome 0 "
             f"variant{'s' if ct != 1 else ''}."
         )
         vmask &= ~chr0
@@ -122,7 +133,7 @@ def indep_pairwise(ds: Dataset, cfg, log: RunLogger, phased: bool = False) -> No
             sub = cidx[s0:s1]
             considered[sub] = True
             _prune_subcontig(ds, sub, ds.vi.pos[sub], majf[sub], inc_f, smask,
-                             npad, ws, is_kb, step, r2t, removed_global)
+                             npad, ws, is_kb, step, r2t, removed_global, phased)
 
     pruned = removed_global & considered
     kept = considered & ~removed_global
@@ -136,7 +147,7 @@ def indep_pairwise(ds: Dataset, cfg, log: RunLogger, phased: bool = False) -> No
             f.write("\n".join(map(str, ds.vi.vid[pi])) + "\n")
     ct, tot = int(pruned.sum()), int(considered.sum())
     log.log(
-        f"--indep-pairwise ({'kb' if is_kb else 'ct'} window): {ct}/{tot} "
+        f"--{flagname} ({'kb' if is_kb else 'ct'} window): {ct}/{tot} "
         f"variants removed; IDs written to {cfg.out}.prune.in + "
         f"{cfg.out}.prune.out ."
     )
@@ -169,11 +180,56 @@ def _subcontig_rows(ds: Dataset, sub: np.ndarray, inc_f: np.ndarray,
     return rows.contiguous()
 
 
+def _haplotype_rows(ds: Dataset, sub: np.ndarray, inc_f: np.ndarray):
+    """--indep-pairphase's input (plink_tpu/commands/ld.py:191-221): the
+    founders' two haplotypes of each variant as columns 2s and 2s + 1, coded
+    0 (REF), 2 (ALT) or 3 (missing), packed and put on the run's device, and
+    their sample mask.  The r^2 of 0/1 haplotype indicators is the phased
+    r^2, so K11 runs on them unchanged.  Raises on a het call without
+    phase.  The subcontig is read in one piece and expanded in blocks of
+    HAP_BLOCK variants; only the phase tracks are parsed per variant."""
+    n, N = len(sub), ds.raw_sample_ct
+    lo, hi = int(sub[0]), int(sub[-1]) + 1
+    packed = ds.reader.read_packed(lo, hi - lo)[sub - lo]
+    nh = 2 * len(inc_f)
+    npad = -(-nh // 4) * 4
+    out = np.empty((n, npad // 4), np.uint8)
+    for b0 in range(0, n, HAP_BLOCK):
+        full = unpack2(packed[b0 : b0 + HAP_BLOCK], N)
+        pp, pi = np.empty((2, *full.shape), bool)
+        for k, c in enumerate(full):
+            pp[k], pi[k] = ds.phase_row(int(sub[b0 + k]), c)
+        if len(inc_f) != N:
+            full, pp, pi = full[:, inc_f], pp[:, inc_f], pi[:, inc_f]
+        het = full == 1
+        bad = np.flatnonzero((het & ~pp).any(axis=1))
+        if bad.size:
+            raise ValueError(
+                f"--indep-pairphase: 0-based variant #{int(sub[b0 + bad[0]])} "
+                "is not fully phased."
+            )
+        # unswapped "0|1": hap1 REF(0), hap2 ALT(2); missing stays 3
+        alt, miss = full == 2, full == 3
+        hap = np.empty((len(full), len(inc_f), 2), np.uint8)
+        for h, alt_h in enumerate((alt | (het & pi), alt | (het & ~pi))):
+            code = alt_h.view(np.uint8) << 1
+            code[miss] = 3
+            hap[:, :, h] = code
+        out[b0 : b0 + len(full)] = pack2(hap.reshape(len(full), nh))
+    smask = np.zeros(npad, np.int8)
+    smask[:nh] = 1
+    return torch.from_numpy(out).to(ds.device), smask
+
+
 def _prune_subcontig(ds, sub, bps, majf_sub, inc_f, smask, npad, ws, is_kb,
-                     step, r2t, removed_global):
+                     step, r2t, removed_global, phased=False):
     n = len(sub)
     width = (min(ws, n - 1)) if not is_kb else _max_bp_window_span(bps, ws)
-    band = LdBitsBand(_subcontig_rows(ds, sub, inc_f, npad), smask, width, r2t)
+    if phased:
+        rows, smask = _haplotype_rows(ds, sub, inc_f)
+    else:
+        rows = _subcontig_rows(ds, sub, inc_f, npad)
+    band = LdBitsBand(rows, smask, width, r2t)
     # per-variant monomorphic check (ref :906-910): no homs, or all nonmissing
     # hom-ref, or all hom-alt
     plusone, minusone, nm = band.homref1, band.homalt1, band.nm1

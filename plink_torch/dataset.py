@@ -155,6 +155,34 @@ class Dataset:
         h = self.reader.header
         return h.mode == 0x10 and bool((h.vrtypes & 0x60).any())
 
+    @property
+    def has_phase(self) -> bool:
+        """Any variant carries a hardcall-phase track (vrtype bit 4)."""
+        h = self.reader.header
+        return h.mode == 0x10 and bool((h.vrtypes & 0x10).any())
+
+    def variant_allele_ct(self, v: int) -> int:
+        a = str(self.vi.alt[int(v)])
+        return 1 + (a.count(",") + 1 if a != "." else 0)
+
+    def phase_row(self, v: int, codes: np.ndarray):
+        """(phasepresent [N] bool, swapped [N] bool) for one variant's het
+        calls (False everywhere when no phase track), given its hardcalls
+        codes [N].  For multiallelic variants the het universe includes
+        aux1b het patches (aux.het_ids)."""
+        aux = self.reader.read_dosage(int(v), self.variant_allele_ct(v), codes)
+        pp = np.zeros(self.raw_sample_ct, bool)
+        pi = np.zeros(self.raw_sample_ct, bool)
+        if aux.phasepresent is not None:
+            if aux.het_ids is not None:
+                het_idx = aux.het_ids
+            else:
+                het_idx = np.flatnonzero(codes == 1)
+            pp[het_idx] = aux.phasepresent
+            phased_idx = het_idx[aux.phasepresent]
+            pi[phased_idx] = aux.phaseinfo
+        return pp, pi
+
     def is_haploid_all(self) -> np.ndarray:
         return (self.vi.chrom == Y_CODE) | (self.vi.chrom == MT_CODE)
 

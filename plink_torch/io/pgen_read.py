@@ -331,10 +331,12 @@ class PgenReader:
         return pack.unpack2(self.read_packed(vstart, vct), self.sample_ct)
 
     # -- dosage ------------------------------------------------------------
-    def read_dosage(self, vidx: int, allele_ct: int = 2) -> VariantAux:
+    def read_dosage(self, vidx: int, allele_ct: int = 2,
+                    codes: np.ndarray | None = None) -> VariantAux:
         """Decode dosage/phase tracks for one variant (if present).
         allele_ct is needed to parse past auxiliary track #1 on
-        multiallelic variants."""
+        multiallelic variants; codes, the variant's hardcalls [N] where the
+        caller has them, saves decoding its main track again."""
         hdr = self.header
         vrtype = int(hdr.vrtypes[vidx])
         aux = VariantAux()
@@ -356,6 +358,8 @@ class PgenReader:
         elif main in (2, 3, 4, 6, 7):
             _, _, o = decode_difflist(buf, o, N, True)
         het_ids = None
+        if codes is None and vrtype & (VRTYPE_MULTIALLELIC | VRTYPE_HPHASE):
+            codes = pack.unpack2(self.read_packed(vidx, 1)[0], N)
         if vrtype & VRTYPE_MULTIALLELIC:
             if vrtype & VRTYPE_DOSAGE_BITS:
                 # True multiallelic dosage (aux tracks #5-6) is unfinalized
@@ -371,7 +375,6 @@ class PgenReader:
             # multiallelic + hardcall phase: parse past track #1; the phase
             # het universe then includes aux1b het patches
             # (GetAux1bHetIncr, 2.0/include/pgenlib_read.cc:7728)
-            codes = pack.unpack2(self.read_packed(vidx, 1)[0], N)
             (_, _, ids10, lo10, hi10), o = self._parse_ma_track(
                 buf, o, codes, allele_ct)
             het = codes == 1
@@ -385,7 +388,6 @@ class PgenReader:
             if het_ids is not None:
                 het_ct = int(het_ids.size)
             else:
-                codes = pack.unpack2(self.read_packed(vidx, 1)[0], N)
                 het_ct = int((codes == 1).sum())
             first = int(buf[o])
             if first & 1:

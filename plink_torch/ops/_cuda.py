@@ -10,7 +10,7 @@ kernel is rebuilt and a stale library is never loaded.
 wrappers in ``ops/counts.py``, ``ops/glm.py``, ``ops/pairwise.py``,
 ``ops/pca.py`` and ``ops/ld.py``; it is the only module state the port keeps
 besides the loaded libraries.  An entry point lives in ``csrc/<name>.cu``
-unless ``_SOURCE`` names another file (K9 and K10 share one).
+unless ``_SOURCE`` names another file (K9 and K10 share one; so do K11-K13).
 """
 
 from __future__ import annotations
@@ -54,9 +54,14 @@ _ENTRY = {
     "pca_xt": ("pt_pca_xt", [_P, _L, _L, _P, _P, _L, _P, _I, _P, _P]),
     "ld_band_bits": ("pt_ld_band_bits", [_P, _L, _L, _P, _L, _I, _D, _P, _P,
                                          _P, _P, _P, _P, _P]),
+    "ld_band_stats": ("pt_ld_band_stats", [_P, _L, _L, _P, _L, _I, _P, _P, _P,
+                                           _P, _P, _P, _P]),
+    "ld_gram_pair": ("pt_ld_gram_pair", [_P, _L, _P, _L, _L, _P, _L, _P, _P,
+                                         _P, _P, _P]),
 }
 # entry points whose source file is not named after them
-_SOURCE = {"pca_x": "pca_apply", "pca_xt": "pca_apply", "ld_band_bits": "ld_band"}
+_SOURCE = {"pca_x": "pca_apply", "pca_xt": "pca_apply", "ld_band_bits": "ld_band",
+           "ld_band_stats": "ld_band", "ld_gram_pair": "ld_band"}
 _SOURCES = sorted({_SOURCE.get(k, k) for k in _ENTRY})
 
 LAUNCHES: dict[str, int] = dict.fromkeys(_ENTRY, 0)

@@ -4,7 +4,8 @@ fileset, apply --pheno, the sample filters (keep/remove, founders, --mind),
 the variant filters (extract/exclude, chr), the counts-based reports and
 their filters (freq, geno-counts, missing, --geno, hardy, --hwe,
 --maf/--mac), the relationship commands (KING, then GRM / PCA),
---indep-pairwise, then --glm.
+--indep-pairwise, --indep-pairphase, the --r2/--r tables and matrices,
+--ld, then --glm, and --clump last.
 
 Every other flag raises NotPortedError before anything runs; the run never
 falls back to plink_tpu.
@@ -39,8 +40,11 @@ _PORTED_FIELDS = {
     "king_cutoff_prefix", "king_table_subset", "king_table_filter",
     "make_grm_bin", "make_grm_list", "make_rel", "pca", "pca_approx",
     "pca_allele_wts", "parallel",
-    # LD pruning
-    "indep_pairwise", "bad_ld",
+    # LD pruning and reports
+    "indep_pairwise", "indep_pairphase", "bad_ld", "vcor", "vcor_args",
+    "ld_window_kb", "ld_window_r2", "ld", "clump", "clump_p1", "clump_p2",
+    "clump_r2", "clump_kb", "clump_id_field", "clump_p_field", "clump_range",
+    "clump_range_border", "clump_bins", "clump_allow_overlap",
 }
 
 
@@ -69,7 +73,8 @@ def _degenerate_data_checks(cfg: Config, ds) -> None:
     """The LD guard of plink_tpu's degenerate-data checks (ref
     2.0/plink2.cc:2065-2105): LD-estimating commands with < 50 founders
     error unless --bad-ld."""
-    if not cfg.indep_pairwise or cfg.bad_ld or int(ds.founder_mask.sum()) >= 50:
+    ld_needed = bool(cfg.indep_pairwise or cfg.indep_pairphase or cfg.ld)
+    if not ld_needed or cfg.bad_ld or int(ds.founder_mask.sum()) >= 50:
         return
     if ds.raw_sample_ct < 50:
         raise ValueError(
@@ -204,11 +209,31 @@ def run_pipeline(cfg: Config, device) -> int:
 
             with log.phase("--indep-pairwise"):
                 indep_pairwise(ds, cfg, log)
+        if cfg.indep_pairphase:
+            from .commands.ld import indep_pairwise
+
+            with log.phase("--indep-pairphase"):
+                indep_pairwise(ds, cfg, log, phased=True)
+        if cfg.vcor:
+            from .commands.vcor import run_vcor
+
+            with log.phase("--r2/--r"):
+                run_vcor(ds, cfg, log)
+        if cfg.ld:
+            from .commands.ld_console import run_ld_console
+
+            with log.phase("--ld"):
+                run_ld_console(ds, cfg, log)
         if cfg.glm:
             from .commands.glm import run_glm
 
             with log.phase("--glm"):
                 run_glm(ds, cfg, log)
+        if cfg.clump:
+            from .commands.clump import run_clump
+
+            with log.phase("--clump"):
+                run_clump(ds, cfg, log)
         log.log(f"End of run; total wall-clock {log.elapsed():.2f}s.")
         return 0
     except Exception as e:

@@ -355,3 +355,57 @@ def test_ld_band_bits_kernel(dev, n, V, width):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
         assert all(torch.equal(a, b) for a, b in zip(got, ld_band_bits(pk, sm, width, r2t)))
     assert not got[0][:, 0].any()
+
+
+@pytest.mark.parametrize("n,V,width", LD_SHAPES)
+def test_ld_band_stats_kernel(dev, n, V, width):
+    """K12 equals its plain version exactly (the six statistics, d = 0
+    included, and the three count vectors), 0 past the subcontig's end; its
+    counts equal K11's."""
+    from plink_torch.ops.ld import ld_band_bits, ld_band_stats, ld_band_stats_plain
+
+    rng = np.random.default_rng(n + 1)
+    packed, _, _ = _inputs(n, V, 2, 22)
+    for v0 in range(0, V - 4, 13):
+        packed[v0 + 1] = packed[v0]
+    npad = packed.shape[1] * 4
+    smask = (rng.random(npad) < 0.9).astype(np.int8)
+    smask[n:] = 0
+    pk = torch.from_numpy(packed).to(dev)
+    sm = torch.from_numpy(smask).to(dev)
+    width = min(width, V - 1)
+    got = ld_band_stats(pk, sm, width)
+    ref = ld_band_stats_plain(pk, sm, width)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b) for a, b in zip(got, ld_band_stats(pk, sm, width)))
+    bits = ld_band_bits(pk, sm, width, 0.2)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], bits[1:]))
+    ii = torch.arange(V, device=dev)[:, None]
+    dd = torch.arange(width + 1, device=dev)[None, :]
+    assert not got[0][:, ii + dd >= V].any()
+
+
+GRAM_SHAPES = [(150, 70, 45), (1001, 512, 512), (77, 1, 300), (2300, 256, 130),
+               (10001, 600, 64)]
+
+
+@pytest.mark.parametrize("n,ca,cb", GRAM_SHAPES)
+def test_ld_gram_pair_kernel(dev, n, ca, cb):
+    """K13 equals its plain version exactly for chunks of different lengths
+    (tiles cut ragged; the word axis split over blocks or not), with a
+    chunk against itself, twice."""
+    from plink_torch.ops.ld import ld_gram_pair, ld_gram_pair_plain
+
+    rng = np.random.default_rng(ca + cb)
+    packed, _, _ = _inputs(n, ca + cb, 2, 23)
+    npad = packed.shape[1] * 4
+    smask = (rng.random(npad) < 0.85).astype(np.int8)
+    smask[n:] = 0
+    pa = torch.from_numpy(packed[:ca]).to(dev)
+    pb = torch.from_numpy(packed[ca:]).to(dev)
+    sm = torch.from_numpy(smask).to(dev)
+    for a, b in ((pa, pb), (pa, pa), (pb, pa)):
+        got = ld_gram_pair(a, b, sm)
+        assert got.shape == (3 * a.shape[0], 3 * b.shape[0])
+        assert torch.equal(got, ld_gram_pair_plain(a, b, sm))
+        assert torch.equal(got, ld_gram_pair(a, b, sm))

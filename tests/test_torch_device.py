@@ -67,14 +67,14 @@ def test_bad_device_name_refused(tiny, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--indep-pairphase", "50", "5", "0.2"],
+    ["--blocks", "no-pheno-req"],
     ["--freq", "cols=+machr2"],
     ["--glm", "interaction", "--covar", "{p}.cov"],
     ["--glm", "cc-residualize", "hide-covar", "--covar", "{p}.cov"],
     ["--glm", "--covar", "{p}.cov", "--maf", "0.01", "--af-pseudocount", "1"],
     ["--glm", "hide-covar", "qt-residualize", "--covar", "{p}.cov", "--pheno",
      "{p}.qt"],
-], ids=["indep-pairphase", "freq", "interaction", "cc-residualize", "maf-filter",
+], ids=["blocks", "freq", "interaction", "cc-residualize", "maf-filter",
         "quantitative"])
 def test_unported_flag_says_so(tiny, tmp_path, args, monkeypatch, capsys):
     args = [a.format(p=tiny) for a in args]

@@ -26,6 +26,8 @@ def test_import_leaves_jax_out():
         "import plink_torch.commands.king, plink_torch.commands.grm\n"
         "import plink_torch.commands.pca, plink_torch.ops.pca\n"
         "import plink_torch.commands.ld, plink_torch.ops.ld\n"
+        "import plink_torch.commands.vcor, plink_torch.commands.ld_console\n"
+        "import plink_torch.commands.clump, plink_torch.stats.phased_ld\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n"
