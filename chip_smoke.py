@@ -70,6 +70,23 @@ Phases, each of which raises on failure (nothing is caught):
      for byte), compared column by column; two card runs must give
      identical bytes.
 
+Slice 6 (the --glm modifiers) adds, in the order they run:
+  3b. K2 / K3 scaled (s = 0.5 for males) and K3 residualized (dc = 0, a
+     seeded offset; logistic and firth2) against their plain versions in
+     f32 and f64, and K14 `xm1_stats` exactly, on block 0 of phase 4's panel;
+  4b. `--glm cc-residualize hide-covar` on phase 4's panel (K2 and the
+     residualized K3 launched; 64 rows, FIRTH?=Y first, against numpy f64
+     fits of the centred dosage with the null model's offset; traced);
+  5b. `--xchr-model 1` on a copy whose variants n/2.. sit on chrX:
+     logistic (`no-x-sex`: the .cov holds SEX; K14 and the scaled K2 / K3)
+     and linear on QT1 (K6 three times on chrX), 64 chrX rows of each
+     against numpy f64 fits with the males' dosages halved;
+  17b. the modifiers on the parity panel, CUDA against CPU: the transforms,
+     allow-no-covars + pheno-ids, sex, cc- + qt-residualize,
+     firth-residualize (hybrid and with firth), --xchr-model 0 / 1 (and 1
+     with the residualize modifiers) on a chrX copy with a .cov without
+     SEX.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
 without the plink_torch package beside this script.
@@ -119,6 +136,14 @@ QC_REPORTS = (".afreq", ".gcount", ".vmiss", ".smiss", ".hardy")
 QC_REMOVALS = ("(--mind)", "(--geno)", "Hardy-Weinberg", "allele frequency")
 N_OLS_ROWS = 64  # .glm.linear rows checked against numpy's f64 fit
 LOGISTIC_KERNELS = ("geno_counts", "glm_moments", "glm_irls", "chol_small")
+# the --glm modifiers' paths (slice 6): cc-residualize runs the plain K2 and
+# the residualized K3; --xchr-model 1 logistic the plain modes on chr1 and the
+# scaled modes + K14 on chrX
+RESID_KERNELS = ("geno_counts", "glm_moments", "glm_irls_resid", "chol_small")
+XM1_KERNELS = ("glm_moments", "glm_irls", "glm_moments_scaled", "glm_irls_scaled",
+               "chol_small", "xm1_stats")
+XM1_LINEAR_KERNELS = ("linear_sums",)
+N_CHECK_ROWS = 64  # report rows of each slice-6 path checked against numpy f64
 QC_KERNELS = ("geno_counts", "sample_counts", "linear_sums")
 # the relationship cells: bench.py's king_50k / grm_50k panel (p50000x32768,
 # seed 42, 2% missing calls; bench.py:455-463,593-596), full width
@@ -233,7 +258,9 @@ def log(msg=""):
 
 
 def stamp(label):
-    log(f"[{time.perf_counter() - _T0:.0f}s] {label}")
+    now = time.perf_counter()
+    log(f"[{now - _T0:.0f}s] {label}")
+    return now
 
 
 def card_report(torch):
@@ -674,6 +701,181 @@ def check_linear_sums(torch, dev, prefix, pk, feat):
                 max_norm_err=errs["plain"], tol=TOL_VS_PLAIN,
                 max_norm_err_f64=errs["f64"], tol_f64=TOL_VS_F64, ms=ms6,
                 plain_ms=pms6, **_bound(ops6, bytes6), library_ms=lib6)
+
+
+def check_modifier_kernels(torch, dev, prefix):
+    """Phase 3b: the --glm modifiers' kernel modes at the main path's shapes
+    (block 0, 2,048 variants x 500,000 samples, SEX + 10 PCs): K2 and K3 in
+    the scaled mode (s = 0.5 for the panel's males, --xchr-model 1), K3 in
+    the residualized mode (dc = 0, the mean from K2's sums, the offset of a
+    seeded null model) in logistic and firth2, each against its plain
+    version in f32 and in f64; K14 exactly against its plain version."""
+    import numpy as np
+
+    from plink_torch.ops import glm as G
+
+    packed_all, feat, masks = main_path_inputs(torch, prefix, dev)
+    vb = 2048
+    pk = packed_all[:vb]
+    dc = feat.shape[1] - 2
+    d = dc + 1
+    npad = feat.shape[0]
+    n_s = int(masks[:, 0].sum())
+    s = torch.ones(npad, dtype=torch.float32, device=dev)
+    s[masks[:, 1] > 0] = 0.5  # the males' chrX dosages halved
+    gw = torch.zeros((vb, 3), dtype=torch.float32, device=dev)
+    gw[:, 0], gw[:, 1] = 1.0, 2.0  # ADD with A1 = ALT
+    gwm = torch.stack([gw, gw], dim=1).contiguous()
+    feat64, s64 = feat.double(), s.double()
+    rows = []
+    valid_f = (unpack_codes(pk) != 3).to(torch.float32)
+    n_valid = float(valid_f.sum())
+
+    # K2, scaled
+    k2 = G.glm_moments(pk, gwm, feat, s)
+    p2 = chunked(torch, lambda sl: G.glm_moments_plain(pk[sl], gwm[sl], feat, s),
+                 vb, 256)
+    r2 = chunked(torch, lambda sl: G.glm_moments_plain(
+        pk[sl], gwm[sl].double(), feat64, s64), vb, 128)
+    sc2 = mat_scale(torch, r2)
+    e2, e2r = norm_err(torch, k2, p2, sc2), norm_err(torch, k2, r2, sc2)
+    ints = [0, dc, dc + 1, dc + 2]  # sums of halves: exact
+    exact2 = bool(torch.equal(k2[:, ints][:, :, ints], p2[:, ints][:, :, ints]))
+    assert e2 <= TOL_VS_PLAIN and e2r <= TOL_VS_F64 and exact2, (e2, e2r, exact2)
+    assert torch.equal(k2, G.glm_moments(pk, gwm, feat, s))
+    ms2 = time_ms(torch, lambda: G.glm_moments(pk, gwm, feat, s), 5)
+    pms2 = time_ms(torch, lambda: chunked(torch, lambda sl: G.glm_moments_plain(
+        pk[sl], gwm[sl], feat, s), vb, 256), 1)
+    cy = feat[:, : dc + 1]
+    ccfl2 = (cy[:, :, None] * cy[:, None, :]).reshape(-1, (dc + 1) ** 2)
+    lib2 = time_ms(torch, lambda: torch.matmul(valid_f, ccfl2), 5)
+    D = dc + 3
+    bytes2 = pk.numel() + (feat.numel() + npad + gwm.numel() + k2.numel()) * 4
+    rows.append(dict(name="glm_moments_scaled", source="plink_torch/csrc/glm_moments.cu",
+                     replaces="plink_tpu/ops/glm.py:313", max_abs_err=float(
+                         (k2 - p2).abs().max()), max_norm_err=e2, tol=TOL_VS_PLAIN,
+                     max_norm_err_f64=e2r, tol_f64=TOL_VS_F64, ms=ms2,
+                     plain_ms=pms2, **_bound(n_valid * (D * (D + 1) + 2), bytes2),
+                     library_ms=lib2))
+    log(f"K2 glm_moments scaled [{vb}x{npad}, D={D}]: norm err vs plain {e2:.2e}, "
+        f"vs f64 {e2r:.2e}, integer/half entries exact, two runs identical; "
+        f"{ms2:.3f} ms, plain {pms2:.1f} ms, matmul {lib2:.3f} ms")
+
+    def k3_check(label, design, feat_k, beta, hinv, vscale):
+        """K3 in one mode against its plain version (f32 and f64)."""
+        d64 = {k: None if v is None else v.double() for k, v in design.items()}
+        active = torch.ones(vb, dtype=torch.bool, device=dev)
+        km, kv, kl = G.glm_irls_pass(pk, gw, feat_k, beta, active, hinv, **design)
+        pm, pv, pl = chunked(torch, lambda sl: G.glm_irls_pass_plain(
+            pk[sl], gw[sl], feat_k, beta[sl], active[sl],
+            None if hinv is None else hinv[sl],
+            **{k: v[sl] if k == "gmean" else v for k, v in design.items()}),
+            vb, 256)
+        rm, rv, rl = chunked(torch, lambda sl: G.glm_irls_pass_plain(
+            pk[sl], gw[sl].double(), feat_k.double(), beta[sl].double(),
+            active[sl], None if hinv is None else hinv[sl].double(),
+            **{k: v[sl] if k == "gmean" else v for k, v in d64.items()}),
+            vb, 128)
+        scm = mat_scale(torch, rm)
+        em, emr = norm_err(torch, km, pm, scm), norm_err(torch, km, rm, scm)
+        ev, evr = norm_err(torch, kv, pv, vscale), norm_err(torch, kv, rv, vscale)
+        el = 0.0 if kl is None else float(((kl - pl).abs() / pl.abs()).max())
+        assert (max(em, ev) <= TOL_VS_PLAIN and max(emr, evr) <= TOL_VS_F64
+                and el <= TOL_LOGLIK), (label, em, ev, emr, evr, el)
+        again = G.glm_irls_pass(pk, gw, feat_k, beta, active, hinv, **design)
+        assert torch.equal(km, again[0]) and torch.equal(kv, again[1]), label
+        ms = time_ms(torch, lambda: G.glm_irls_pass(pk, gw, feat_k, beta, active,
+                                                    hinv, **design), 3)
+        log(f"K3 glm_irls_pass {label} [{vb}x{npad}, d={beta.shape[1]}]: norm "
+            f"err vs plain H {em:.2e} vec {ev:.2e}, vs f64 H {emr:.2e} vec "
+            f"{evr:.2e}, loglik rel {el:.2e}, two runs identical; {ms:.3f} ms")
+        return km, float(max((km - pm).abs().max(), (kv - pv).abs().max())), \
+            max(em, ev), max(emr, evr), ms
+
+    # K3, scaled: the OLS start of the main path, then firth2 at beta = 0
+    idx = list(range(dc)) + [dc + 1]
+    h0 = k2[:, idx][:, :, idx].contiguous()
+    rhs0 = (G._Z_INIT * (k2[:, idx, dc] - 0.5 * k2[:, idx, 0])).contiguous()
+    beta0, _, _ = G.chol_small(h0, rhs=rhs0)
+    vsc = torch.sqrt(torch.diagonal(h0, dim1=1, dim2=2).clamp(min=1e-30)
+                     * k2[:, :1, 0])
+    act = torch.ones(vb, dtype=torch.bool, device=dev)
+    sc = dict(sscale=s)
+    _, mae_a, e_a, er_a, ms3 = k3_check("scaled logistic", sc, feat, beta0, None, vsc)
+    zero = torch.zeros((vb, d), dtype=torch.float32, device=dev)
+    Hz, _, _ = G.glm_irls_pass(pk, gw, feat, zero, act, sscale=s)
+    _, hz_inv, _ = G.chol_small(Hz, inverse=True)
+    _, mae_b, e_b, er_b, ms3f = k3_check("scaled firth2", sc, feat, zero, hz_inv, vsc)
+    pms3 = time_ms(torch, lambda: chunked(torch, lambda sl: G.glm_irls_pass_plain(
+        pk[sl], gw[sl], feat, beta0[sl], act[sl], sscale=s), vb, 256), 1)
+    c = feat[:, :dc]
+    ccfl3 = (c[:, :, None] * c[:, None, :]).reshape(-1, dc * dc)
+    lib3 = time_ms(torch, lambda: torch.matmul(valid_f, ccfl3), 5)
+    ntri = d * (d + 1) // 2
+    bytes3 = pk.numel() + (feat.numel() + npad + vb * (d * d + 2 * d + 5)) * 4
+    rows.append(dict(name="glm_irls_scaled", source="plink_torch/csrc/glm_irls_x.cu",
+                     replaces="plink_tpu/ops/glm.py:313", max_abs_err=max(mae_a, mae_b),
+                     max_norm_err=max(e_a, e_b), tol=TOL_VS_PLAIN,
+                     max_norm_err_f64=max(er_a, er_b), tol_f64=TOL_VS_F64, ms=ms3,
+                     plain_ms=pms3, **_bound(n_valid * (2 * ntri + 4 * d + 13), bytes3),
+                     library_ms=lib3, firth2_ms=ms3f))
+
+    # K3, residualized: mean and start from K2's sums, a seeded null offset
+    rng = np.random.default_rng(61)
+    bnull = torch.from_numpy(rng.normal(scale=0.2, size=dc)).float().to(dev)
+    off = (feat[:, :dc] @ bnull).contiguous()  # 0 on the padding
+    mean, h0r, rhs0r = G._resid_start(k2, dc)
+    feat_r = feat[:, dc:].contiguous()
+    rd = dict(offset=off, gmean=mean)
+    beta_r, _, _ = G.chol_small(h0r, rhs=rhs0r)
+    vscr = torch.sqrt(h0r[:, 0].clamp(min=1e-30) * k2[:, :1, 0])
+    _, mae_c, e_c, er_c, ms3r = k3_check("residualized logistic", rd, feat_r,
+                                         beta_r, None, vscr)
+    zr = torch.zeros((vb, 1), dtype=torch.float32, device=dev)
+    Hr, _, _ = G.glm_irls_pass(pk, gw, feat_r, zr, act, **rd)
+    _, hr_inv, _ = G.chol_small(Hr, inverse=True)
+    _, mae_d, e_d, er_d, ms3rf = k3_check("residualized firth2", rd, feat_r, zr,
+                                          hr_inv, vscr)
+    pms3r = time_ms(torch, lambda: chunked(torch, lambda sl: G.glm_irls_pass_plain(
+        pk[sl], gw[sl], feat_r, beta_r[sl], act[sl], offset=off,
+        gmean=mean[sl]), vb, 256), 1)
+    table_r = torch.stack([feat_r[:, 0], feat_r[:, 1], off], 1)
+    lib3r = time_ms(torch, lambda: torch.matmul(valid_f, table_r), 5)
+    bytes3r = pk.numel() + (3 * npad + vb * 9) * 4
+    rows.append(dict(name="glm_irls_resid", source="plink_torch/csrc/glm_irls_x.cu",
+                     replaces="plink_tpu/ops/glm.py:623", max_abs_err=max(mae_c, mae_d),
+                     max_norm_err=max(e_c, e_d), tol=TOL_VS_PLAIN,
+                     max_norm_err_f64=max(er_c, er_d), tol_f64=TOL_VS_F64, ms=ms3r,
+                     plain_ms=pms3r, **_bound(n_valid * 19, bytes3r),
+                     library_ms=lib3r, firth2_ms=ms3rf))
+
+    # K14 on block 0: w = [s, s y] over every sample
+    w = torch.stack([s * feat[:, dc + 1], s * feat[:, dc]], 1).contiguous()
+    mask = feat[:, dc + 1].contiguous()
+    k14 = G.xm1_stats(pk, w, mask)
+    p14 = chunked(torch, lambda sl: G.xm1_stats_plain(pk[sl], w, mask), vb, 256,
+                  dim=1)
+    assert torch.equal(k14, p14), float((k14 - p14).abs().max())
+    assert torch.equal(k14, G.xm1_stats(pk, w, mask))
+    ms14 = time_ms(torch, lambda: G.xm1_stats(pk, w, mask), 20)
+    pms14 = time_ms(torch, lambda: chunked(
+        torch, lambda sl: G.xm1_stats_plain(pk[sl], w, mask), vb, 256, dim=1), 1)
+    # library: the decoded valid / het / hom planes [3 vb, n] f32 by w, one
+    # matmul (as plink_tpu's dot_general)
+    codes = unpack_codes(pk)
+    pl3 = torch.cat([valid_f, (codes == 1).float(), (codes == 2).float()])
+    del codes
+    lib14 = time_ms(torch, lambda: torch.matmul(pl3, w), 3)
+    del pl3, valid_f
+    bytes14 = pk.numel() + npad * 12 + k14.numel() * 4
+    rows.append(dict(name="xm1_stats", source="plink_torch/csrc/xm1_stats.cu",
+                     replaces="plink_tpu/ops/glm.py:895", max_abs_err=0.0, tol=0.0,
+                     ms=ms14, plain_ms=pms14, **_bound(2 * n_valid, bytes14),
+                     library_ms=lib14))
+    log(f"K14 xm1_stats [{vb}x{npad}]: exact ({n_s} samples, males at 0.5); "
+        f"{ms14:.4f} ms, plain {pms14:.1f} ms, f32 matmul {lib14:.3f} ms, bound "
+        f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+    return rows
 
 
 def check_pair_kernels(torch, dev, prefix):
@@ -1138,10 +1340,13 @@ def float_allowed(col, y):
                              else abs(y))
 
 
-def compare_reports(a, b):
+def compare_reports(a, b, beta_by_se=False):
     """Every column of report `a` against the same rows of `b`: exact, except
-    OR / SE / Z / P within float_allowed.  Returns the largest float
-    difference as a fraction of what is allowed (<= 1)."""
+    OR / SE / Z / P within float_allowed.  With `beta_by_se` (the modifier
+    parity cases) a BETA is held to GLM_FLOAT_RTOL of max(|BETA|, SE), as T
+    is to max(|T|, 1): a BETA near 0 carries the f32 noise of the linear
+    sums, large relative to itself and small against its SE.  Returns the
+    largest float difference as a fraction of what is allowed (<= 1)."""
     ha, ra = read_report(a)
     hb, rb = read_report(b, limit=len(ra))
     assert ha == hb and len(ra) == len(rb), (a, b, ha, hb, len(ra), len(rb))
@@ -1150,7 +1355,11 @@ def compare_reports(a, b):
     for x, y in zip(ra, rb):
         for col, u, v in zip(ha, x, y):
             if col in floats and u != "NA" and v != "NA":
-                frac = abs(float(u) - float(v)) / float_allowed(col, float(v))
+                allowed = float_allowed(col, float(v))
+                if beta_by_se and col == "BETA" and y[ha.index("SE")] != "NA":
+                    allowed = GLM_FLOAT_RTOL * max(abs(float(v)),
+                                                   float(y[ha.index("SE")]))
+                frac = abs(float(u) - float(v)) / allowed
                 worst = max(worst, frac)
                 ok = frac <= 1.0
             else:
@@ -1223,19 +1432,27 @@ def trace_path(torch, argv, label):
 
     from plink_torch import cli
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        assert cli.main(argv) == 0
+    for attempt in (1, 2):
+        # a short path's trace has come back once without its device
+        # records (the untraced run's launch counts show the kernels ran):
+        # such a trace is taken once more, and a second empty one fails
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, by_name = 0.0, {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us = evt.time_range.elapsed_us()
-            busy += us
-            name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*$", "",
-                          evt.name)
-            by_name[name] = by_name.get(name, 0.0) + us
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            assert cli.main(argv) == 0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, by_name = 0.0, {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                us = evt.time_range.elapsed_us()
+                busy += us
+                name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*$", "",
+                              evt.name)
+                by_name[name] = by_name.get(name, 0.0) + us
+        if busy > 0:
+            break
+        log(f"trace {label}: attempt {attempt} recorded no device work")
     assert busy > 0, "the trace saw no device work"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"trace {label}: wall {wall:.3f}s (under the profiler), device busy "
@@ -1983,6 +2200,317 @@ def run_ld_parity(tmp, prefix, n, m):
             f"{outs['cpu_s']:.1f}s)")
 
 
+def resid_argv(prefix, out):
+    return ["--pfile", prefix, "--glm", "cc-residualize", "hide-covar", "--covar",
+            prefix + ".cov", "--out", out, "--silent"]
+
+
+def xm1_argvs(xprefix, prefix, out):
+    """The --xchr-model 1 paths on the chrX copy: logistic on PHENO1 and
+    linear on QT1, 'no-x-sex' as the .cov already holds SEX."""
+    base = ["--pfile", xprefix, "--covar", prefix + ".cov", "--xchr-model", "1"]
+    return {"logistic": base + ["--glm", "hide-covar", "no-x-sex", "--out", out,
+                                "--silent"],
+            "linear": base + ["--pheno", prefix + ".qt", "--pheno-name", "QT1",
+                              "--glm", "hide-covar", "no-x-sex", "--out",
+                              out + "_qt", "--silent"]}
+
+
+def _f64_logit(X, y, off=0.0, firth=False):
+    """plink2's logistic (LogisticRegressionD: OLS start on 4.8639 (y - 0.5),
+    Newton steps until |dll| < 1e-8 (0.05 + |ll|), SE from the Hessian of
+    the last solve) or Firth regression (FirthRegressionD: from 0, steps
+    capped at 5, stop when the step, the score and the penalised loglik
+    change are all below 1e-5, SE from the last step's second-weight
+    Hessian), written in numpy f64 from those rules, with a fixed offset.
+    The reported numbers depend on where the rules stop on a low-count
+    variant, so the check follows them.  Returns (beta, SE, P) of every
+    column."""
+    import numpy as np
+    from scipy.special import ndtr
+
+    def terms(b):
+        eta = X @ b + off
+        p = 1.0 / (1.0 + np.exp(-eta))
+        ll = float(np.where(y != 0, -np.logaddexp(0, -eta), -np.logaddexp(0, eta)).sum())
+        return p, p * (1.0 - p), ll
+
+    if firth:
+        b, pll_old, dmax = np.zeros(X.shape[1]), 0.0, 0.0
+        for it in range(27):
+            p, w, ll = terms(b)
+            H = (X.T * w) @ X
+            h = w * ((X @ np.linalg.inv(H)) * X).sum(axis=1)
+            u = X.T @ (y - p + h * (0.5 - p))
+            pll = ll + 0.5 * np.linalg.slogdet(H)[1]
+            if it and dmax <= 1e-5 and np.abs(u).max() < 1e-5 and pll - pll_old < 1e-5:
+                break
+            pll_old = pll
+            hinv = np.linalg.inv((X.T * ((1.0 + h) * w)) @ X)
+            step = hinv @ u
+            dmax = np.abs(step).max()
+            step *= min(1.0, 5.0 / max(dmax, 1e-300))
+            dmax = min(dmax, 5.0)
+            b = b + step
+        else:
+            raise AssertionError("the f64 Firth reference did not converge")
+    else:
+        b = np.linalg.solve(X.T @ X, X.T @ (4.863891244002886 * (y - 0.5)))
+        p, w, ll_old = terms(b)
+        for _ in range(24):
+            hinv = np.linalg.inv((X.T * w) @ X)
+            b = b - hinv @ (X.T @ (p - y))
+            p, w, ll = terms(b)
+            if abs(ll - ll_old) < 1e-8 * (0.05 + abs(ll)):
+                break
+            ll_old = ll
+        else:
+            raise AssertionError("the f64 logistic reference did not converge")
+    se = np.sqrt(np.diag(hinv))
+    return b, se, 2.0 * ndtr(-np.abs(b / se))
+
+
+def _check_rows(label, rows, hdr, fit_row, n_rows):
+    """n_rows rows of a report (every FIRTH?=Y row first, then rows spread
+    over the report), each against `fit_row(row) -> (obs, a1_freq, beta,
+    se, p)` computed in numpy f64: OBS_CT and A1_FREQ exact, OR / BETA, SE
+    and P within float_allowed.  Rows with an ERRCODE other than '.' are
+    skipped (their count is printed)."""
+    from plink_torch.utils.fmt import g6
+
+    col = {c: hdr.index(c) for c in hdr}
+    ok = [r for r in rows if r[col["ERRCODE"]] == "."]
+    fi = col.get("FIRTH?")
+    pick = [r for r in ok if fi is not None and r[fi] == "Y"][: n_rows // 2]
+    rest = [r for r in ok if r not in pick]
+    step = max(1, len(rest) // max(1, n_rows - len(pick)))
+    pick += rest[::step][: n_rows - len(pick)]
+    worst = 0.0
+    for r in pick:
+        obs, a1f, beta, se, p = fit_row(r)
+        assert r[col["OBS_CT"]] == str(obs), (label, r, obs)
+        assert r[col["A1_FREQ"]] == g6(a1f), (label, r, a1f)
+        eff = ("OR", math.exp(beta)) if "OR" in col else ("BETA", beta)
+        se_col = "LOG(OR)_SE" if "OR" in col else "SE"
+        for c, y in (eff, (se_col, se), ("P", p)):
+            frac = abs(float(r[col[c]]) - y) / float_allowed(c, y)
+            assert frac <= 1.0, (label, c, r, y)
+            worst = max(worst, frac)
+    firth_y = sum(1 for r in pick if fi is not None and r[fi] == "Y")
+    log(f"{label}: {len(pick)} rows ({firth_y} FIRTH?=Y) = numpy f64: OBS_CT and "
+        f"A1_FREQ exact, OR/BETA, SE, P within {worst:.3f} of their tolerance; "
+        f"{len(rows) - len(ok)} rows with an ERRCODE skipped")
+
+
+def _panel_design(prefix):
+    """[1 | SEX | PC1..PC10] f64 and PHENO1 / QT1 of a main-path panel."""
+    import numpy as np
+
+    cov = np.loadtxt(prefix + ".cov", skiprows=1, usecols=range(1, 12))
+    C = np.column_stack([np.ones(len(cov)), cov])
+    with open(prefix + ".psam") as f:
+        hdr = f.readline().rstrip("\n").split("\t")
+        cols = [ln.rstrip("\n").split("\t") for ln in f]
+    y = np.array([r[hdr.index("PHENO1")] == "2" for r in cols], float)  # 2 = case
+    sex = np.array([int(r[hdr.index("SEX")]) for r in cols])
+    qt = np.loadtxt(prefix + ".qt", skiprows=1, usecols=1)
+    return C, y, sex, qt
+
+
+def _a1_dosage(prefix, r, col):
+    """(A1 dosage of the row's variant, every sample; its valid mask)."""
+    g = pgen_codes(prefix, [int(r[col["ID"]][3:])])[0]  # ID snp<v>
+    dos = g.astype(float)
+    if r[col["A1"]] != r[col["ALT"]]:
+        dos = 2.0 - dos
+    return dos, g != 3
+
+
+def run_resid_path(torch, prefix, out, card, n_variants):
+    """Phase 4b: `--glm cc-residualize hide-covar` at 500,000 x n_variants:
+    K2 and the residualized K3 (logistic, and firth2 for the fallback rows)
+    must have launched; 64 rows against numpy f64 fits of the centred A1
+    dosage with the null model's linear predictor as offset (the logistic
+    null for FIRTH?=N rows, the Firth null for FIRTH?=Y)."""
+    import numpy as np
+
+    wall, launches = drive(torch, resid_argv(prefix, out), out)
+    hdr, rows = read_report(out + ".PHENO1.glm.logistic.hybrid")
+    assert len(rows) == n_variants, len(rows)
+    col = {c: hdr.index(c) for c in hdr}
+    errs = {}
+    for r in rows:
+        errs[r[col["ERRCODE"]]] = errs.get(r[col["ERRCODE"]], 0) + 1
+    firth_y = sum(r[col["FIRTH?"]] == "Y" for r in rows)
+    assert errs.get(".", 0) >= 0.9 * n_variants, errs
+    assert all(launches[k] > 0 for k in RESID_KERNELS), launches
+    assert launches["glm_irls"] == 0, launches  # no plain-design K3 here
+    log(f"cc-residualize path: {N_SAMPLES} samples x {n_variants} variants: "
+        f"{wall:.2f}s wall, {n_variants / wall:.0f} variants/s on {card}; ERRCODE "
+        f"{errs}, FIRTH?=Y {firth_y}; launches {launches}")
+    C, y, _sex, _qt = _panel_design(prefix)
+    t0 = time.perf_counter()
+    offs = {k: C @ _f64_logit(C, y, firth=k == "Y")[0] for k in "NY"}
+    log(f"  null fits in numpy f64: {time.perf_counter() - t0:.1f}s")
+
+    def fit_row(r):
+        dos, ok = _a1_dosage(prefix, r, col)
+        x = dos[ok] - dos[ok].mean()
+        fit = _f64_logit(x[:, None], y[ok], offs[r[col["FIRTH?"]]][ok],
+                         firth=r[col["FIRTH?"]] == "Y")
+        return (int(ok.sum()), dos[ok].sum() / (2 * ok.sum()),
+                *(v[-1] for v in fit))
+
+    _check_rows("cc-residualize rows", rows, hdr, fit_row, N_CHECK_ROWS)
+    return launches
+
+
+def write_x_copy(prefix, dst, n_variants):
+    """A copy of the panel whose second half of variants sits on chrX (the
+    .pgen and .psam linked, the .pvar rewritten)."""
+    for ext in (".pgen", ".psam"):
+        os.symlink(prefix + ext, dst + ext)
+    with open(prefix + ".pvar") as f, open(dst + ".pvar", "w") as g:
+        g.write(f.readline())
+        for i, ln in enumerate(f):
+            g.write(("1" if i < n_variants // 2 else "X") + ln[ln.index("\t"):])
+
+
+def run_xm1_paths(torch, prefix, tmp, card, n_variants):
+    """Phase 5b: --xchr-model 1 on a copy with variants n/2.. on chrX:
+    logistic (K14 and the scaled K2 / K3 on the chrX pass) and linear (K6
+    three times on the chrX pass); 64 chrX rows of each against numpy f64
+    fits with the males' A1 dosages halved."""
+    import numpy as np
+
+    xprefix = os.path.join(tmp, "xpanel")
+    write_x_copy(prefix, xprefix, n_variants)
+    out = os.path.join(tmp, "xm1")
+    argvs = xm1_argvs(xprefix, prefix, out)
+    C, y, sex, qt = _panel_design(prefix)
+    s = np.where(sex == 1, 0.5, 1.0)
+    found = {}
+    for kind, argv in argvs.items():
+        wall, launches = drive(torch, argv, argv[-2])
+        ext = ".PHENO1.glm.logistic.hybrid" if kind == "logistic" else ".QT1.glm.linear"
+        hdr, rows = read_report(argv[-2] + ext)
+        assert len(rows) == n_variants, (kind, len(rows))
+        col = {c: hdr.index(c) for c in hdr}
+        errs = {}
+        for r in rows:
+            errs[r[col["ERRCODE"]]] = errs.get(r[col["ERRCODE"]], 0) + 1
+        assert errs.get(".", 0) >= 0.9 * n_variants, (kind, errs)
+        need = XM1_KERNELS if kind == "logistic" else XM1_LINEAR_KERNELS
+        assert all(launches[k] > 0 for k in need), (kind, launches)
+        log(f"--xchr-model 1 {kind} path: {N_SAMPLES} samples x {n_variants} "
+            f"variants ({n_variants - n_variants // 2} on chrX): {wall:.2f}s wall "
+            f"on {card}; ERRCODE {errs}; launches {launches}")
+        xrows = [r for r in rows if r[0] == "X"]
+
+        def fit_row(r, kind=kind, col=col):
+            dos, ok = _a1_dosage(xprefix, r, col)
+            g = (dos * s)[ok]
+            X = np.column_stack([C[ok], g])
+            a1f = g.sum() / (2 * s[ok].sum())
+            if kind == "logistic":
+                beta, se, p = (v[-1] for v in _f64_logit(
+                    X, y[ok], firth=r[col["FIRTH?"]] == "Y"))
+            else:
+                from scipy.special import stdtr
+
+                xtx_inv = np.linalg.inv(X.T @ X)
+                b = xtx_inv @ (X.T @ qt[ok])
+                res = qt[ok] - X @ b
+                df = ok.sum() - X.shape[1]
+                beta = b[-1]
+                se = math.sqrt(res @ res / df * xtx_inv[-1, -1])
+                p = 2.0 * stdtr(df, -abs(beta / se))
+            return int(ok.sum()), a1f, beta, se, p
+
+        _check_rows(f"--xchr-model 1 {kind} chrX rows", xrows, hdr, fit_row,
+                    N_CHECK_ROWS)
+        found[kind] = launches
+    return found
+
+
+def run_modifier_parity(tmp, prefix, n, m):
+    """The --glm modifiers on the parity panel, CUDA against CPU: every
+    report by compare_reports (BETA against its SE), the .id files byte for
+    byte.  PHENO1 and QT1
+    in one phenotype file, so each run fits both reports; the chrX cases run
+    on a copy with variants m/2.. on chrX and a .cov without SEX (the
+    automatic chrX SEX covariate)."""
+    from plink_torch import cli
+
+    both, nosex = prefix + ".both", prefix + ".nosex.cov"
+    with open(prefix + ".psam") as f, open(prefix + ".qt") as q, \
+            open(both, "w") as g:
+        hdr = f.readline().rstrip("\n").split("\t")
+        q.readline()
+        g.write("#IID\tPHENO1\tQT1\n")
+        for ln, lq in zip(f, q):
+            t = ln.rstrip("\n").split("\t")
+            g.write(f"{t[0]}\t{t[hdr.index('PHENO1')]}\t{lq.split()[1]}\n")
+    with open(prefix + ".cov") as f, open(nosex, "w") as g:
+        for ln in f:
+            t = ln.rstrip("\n").split("\t")
+            g.write("\t".join(t[:1] + t[2:]) + "\n")
+    xprefix = prefix + "_x"
+    write_x_copy(prefix, xprefix, m)
+    cov = ["--covar", prefix + ".cov"]
+    xbase = ["--pfile", xprefix, "--pheno", both, "--covar", nosex]
+    logi, lin = "PHENO1.glm.logistic.hybrid", "QT1.glm.linear"
+    cases = (
+        ("transforms1", ["--glm", "hide-covar", *cov, "--covar-variance-standardize",
+                         "--pheno-quantile-normalize"], [logi, lin], []),
+        ("transforms2", ["--glm", *cov, "--variance-standardize", "PC1", "PC2",
+                         "--covar-quantile-normalize", "PC3"], [logi, lin], []),
+        ("no_covars_ids", ["--glm", "allow-no-covars", "pheno-ids"], [logi, lin],
+         [logi + ".id", lin + ".id"]),
+        ("sex", ["--glm", "sex", "hide-covar", "--covar", nosex], [logi, lin], []),
+        ("cc_qt_residualize", ["--glm", "cc-residualize", "qt-residualize",
+                               "hide-covar", *cov], [logi, lin], []),
+        ("firth_residualize", ["--glm", "firth-residualize", "hide-covar", *cov],
+         [logi], []),
+        ("firth_firth_residualize", ["--glm", "firth", "firth-residualize",
+                                     "hide-covar", *cov], ["PHENO1.glm.firth"], []),
+        ("xchr0", xbase + ["--glm", "hide-covar", "--xchr-model", "0"],
+         [logi, lin], []),
+        ("xchr1", xbase + ["--glm", "hide-covar", "--xchr-model", "1"], [logi, lin],
+         []),
+        ("xchr1_residualize", xbase + ["--glm", "cc-residualize", "qt-residualize",
+                                       "hide-covar", "--xchr-model", "1"],
+         [logi, lin], []),
+    )
+    os.environ["PLINK_TORCH_VB"] = "256"
+    try:
+        for label, args, exts, ids in cases:
+            if args[0] != "--pfile":
+                args = ["--pfile", prefix, "--pheno", both] + args
+            outs, secs = {}, {}
+            for tag, devname in (("cuda", "cuda"), ("cpu", "cpu")):
+                os.environ["PLINK_TORCH_DEVICE"] = devname
+                outs[tag] = os.path.join(tmp, f"mod_{tag}_{label}")
+                t0 = time.perf_counter()
+                rc = cli.main(args + ["--out", outs[tag], "--silent"])
+                assert rc == 0, (label, tag, rc)
+                secs[tag] = time.perf_counter() - t0
+            worst = max(compare_reports(f"{outs['cuda']}.{e}", f"{outs['cpu']}.{e}",
+                                        beta_by_se=True) for e in exts)
+            for e in ids:
+                assert filecmp.cmp(f"{outs['cuda']}.{e}", f"{outs['cpu']}.{e}",
+                                   shallow=False), (label, e)
+            hdr, rows = read_report(f"{outs['cuda']}.{exts[0]}")
+            firth_y = sum(r[hdr.index("FIRTH?")] == "Y" for r in rows) \
+                if "FIRTH?" in hdr else 0
+            log(f"parity {label} [{n}x{m}]: CUDA = CPU ({' '.join(exts + ids)}; "
+                f"floats within {worst:.2f} of their tolerance; FIRTH?=Y rows "
+                f"{firth_y}; CUDA {secs['cuda']:.1f}s, CPU {secs['cpu']:.1f}s)")
+    finally:
+        os.environ.pop("PLINK_TORCH_VB", None)
+        os.environ.pop("PLINK_TORCH_DEVICE", None)
+
+
 def run_parity(tmp):
     """Phase 8: the 2,000 x 1,200 panel through the port on the card and on
     the CPU (plain versions): hybrid, firth, the QC + linear path, and the
@@ -2107,6 +2635,7 @@ def main(argv=None):
         return 1
     dev, card = card_report(torch)
     build()
+    phase_secs = {}
     tmp = tempfile.mkdtemp(prefix="plink_torch_smoke_")
     log(f"temporary directory {tmp}: {shutil.disk_usage(tmp).free / 1e9:.1f} GB "
         f"free (the GRM phase needs {GRM_BYTES_NEEDED / 1e9:.1f} GB)")
@@ -2118,16 +2647,30 @@ def main(argv=None):
         stamp("kernels")
         rows = check_kernels(torch, dev, prefix)
         torch.cuda.empty_cache()
+        t0 = stamp("--glm modifier kernel modes")
+        rows += check_modifier_kernels(torch, dev, prefix)
+        torch.cuda.empty_cache()
+        phase_secs["modifier kernels"] = time.perf_counter() - t0
         stamp("logistic main path")
         paths = {"logistic": run_main_path(torch, prefix, os.path.join(tmp, "main"),
                                            card, args.variants)}
         trace_path(torch, logistic_argv(prefix, os.path.join(tmp, "traced")),
                    "logistic")
+        t0 = stamp("cc-residualize path")
+        paths["cc_residualize"] = run_resid_path(
+            torch, prefix, os.path.join(tmp, "resid"), card, args.variants)
+        trace_path(torch, resid_argv(prefix, os.path.join(tmp, "resid_traced")),
+                   "cc-residualize")
+        phase_secs["cc-residualize path"] = time.perf_counter() - t0
         stamp("QC + linear path")
         paths["qc_linear"] = run_qc_linear(torch, prefix, os.path.join(tmp, "qc"),
                                            card, args.variants)
         trace_path(torch, qc_argv(prefix, os.path.join(tmp, "qc_traced")),
                    "QC + linear")
+        t0 = stamp("--xchr-model 1 paths")
+        xm = run_xm1_paths(torch, prefix, tmp, card, args.variants)
+        paths["xm1_logistic"], paths["xm1_linear"] = xm["logistic"], xm["linear"]
+        phase_secs["--xchr-model 1 paths"] = time.perf_counter() - t0
         stamp("pair kernels")
         from plink_torch.bench_gen import gen_panel
 
@@ -2188,7 +2731,12 @@ def main(argv=None):
         paths["pairphase"] = run_pairphase(torch, p2, tmp, card)
         stamp("parity")
         run_parity(tmp)
+        t0 = stamp("--glm modifier parity")
+        run_modifier_parity(tmp, os.path.join(tmp, "small"), *SMALL[:2])
+        phase_secs["modifier parity"] = time.perf_counter() - t0
         stamp("done")
+        log("slice-6 phases: " + ", ".join(f"{k} {v:.1f}s"
+                                           for k, v in phase_secs.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lib_names = {"glm_irls_pass": "glm_irls"}

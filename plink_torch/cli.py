@@ -1260,7 +1260,15 @@ def parse_args(argv: list[str]) -> Config:
         elif name in ("keep_females", "keep_males"):
             setattr(cfg, name, True)
         else:
-            raise FlagError(f"unrecognized flag '--{name.replace('_', '-')}'")
+            dash = name.replace("_", "-")
+            from .help_data import PLINK2_FLAGS
+
+            if dash in PLINK2_FLAGS:
+                raise FlagError(
+                    f"--{dash} is a plink2 flag that is not implemented in "
+                    "plink-tpu yet."
+                )
+            raise FlagError(f"unrecognized flag '--{dash}'")
     if cfg.interaction19:
         # deprecated alias (1.9/plink.c:7710): same as the 'interaction'
         # modifier on --linear/--logistic

@@ -19,20 +19,28 @@
 // most 2,048 samples and the runs are added in f64 in index order by a
 // second kernel; no [vb, n] plane is written to HBM, no atomics, FP32 FMA
 // for the per-sample products.
+//
+// Scaled mode (SCALE, --xchr-model 1): both predictor columns are multiplied
+// by a per-sample genotype multiplier s after the plane combination
+// (plink_tpu `_plane_cols` :313-314, sscale; 0.5 for males on chrX), read
+// from a second shared-memory tile.  A template flag, so the unscaled
+// instantiations of the main path compile as before.
 #include "common.cuh"
 
 namespace {
 
-template <int DC>
+template <int DC, bool SCALE>
 __global__ void __launch_bounds__(kTileVariants)
 moments_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
                const float* __restrict__ feat, int64_t npad, int64_t split_len,
-               const float* __restrict__ gwm, float* __restrict__ part) {
+               const float* __restrict__ gwm, const float* __restrict__ sscale,
+               float* __restrict__ part) {
   constexpr int NC = DC + 1;  // cy columns
   constexpr int D = NC + 2;   // + model predictor + ADD
   constexpr int F = NC + 1;   // per-sample table: cy[0..NC-1], mask
   constexpr int NTRI = D * (D + 1) / 2;
   extern __shared__ float sfeat[];
+  float* ss = sfeat + kTileSamples * F;  // SCALE: s of the tile's samples
 
   const int tv = threadIdx.x;
   const int v = blockIdx.x * kTileVariants + tv;
@@ -55,6 +63,8 @@ moments_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
     const int tn = static_cast<int>(min(static_cast<int64_t>(kTileSamples), s1 - t0));
     __syncthreads();
     for (int i = tv; i < tn * F; i += kTileVariants) sfeat[i] = feat[t0 * F + i];
+    if (SCALE)
+      for (int i = tv; i < tn; i += kTileVariants) ss[i] = sscale[t0 + i];
     __syncthreads();
     if (!on) continue;
     for (int j0 = 0; j0 < tn; j0 += 16) {
@@ -72,6 +82,10 @@ moments_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
         for (int j = 0; j < NC; ++j) x[j] = f[j];
         x[NC] = w[0] * hpl + w[1] * apl + w[2] * valid;
         x[NC + 1] = w[3] * hpl + w[4] * apl + w[5] * valid;
+        if (SCALE) {
+          x[NC] *= ss[j0 + k];
+          x[NC + 1] *= ss[j0 + k];
+        }
         int t = 0;
 #pragma unroll
         for (int j = 0; j < D; ++j) {
@@ -92,13 +106,17 @@ moments_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
 template <int DC>
 cudaError_t launch_moments(const uint8_t* packed, int64_t nb_bytes, int vb,
                            const float* feat, int64_t npad, int64_t split_len,
-                           int splits, const float* gwm, float* part,
-                           float* out, cudaStream_t stream) {
+                           int splits, const float* gwm, const float* sscale,
+                           float* part, float* out, cudaStream_t stream) {
   constexpr int D = DC + 3;
-  const size_t smem = sizeof(float) * kTileSamples * (DC + 2);
+  const size_t smem = sizeof(float) * kTileSamples * (DC + 2 + (sscale ? 1 : 0));
   const dim3 grid((vb + kTileVariants - 1) / kTileVariants, splits);
-  moments_kernel<DC><<<grid, kTileVariants, smem, stream>>>(
-      packed, nb_bytes, vb, feat, npad, split_len, gwm, part);
+  if (sscale)
+    moments_kernel<DC, true><<<grid, kTileVariants, smem, stream>>>(
+        packed, nb_bytes, vb, feat, npad, split_len, gwm, sscale, part);
+  else
+    moments_kernel<DC, false><<<grid, kTileVariants, smem, stream>>>(
+        packed, nb_bytes, vb, feat, npad, split_len, gwm, nullptr, part);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce<D>(part, nullptr, splits, vb, 0, out, nullptr, nullptr,
@@ -108,18 +126,21 @@ cudaError_t launch_moments(const uint8_t* packed, int64_t nb_bytes, int vb,
 }  // namespace
 
 // packed [vb, nb_bytes] u8; feat [npad, dc+2] f32 = [c | y | mask]
-// (npad = 4 * nb_bytes); gwm [vb, 2, 3]; part [splits, NTRI, vb] f32
-// scratch; out [vb, dc+3, dc+3].
+// (npad = 4 * nb_bytes); gwm [vb, 2, 3]; sscale [npad] f32 or null (the
+// unscaled kernel); part [splits, NTRI, vb] f32 scratch; out [vb, dc+3,
+// dc+3].
 PT_EXPORT int pt_glm_moments(const void* packed, long long nb_bytes, int vb,
                              const void* feat, long long npad, int dc,
                              long long split_len, int splits, const void* gwm,
-                             void* part, void* out, void* stream) {
+                             const void* sscale, void* part, void* out,
+                             void* stream) {
 #define PT_CASE(N)                                                          \
   case N:                                                                   \
     return launch_moments<N>(                                               \
         static_cast<const uint8_t*>(packed), nb_bytes, vb,                  \
         static_cast<const float*>(feat), npad, split_len, splits,           \
-        static_cast<const float*>(gwm), static_cast<float*>(part),          \
+        static_cast<const float*>(gwm), static_cast<const float*>(sscale),  \
+        static_cast<float*>(part),                                          \
         static_cast<float*>(out), static_cast<cudaStream_t>(stream));
   switch (dc) {
     PT_NC_CASES(PT_CASE)

@@ -6,11 +6,12 @@ under the repository root, a shared library with a plain C interface loaded
 with ctypes.  The hash covers the sources and the flags, so an edited
 kernel is rebuilt and a stale library is never loaded.
 
-``LAUNCHES`` counts, per kernel entry point, the launches made by the
-wrappers in ``ops/counts.py``, ``ops/glm.py``, ``ops/pairwise.py``,
-``ops/pca.py`` and ``ops/ld.py``; it is the only module state the port keeps
-besides the loaded libraries.  An entry point lives in ``csrc/<name>.cu``
-unless ``_SOURCE`` names another file (K9 and K10 share one; so do K11-K13).
+``LAUNCHES`` counts, per kernel entry point and per mode in ``_MODES``, the
+launches made by the wrappers in ``ops/counts.py``, ``ops/glm.py``,
+``ops/pairwise.py``, ``ops/pca.py`` and ``ops/ld.py``; it is the only module
+state the port keeps besides the loaded libraries.  An entry point lives in
+``csrc/<name>.cu`` unless ``_SOURCE`` names another file (K9 and K10 share
+one; so do K11-K13); every source may include any ``csrc/*.cuh``.
 """
 
 from __future__ import annotations
@@ -39,10 +40,13 @@ _D = ctypes.c_double
 _ENTRY = {
     "geno_counts": ("pt_geno_counts", [_P, _L, _P, _P, _I, _I, _P, _P]),
     "glm_moments": ("pt_glm_moments",
-                    [_P, _L, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P]),
+                    [_P, _L, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P]),
     "glm_irls": ("pt_glm_irls_pass",
                  [_P, _L, _I, _P, _L, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P]),
+    "glm_irls_x": ("pt_glm_irls_pass_x",
+                   [_P, _L, _I, _P, _L, _I, _I, _I, _L, _I] + [_P] * 13),
+    "xm1_stats": ("pt_xm1_stats", [_P, _L, _I, _P, _P, _I, _P, _P, _P]),
     "chol_small": ("pt_chol_small", [_P, _I, _I, _P, _P, _P, _P, _P]),
     "sample_counts": ("pt_sample_counts", [_P, _L, _I, _P, _I, _I, _P, _P]),
     "linear_sums": ("pt_linear_sums", [_P, _L, _I, _P, _I, _L, _I, _P, _P, _P]),
@@ -59,12 +63,17 @@ _ENTRY = {
     "ld_gram_pair": ("pt_ld_gram_pair", [_P, _L, _P, _L, _L, _P, _L, _P, _P,
                                          _P, _P, _P]),
 }
+# kernel modes counted apart from their entry point's default mode: name ->
+# entry point (K2 scaled; K3 scaled and residualized share glm_irls_x)
+_MODES = {"glm_moments_scaled": "glm_moments", "glm_irls_scaled": "glm_irls_x",
+          "glm_irls_resid": "glm_irls_x"}
 # entry points whose source file is not named after them
 _SOURCE = {"pca_x": "pca_apply", "pca_xt": "pca_apply", "ld_band_bits": "ld_band",
            "ld_band_stats": "ld_band", "ld_gram_pair": "ld_band"}
 _SOURCES = sorted({_SOURCE.get(k, k) for k in _ENTRY})
 
-LAUNCHES: dict[str, int] = dict.fromkeys(_ENTRY, 0)
+LAUNCHES: dict[str, int] = dict.fromkeys(
+    [k for k in _ENTRY if k != "glm_irls_x"] + list(_MODES), 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -86,7 +95,8 @@ def _nvcc() -> str:
 
 def _lib_path(src: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fn in (src + ".cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for fn in [src + ".cu"] + headers:
         with open(os.path.join(_CSRC, fn), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"{src}-{h.hexdigest()[:16]}.so")
@@ -155,14 +165,16 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call kernel `name`'s C entry point on the current CUDA stream (the
-    stream is appended to `args`) and count the launch; raise on a non-zero
+    """Call kernel `name`'s C entry point (a mode of `_MODES` calls its
+    entry point's) on the current CUDA stream (the stream is appended to
+    `args`) and count the launch under `name`; raise on a non-zero
     cudaError_t."""
     import torch
 
-    lib = _lib(name)
+    entry = _MODES.get(name, name)
+    lib = _lib(entry)
     stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, _ENTRY[name][0])(*args, stream)
+    rc = getattr(lib, _ENTRY[entry][0])(*args, stream)
     if rc != 0:
         msg = lib.pt_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: error {rc} ({msg})")

@@ -1,24 +1,32 @@
-"""GLM on the device: the linear sums (K6), and kernels K2-K4 with the
-logistic-hybrid IRLS around them.
+"""GLM on the device: the linear sums (K6), kernels K2-K4 with the
+logistic-hybrid IRLS around them, and the --xchr-model 1 statistics (K14).
 
 Counterparts of plink_tpu/ops/glm.py:
 - `linear_sums` (K6, csrc/linear_sums.cu) for `_linear_sums_body`, and
   `linear_sums_scan` for `linear_sums_scan`;
 - `glm_moments` (K2, csrc/glm_moments.cu) for `_plane_cols` +
-  `_moments_from_cols`;
-- `glm_irls_pass` (K3, csrc/glm_irls.cu) for the `_design_ops`
-  contractions of one logistic or Firth IRLS evaluation;
+  `_moments_from_cols`, with the per-sample multiplier `sscale`;
+- `glm_irls_pass` (K3, csrc/glm_irls.cuh) for the `_design_ops`
+  contractions of one logistic or Firth IRLS evaluation, over the design
+  [c | G], [c | G s] (`sscale`) or the residualized [G'] of `_resid_body`
+  with its fixed offset;
 - `chol_small` (K4, csrc/chol_small.cu) for `_chol_small`,
   `_solve_psd`, `_inv_psd` and the Cholesky log-determinant;
 - `glm_logistic_scan` / `firth_irls_block` for `glm_logistic_scan` /
   `firth_irls_block`, with `_valid_params_flags` and
-  `_collin_screen_device` as tensor ops on the device (no sample axis).
+  `_collin_screen_device` as tensor ops on the device (no sample axis);
+- `glm_resid_scan` / `resid_irls_block` for the cc-/firth-residualize
+  entry points of the same names;
+- `xm1_stats` (K14, csrc/xm1_stats.cu) and `xm1_stats_scan` for
+  `xm1_stats_scan`.
 
 Each kernel wrapper takes the plain PyTorch version beside it for CPU
 tensors and launches the kernel for CUDA tensors.  The logistic design is
 [c (dc covariates incl. intercept) | G] with one additive genotype
 predictor (P = 1); per-sample inputs travel as one table
-feat = [c | y | mask] of shape [npad, dc + 2].
+feat = [c | y | mask] of shape [npad, dc + 2] (dc = 0 in the residualized
+design: [y | mask]), and the optional per-sample multiplier s and offset as
+f32 [npad] beside it.
 """
 
 from __future__ import annotations
@@ -68,14 +76,15 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _kernel_device(name, packed, dc):
+def _kernel_device(name, packed, dc, resid=False):
     if packed.device.type == "cpu":
         return False
     if packed.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {packed.device}")
-    if not 1 <= dc <= MAX_DC:
+    if not (dc == 0 if resid else 1 <= dc <= MAX_DC):
         raise ValueError(f"{name}: the CUDA kernel takes 1..{MAX_DC} "
-                         f"covariate columns (got {dc})")
+                         f"covariate columns, or none in the residualized "
+                         f"design (got {dc})")
     return True
 
 
@@ -182,33 +191,40 @@ def _moments_from_cols(gcols, valid, cy):
     return h
 
 
-def glm_moments_plain(packed, gwm, feat):
+def glm_moments_plain(packed, gwm, feat, sscale=None):
     dc = feat.shape[1] - 2
     valid, het, homalt = planes(packed, feat[:, dc + 1])
     gcols = [gwm[:, p, 0:1] * het + gwm[:, p, 1:2] * homalt
              + gwm[:, p, 2:3] * valid for p in range(2)]
+    if sscale is not None:
+        gcols = [g * sscale[None, :] for g in gcols]
     return _moments_from_cols(gcols, valid, feat[:, : dc + 1])
 
 
-def glm_moments(packed, gwm, feat):
+def glm_moments(packed, gwm, feat, sscale=None):
     """K2: packed uint8 [vb, NB], gwm f32 [vb, 2, 3] (model predictor, ADD),
     feat f32 [4*NB, dc+2] -> momy f32 [vb, dc+3, dc+3] over the design
-    [c | y | G | ADD]."""
+    [c | y | G | ADD]; with sscale f32 [4*NB] (the scaled mode) both
+    predictor columns are multiplied by it."""
     vb, nb = packed.shape
     dc = feat.shape[1] - 2
     _check("glm_moments packed", packed, torch.uint8, (vb, nb), packed.device)
     _check("glm_moments gwm", gwm, torch.float32, (vb, 2, 3), packed.device)
     _check("glm_moments feat", feat, torch.float32, (4 * nb, dc + 2),
            packed.device)
+    if sscale is not None:
+        _check("glm_moments sscale", sscale, torch.float32, (4 * nb,),
+               packed.device)
     if not _kernel_device("glm_moments", packed, dc):
-        return glm_moments_plain(packed, gwm, feat)
+        return glm_moments_plain(packed, gwm, feat, sscale)
     D = dc + 3
     split_len, splits = _splits(4 * nb)
     part = torch.empty((splits, D * (D + 1) // 2, vb), dtype=torch.float32,
                        device=packed.device)
     out = torch.empty((vb, D, D), dtype=torch.float32, device=packed.device)
-    _cuda.launch("glm_moments", packed.data_ptr(), nb, vb, feat.data_ptr(),
-                 4 * nb, dc, split_len, splits, gwm.data_ptr(),
+    _cuda.launch("glm_moments" if sscale is None else "glm_moments_scaled",
+                 packed.data_ptr(), nb, vb, feat.data_ptr(), 4 * nb, dc,
+                 split_len, splits, gwm.data_ptr(), _cuda.ptr(sscale),
                  part.data_ptr(), out.data_ptr())
     return out
 
@@ -250,12 +266,20 @@ def _xtv(r, c, g):
     return torch.cat([r @ c, (r * g).sum(dim=1, keepdim=True)], dim=1)
 
 
-def glm_irls_pass_plain(packed, gw, feat, beta, active, hinv=None):
+def glm_irls_pass_plain(packed, gw, feat, beta, active, hinv=None,
+                        sscale=None, offset=None, gmean=None):
     dc = feat.shape[1] - 2
     c, y = feat[:, :dc], feat[:, dc]
     valid, het, homalt = planes(packed, feat[:, dc + 1])
     g = gw[:, 0:1] * het + gw[:, 1:2] * homalt + gw[:, 2:3] * valid
-    eta = (beta[:, :dc] @ c.t() + beta[:, dc:] * g) * valid
+    if sscale is not None:
+        g = g * sscale[None, :]
+    if gmean is not None:
+        g = (g - gmean[:, None]) * valid
+    eta = beta[:, :dc] @ c.t() + beta[:, dc:] * g
+    if offset is not None:
+        eta = eta + offset[None, :]
+    eta = eta * valid
     yv = y[None, :] * valid
     # 1 - p as sigmoid(-eta) (no cancellation at large |eta|); y is 0/1
     sg, q = torch.sigmoid(eta), torch.sigmoid(-eta)
@@ -270,7 +294,7 @@ def glm_irls_pass_plain(packed, gw, feat, beta, active, hinv=None):
         v = sg * q * valid
         # h_s = v_s x_s^T Hinv x_s without materialising [vb, n, d]
         ccfl = (c[:, :, None] * c[:, None, :]).reshape(c.shape[0], dc * dc)
-        quad = (hinv[:, :dc, :dc].reshape(-1, dc * dc) @ ccfl.t()
+        quad = (hinv[:, :dc, :dc].reshape(hinv.shape[0], dc * dc) @ ccfl.t()
                 + 2.0 * g * (hinv[:, :dc, dc] @ c.t())
                 + g * g * hinv[:, dc, dc:])
         hd = v * quad
@@ -285,18 +309,25 @@ def glm_irls_pass_plain(packed, gw, feat, beta, active, hinv=None):
     return mat, vec, ll
 
 
-def glm_irls_pass(packed, gw, feat, beta, active, hinv=None):
+def glm_irls_pass(packed, gw, feat, beta, active, hinv=None, sscale=None,
+                  offset=None, gmean=None):
     """K3: one fused IRLS evaluation at `beta` for the rows with `active`.
 
     packed uint8 [vb, NB], gw f32 [vb, 3], feat f32 [4*NB, dc+2], beta f32
     [vb, d], active bool [vb]; d = dc + 1.  Logistic mode (hinv None):
     returns (H = X^T W X, X^T (p - y), loglik f64).  firth2 mode (hinv = H0^-1
     [vb, d, d]): returns (X^T diag((1+h) v) X, ustar, None).  Inactive rows
-    come back as zeros."""
+    come back as zeros.
+
+    sscale f32 [4*NB] multiplies G (scaled design).  gmean f32 [vb] selects
+    the residualized design (feat = [y | mask], dc = 0, d = 1): the column
+    is (G - gmean) * valid and offset f32 [4*NB], which it requires, enters
+    the linear predictor."""
     vb, nb = packed.shape
     dc = feat.shape[1] - 2
     d = dc + 1
     dev = packed.device
+    resid = gmean is not None
     _check("glm_irls_pass packed", packed, torch.uint8, (vb, nb), dev)
     _check("glm_irls_pass gw", gw, torch.float32, (vb, 3), dev)
     _check("glm_irls_pass feat", feat, torch.float32, (4 * nb, dc + 2), dev)
@@ -304,8 +335,17 @@ def glm_irls_pass(packed, gw, feat, beta, active, hinv=None):
     _check("glm_irls_pass active", active, torch.bool, (vb,), dev)
     if hinv is not None:
         _check("glm_irls_pass hinv", hinv, torch.float32, (vb, d, d), dev)
-    if not _kernel_device("glm_irls_pass", packed, dc):
-        return glm_irls_pass_plain(packed, gw, feat, beta, active, hinv)
+    if sscale is not None:
+        _check("glm_irls_pass sscale", sscale, torch.float32, (4 * nb,), dev)
+    if resid != (offset is not None) or (resid and dc != 0):
+        raise ValueError("glm_irls_pass: gmean and offset go together, in the "
+                         "residualized design (feat = [y | mask])")
+    if resid:
+        _check("glm_irls_pass gmean", gmean, torch.float32, (vb,), dev)
+        _check("glm_irls_pass offset", offset, torch.float32, (4 * nb,), dev)
+    if not _kernel_device("glm_irls_pass", packed, dc, resid):
+        return glm_irls_pass_plain(packed, gw, feat, beta, active, hinv,
+                                   sscale, offset, gmean)
     mode = 0 if hinv is None else 1
     split_len, splits = _splits(4 * nb)
     nt = d * (d + 1) // 2 + d
@@ -316,11 +356,21 @@ def glm_irls_pass(packed, gw, feat, beta, active, hinv=None):
     vec = torch.empty((vb, d), dtype=torch.float32, device=dev)
     ll = torch.empty(vb, dtype=torch.float64, device=dev) if mode == 0 else None
     act = active.to(torch.uint8)
-    _cuda.launch("glm_irls", packed.data_ptr(), nb, vb, feat.data_ptr(),
-                 4 * nb, dc, mode, split_len, splits, gw.data_ptr(),
-                 beta.data_ptr(), _cuda.ptr(hinv), act.data_ptr(),
-                 part.data_ptr(), _cuda.ptr(part_ll), mat.data_ptr(),
-                 vec.data_ptr(), _cuda.ptr(ll))
+    if sscale is None and not resid:
+        _cuda.launch("glm_irls", packed.data_ptr(), nb, vb, feat.data_ptr(),
+                     4 * nb, dc, mode, split_len, splits, gw.data_ptr(),
+                     beta.data_ptr(), _cuda.ptr(hinv), act.data_ptr(),
+                     part.data_ptr(), _cuda.ptr(part_ll), mat.data_ptr(),
+                     vec.data_ptr(), _cuda.ptr(ll))
+    else:
+        flags = (1 if sscale is not None else 0) | (2 if resid else 0)
+        _cuda.launch("glm_irls_resid" if resid else "glm_irls_scaled",
+                     packed.data_ptr(), nb, vb, feat.data_ptr(), 4 * nb, dc,
+                     mode, flags, split_len, splits, gw.data_ptr(),
+                     beta.data_ptr(), _cuda.ptr(hinv), act.data_ptr(),
+                     _cuda.ptr(sscale), _cuda.ptr(offset), _cuda.ptr(gmean),
+                     part.data_ptr(), _cuda.ptr(part_ll), mat.data_ptr(),
+                     vec.data_ptr(), _cuda.ptr(ll))
     return mat, vec, ll
 
 
@@ -399,16 +449,17 @@ def _diag(m):
     return torch.diagonal(m, dim1=1, dim2=2)
 
 
-def _logistic_core(pk, gw, feat, h0, rhs0, active):
+def _logistic_core(pk, gw, feat, h0, rhs0, active, **design):
     """Batched logistic IRLS (plink_tpu _logistic_core) from the normal
     equations (h0, rhs0) of the OLS start.  Each K3 call at beta_k gives
     ll_k, H_k and the gradient; convergence compares ll_{k+1} with ll_k,
     with the step-size fallback, and the reported SE comes from H of the
-    last solve.  Returns (beta, se, ll, conv, failed, unfinished, hinv)."""
+    last solve.  `design` holds glm_irls_pass's sscale / offset / gmean.
+    Returns (beta, se, ll, conv, failed, unfinished, hinv)."""
     vb = pk.shape[0]
     d = h0.shape[1]
     beta, _, _ = chol_small(h0, rhs=rhs0)
-    H, g, ll_old = glm_irls_pass(pk, gw, feat, beta, active)
+    H, g, ll_old = glm_irls_pass(pk, gw, feat, beta, active, **design)
     failed = torch.isnan(ll_old)
     done = failed | ~active
     conv = torch.zeros_like(done)
@@ -419,7 +470,7 @@ def _logistic_core(pk, gw, feat, h0, rhs0, active):
         dbeta, _, _ = chol_small(H, rhs=g)
         beta_new = beta - dbeta
         upd = ~done
-        Hn, gn, ll = glm_irls_pass(pk, gw, feat, beta_new, upd)
+        Hn, gn, ll = glm_irls_pass(pk, gw, feat, beta_new, upd, **design)
         new_failed = torch.isnan(ll) | torch.isnan(dbeta).any(dim=1)
         new_conv = ((ll - ll_old).abs() < 1e-8 * (0.05 + ll.abs())) | (
             dbeta.abs().amax(dim=1)
@@ -438,11 +489,12 @@ def _logistic_core(pk, gw, feat, h0, rhs0, active):
     return beta, se, ll_old, conv, failed, ~conv & ~failed, hinv
 
 
-def _firth_core(pk, gw, feat, active):
+def _firth_core(pk, gw, feat, active, **design):
     """Batched Firth-penalised IRLS (plink_tpu _firth_core).  Per iteration:
     K3 logistic (v, H0, loglik) -> K4 (H0^-1, log det) -> K3 firth2
-    (ustar, H2) -> K4 (H2^-1).  Returns (beta, se, pll, conv, failed,
-    unfinished, h2inv)."""
+    (ustar, H2) -> K4 (H2^-1); with d = 1 (the residualized design) K4
+    runs on 1 x 1 matrices.  `design` as in _logistic_core.  Returns (beta,
+    se, pll, conv, failed, unfinished, h2inv)."""
     vb = pk.shape[0]
     d = feat.shape[1] - 1
     dev = pk.device
@@ -456,10 +508,11 @@ def _firth_core(pk, gw, feat, active):
     it = 0
     while it <= _FIRTH_MAXIT and not bool(done.all()):
         live = ~done
-        h0, _, ll = glm_irls_pass(pk, gw, feat, beta, live)
+        h0, _, ll = glm_irls_pass(pk, gw, feat, beta, live, **design)
         _, h0inv, logdet = chol_small(h0, inverse=True, logdet=True)
         pll = ll + 0.5 * logdet
-        h2, ustar, _ = glm_irls_pass(pk, gw, feat, beta, live, hinv=h0inv)
+        h2, ustar, _ = glm_irls_pass(pk, gw, feat, beta, live, hinv=h0inv,
+                                     **design)
         new_failed = torch.isnan(pll)
         new_conv = ((it > 0) & (delta_max <= 1e-5)
                     & (ustar.abs().amax(dim=1) < 1e-5)
@@ -526,11 +579,20 @@ def _collin_screen_device(momy, dc, np_=1):
     return ok | (nm <= d)
 
 
-def glm_logistic_scan(blocks, gws, gwms, feat, firth=False):
+def _mstats(momy, dc):
+    """Per-variant scalars of the moments [c | y | G | ADD]: ADD sum, ADD
+    sum of squares, ADD sum over cases, obs, cases."""
+    addc = dc + 2
+    return torch.stack([momy[:, 0, addc], momy[:, addc, addc], momy[:, dc, addc],
+                        momy[:, 0, 0], momy[:, 0, dc]], dim=1)
+
+
+def glm_logistic_scan(blocks, gws, gwms, feat, firth=False, sscale=None):
     """Whole-dataset hybrid-GLM pass (plink_tpu glm_logistic_scan, ADD model):
     per variant block the moments matrix (K2), then the logistic (or, with
     `firth`, the Firth) IRLS from it.  blocks uint8 [nb, vb, NB], gws f32
-    [nb, vb, 1, 3], gwms f32 [nb, vb, 2, 3], feat f32 [npad, dc+2].
+    [nb, vb, 1, 3], gwms f32 [nb, vb, 2, 3], feat f32 [npad, dc+2]; sscale
+    f32 [npad] multiplies every predictor column (K2 / K3 scaled modes).
 
     Returns, stacked over blocks: (momy [nb, vb, dc+3, dc+3], mstats
     [nb, vb, 5], screen_ok, beta [nb, vb, d], se, conv, fail, unf, obs,
@@ -540,30 +602,26 @@ def glm_logistic_scan(blocks, gws, gwms, feat, firth=False):
     if gws.shape[2] != 1:
         raise ValueError("glm_logistic_scan: one genotype predictor (ADD) only")
     idx = list(range(dc)) + [dc + 1]
-    addc = dc + 2
     outs = []
     for bi in range(blocks.shape[0]):
         pk = blocks[bi]
         gw = gws[bi, :, 0, :].contiguous()
-        momy = glm_moments(pk, gwms[bi].contiguous(), feat)
+        momy = glm_moments(pk, gwms[bi].contiguous(), feat, sscale)
         active = torch.ones(pk.shape[0], dtype=torch.bool, device=pk.device)
         if firth:
-            res = _firth_core(pk, gw, feat, active)
+            res = _firth_core(pk, gw, feat, active, sscale=sscale)
         else:
             h0 = momy[:, idx][:, :, idx].contiguous()
             rhs0 = (_Z_INIT * (momy[:, idx, dc] - 0.5 * momy[:, idx, 0])).contiguous()
-            res = _logistic_core(pk, gw, feat, h0, rhs0, active)
+            res = _logistic_core(pk, gw, feat, h0, rhs0, active, sscale=sscale)
         beta, se, _ll, conv, fail, unf, hinv = res
-        mstats = torch.stack(
-            [momy[:, 0, addc], momy[:, addc, addc], momy[:, dc, addc],
-             momy[:, 0, 0], momy[:, 0, dc]], dim=1)
-        outs.append((momy, mstats, _collin_screen_device(momy, dc), beta, se,
-                     conv, fail, unf, momy[:, 0, 0], _valid_params_flags(hinv, d),
-                     hinv))
+        outs.append((momy, _mstats(momy, dc), _collin_screen_device(momy, dc),
+                     beta, se, conv, fail, unf, momy[:, 0, 0],
+                     _valid_params_flags(hinv, d), hinv))
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
-def firth_irls_block(packed, gw, feat, active=None):
+def firth_irls_block(packed, gw, feat, active=None, sscale=None):
     """Firth regression over one block (plink_tpu firth_irls_block, ADD
     model) for the rows in `active` (all rows when None).  packed uint8
     [vb, NB], gw f32 [vb, 1, 3].  Returns (beta, se, pll, conv, fail, unf,
@@ -572,7 +630,150 @@ def firth_irls_block(packed, gw, feat, active=None):
     if active is None:
         active = torch.ones(vb, dtype=torch.bool, device=packed.device)
     beta, se, pll, conv, fail, unf, h2inv = _firth_core(
-        packed, gw[:, 0, :].contiguous(), feat, active)
+        packed, gw[:, 0, :].contiguous(), feat, active, sscale=sscale)
     cts = geno_counts(packed, feat[:, -1:].contiguous())[0]
     obs = (cts[:, :3].sum(dim=1)).to(torch.float32)
     return beta, se, pll, conv, fail, unf, obs, h2inv
+
+
+# ---------------------------------------------------------------------------
+# cc-residualize / firth-residualize (the residualized K3 design)
+# ---------------------------------------------------------------------------
+
+
+def _resid_start(momy, dc):
+    """The residualized design's per-variant mean and IRLS start from the
+    moments [c | y | G | ADD] (c[:, 0] the intercept).
+
+    plink_tpu's `_resid_body` takes mean_v = sum_valid(G s) / max(obs, 1) in
+    f32 over the samples, centres G' = (G s - mean_v) valid, and starts the
+    logistic IRLS from OLS on z = 4.8639 (y - 0.5) over the valid samples:
+    h0 = sum valid G'^2, rhs0 = sum z G' (`_logistic_core` with init=None;
+    the offset is not in that start).  Here both come in closed form from
+    K2's sums instead of a separate pass over the samples:
+        h0 = S2 - 2 m S1 + m^2 obs,
+        rhs0 = 4.8639 ((S_yG - m S_y) - 0.5 (S1 - m obs)),
+    S1 = sum v G s, S2 = sum v (G s)^2, S_yG = sum v y G s, S_y = sum v y,
+    computed in f64 from K2's f32 moments (the mean therefore differs from
+    plink_tpu's f32 sample sum in the last bits; the fits agree within the
+    GLM rule).  Returns (mean f32 [vb], h0 f32 [vb, 1, 1], rhs0 f32 [vb, 1])."""
+    m64 = momy.to(torch.float64)
+    g = dc + 1
+    obs, s1, s2 = m64[:, 0, 0], m64[:, 0, g], m64[:, g, g]
+    sy, syg = m64[:, 0, dc], m64[:, dc, g]
+    mean = s1 / torch.clamp(obs, min=1.0)
+    h0 = s2 - 2.0 * mean * s1 + mean * mean * obs
+    rhs0 = _Z_INIT * ((syg - mean * sy) - 0.5 * (s1 - mean * obs))
+    return (mean.to(torch.float32), h0.to(torch.float32)[:, None, None],
+            rhs0.to(torch.float32)[:, None])
+
+
+def glm_resid_scan(blocks, gws, gwms, feat, offset, firth=False, sscale=None):
+    """Residualized whole-dataset pass (plink_tpu glm_resid_scan): per block
+    the moments of the full design [c | y | G | ADD] (K2, scaled by sscale
+    when given; the host's separation and A1 statistics are unchanged),
+    then the logistic (Firth with `firth`) IRLS of the residualized design
+    (K3 with dc = 0) with the null model's linear predictor `offset` f32
+    [npad] as a fixed term.  Returns the tuple of glm_logistic_scan with
+    d = 1 in beta / se / hinv; `invalid` is the diagonal-only check of the
+    residualized fit (a variance < 1e-20 or not finite)."""
+    dc = feat.shape[1] - 2
+    feat_r = feat[:, dc:].contiguous()  # [y | mask]
+    outs = []
+    for bi in range(blocks.shape[0]):
+        pk = blocks[bi]
+        gw = gws[bi, :, 0, :].contiguous()
+        momy = glm_moments(pk, gwms[bi].contiguous(), feat, sscale)
+        mean, h0, rhs0 = _resid_start(momy, dc)
+        active = torch.ones(pk.shape[0], dtype=torch.bool, device=pk.device)
+        design = dict(sscale=sscale, offset=offset, gmean=mean)
+        if firth:
+            res = _firth_core(pk, gw, feat_r, active, **design)
+        else:
+            res = _logistic_core(pk, gw, feat_r, h0, rhs0, active, **design)
+        beta, se, _ll, conv, fail, unf, hinv = res
+        dg = _diag(hinv)
+        invalid = ((dg < 1e-20) | ~torch.isfinite(dg)).any(dim=1)
+        outs.append((momy, _mstats(momy, dc), _collin_screen_device(momy, dc),
+                     beta, se, conv, fail, unf, momy[:, 0, 0], invalid, hinv))
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def resid_irls_block(packed, gw, feat, offset, active=None, sscale=None):
+    """Residualized Firth over one block (plink_tpu resid_irls_block with
+    firth=True: the hybrid's Firth fallback under cc-residualize) for the
+    rows in `active`.  feat is the [c | y | mask] table (c[:, 0] the
+    intercept); the per-variant mean comes from one K2 pass over
+    [1 | y | mask].  Returns (beta [vb, 1], se, pll, conv, fail, unf, obs,
+    h2inv [vb, 1, 1])."""
+    vb = packed.shape[0]
+    dc = feat.shape[1] - 2
+    if active is None:
+        active = torch.ones(vb, dtype=torch.bool, device=packed.device)
+    g = gw[:, 0, :].contiguous()
+    momy = glm_moments(packed, torch.stack([g, g], dim=1),
+                       feat[:, [0, dc, dc + 1]].contiguous(), sscale)
+    mean, _, _ = _resid_start(momy, 1)
+    beta, se, pll, conv, fail, unf, h2inv = _firth_core(
+        packed, g, feat[:, dc:].contiguous(), active, sscale=sscale,
+        offset=offset, gmean=mean)
+    return beta, se, pll, conv, fail, unf, momy[:, 0, 0], h2inv
+
+
+# ---------------------------------------------------------------------------
+# K14: --xchr-model 1 statistics
+# ---------------------------------------------------------------------------
+
+
+def xm1_stats_plain(packed, w, mask):
+    """Plain version of K14 (plink_tpu xm1_stats_scan's body): over the valid
+    samples (call not missing, mask) of each variant of packed uint8
+    [V, NB], the float32 product of the valid plane with w f32 [4*NB, 2],
+    the het count and the hom-ALT count -> f32 [4, V]."""
+    valid, het, homalt = planes(packed, mask)
+    sv = valid @ w
+    return torch.stack([sv[:, 0], sv[:, 1], het.sum(dim=1), homalt.sum(dim=1)])
+
+
+_XM1_SPLIT_WORDS = 256  # 32-bit words per K14 sample split (csrc/xm1_stats.cu)
+
+
+def xm1_stats(packed, w, mask):
+    """K14: per variant of packed uint8 [V, NB], (sum w0, sum w1, het count,
+    hom-ALT count) over its valid samples -> f32 [4, V]; w f32 [4*NB, 2],
+    mask f32 [4*NB] (0/1).  Exact, and equal to the plain version, when w
+    takes values in {0, 0.5, 1}."""
+    V, nb = packed.shape
+    dev = packed.device
+    _check("xm1_stats packed", packed, torch.uint8, (V, nb), dev)
+    _check("xm1_stats w", w, torch.float32, (4 * nb, 2), dev)
+    _check("xm1_stats mask", mask, torch.float32, (4 * nb,), dev)
+    if dev.type == "cpu":
+        return xm1_stats_plain(packed, w, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"xm1_stats: unsupported device {dev}")
+    splits = -(-(-(-nb // 4)) // _XM1_SPLIT_WORDS)  # ceil(ceil(nb / 4) / 256)
+    ns = splits * _XM1_SPLIT_WORDS * 16
+    mw = torch.zeros((ns, 2), dtype=torch.float32, device=dev)
+    mw[: 4 * nb] = w * mask[:, None]
+    # [split][stat][sample in word][word]: the kernel's shared-memory layout
+    wt = mw.reshape(splits, _XM1_SPLIT_WORDS, 16, 2).permute(0, 3, 2, 1).contiguous()
+    inm = torch.zeros(ns, dtype=torch.uint8, device=dev)
+    inm[: 4 * nb] = (mask > 0).to(torch.uint8) * 3
+    inm = inm.reshape(-1, 4)
+    mask2 = (inm[:, 0] | (inm[:, 1] << 2) | (inm[:, 2] << 4)
+             | (inm[:, 3] << 6)).contiguous().view(torch.int32)
+    part = torch.empty((splits, 4, V), dtype=torch.float32, device=dev)
+    out = torch.empty((4, V), dtype=torch.float32, device=dev)
+    _cuda.launch("xm1_stats", packed.data_ptr(), nb, V, mask2.data_ptr(),
+                 wt.data_ptr(), splits, part.data_ptr(), out.data_ptr())
+    return out
+
+
+def xm1_stats_scan(blocks, w, mask):
+    """plink_tpu xm1_stats_scan: K14 over every block of blocks uint8
+    [nb, vb, NB] in one launch -> four f32 [nb, vb] (sum_valid s, sum_valid
+    s*y, het count, hom-ALT count) for w = [s, s*y] f32 [npad, 2]."""
+    nbk, vb, nb = blocks.shape
+    out = xm1_stats(blocks.reshape(nbk * vb, nb), w, mask)
+    return tuple(out[i].reshape(nbk, vb) for i in range(4))

@@ -27,6 +27,10 @@ from .utils.logging import RunLogger, set_logger
 _PORTED_FIELDS = {
     "pfile", "bfile", "out", "glm", "glm_modifiers", "pheno", "pheno_name",
     "covar", "covar_name", "nonfounders", "input_missing_phenotype",
+    # --glm's chrX coding and its covariate / phenotype transforms
+    "xchr_model", "xchr_model_set", "covar_variance_standardize",
+    "variance_standardize", "quantile_normalize", "pheno_quantile_normalize",
+    "covar_quantile_normalize",
     "output_chr", "seed", "silent", "threads", "memory", "argv",
     # sample and variant filters
     "keep", "remove", "keep_founders", "keep_nonfounders", "mind",

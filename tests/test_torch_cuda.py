@@ -116,6 +116,122 @@ def test_glm_irls_pass_kernel(dev, n, vb, dc, mode):
     assert torch.equal(km, again[0]) and torch.equal(kv, again[1])
 
 
+def _sscale(n, npad, seed):
+    """--xchr-model 1 multiplier: 0.5 for a random half of the samples."""
+    s = np.ones(npad, np.float32)
+    s[:n] = np.where(np.random.default_rng(seed).random(n) < 0.5, 0.5, 1.0)
+    return s
+
+
+@pytest.mark.parametrize("n,vb,dc", SHAPES)
+def test_glm_moments_scaled_kernel(dev, n, vb, dc):
+    """K2's scaled mode (sscale) against its plain version; no atomics."""
+    from plink_torch.ops.glm import glm_moments, glm_moments_plain
+
+    packed, feat, gw = _inputs(n, vb, dc, 12)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    gwm = torch.from_numpy(np.stack([0.5 * gw, gw], 1)).to(dev)
+    s = torch.from_numpy(_sscale(n, feat.shape[0], 13)).to(dev)
+    k = glm_moments(pk, gwm, f, s)
+    assert _mat_err(k, glm_moments_plain(pk, gwm, f, s)) <= TOL
+    assert torch.equal(k, glm_moments(pk, gwm, f, s))
+
+
+def _k3_compare(km, kv, kl, pm, pv, pl, on, n):
+    assert _mat_err(km[on], pm[on]) <= TOL
+    scale = torch.sqrt(torch.diagonal(pm, dim1=1, dim2=2).clamp(min=1e-30) * n)
+    assert float(((kv - pv).abs() / scale.clamp(min=1e-30))[on].max()) <= TOL
+    assert not km[~on].any() and not kv[~on].any()
+    if kl is not None:
+        assert float(((kl - pl).abs() / pl.abs().clamp(min=1.0))[on].max()) <= 1e-6
+        assert not kl[~on].any()
+
+
+@pytest.mark.parametrize("n,vb,dc", SHAPES)
+@pytest.mark.parametrize("mode", ["logistic", "firth2"])
+def test_glm_irls_pass_scaled_kernel(dev, n, vb, dc, mode):
+    """K3's scaled design [c | G s] against its plain version."""
+    from plink_torch.ops.glm import chol_small, glm_irls_pass, glm_irls_pass_plain
+
+    packed, feat, gw = _inputs(n, vb, dc, 14)
+    rng = np.random.default_rng(15)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    g = torch.from_numpy(gw).to(dev)
+    s = torch.from_numpy(_sscale(n, feat.shape[0], 16)).to(dev)
+    beta = torch.from_numpy(rng.normal(scale=0.3, size=(vb, dc + 1))
+                            .astype(np.float32)).to(dev)
+    active = torch.from_numpy(rng.random(vb) < 0.8).to(dev)
+    hinv = None
+    if mode == "firth2":
+        h, _, _ = glm_irls_pass(pk, g, f, beta, torch.ones_like(active), sscale=s)
+        _, hinv, _ = chol_small(h, inverse=True)
+    k = glm_irls_pass(pk, g, f, beta, active, hinv, sscale=s)
+    p = glm_irls_pass_plain(pk, g, f, beta, active, hinv, sscale=s)
+    _k3_compare(*k, *p, active, n)
+    again = glm_irls_pass(pk, g, f, beta, active, hinv, sscale=s)
+    assert torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])
+
+
+@pytest.mark.parametrize("n,vb", [(203, 70), (1000, 64), (4099, 130), (517, 9)])
+@pytest.mark.parametrize("mode", ["logistic", "firth2"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain", "sscale"])
+def test_glm_irls_pass_resid_kernel(dev, n, vb, mode, scaled):
+    """K3's residualized design (dc = 0: the centred column, a fixed
+    offset) against its plain version, the mean from K2's sums as
+    glm_resid_scan takes it."""
+    from plink_torch.ops.glm import (_resid_start, chol_small, glm_irls_pass,
+                                     glm_irls_pass_plain, glm_moments)
+
+    packed, feat, gw = _inputs(n, vb, 1, 17)
+    rng = np.random.default_rng(18)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    g = torch.from_numpy(gw).to(dev)
+    s = torch.from_numpy(_sscale(n, feat.shape[0], 19)).to(dev) if scaled else None
+    off = np.zeros(feat.shape[0], np.float32)
+    off[:n] = rng.normal(scale=0.5, size=n)
+    off = torch.from_numpy(off).to(dev)
+    mean, _, _ = _resid_start(glm_moments(pk, torch.stack([g, g], 1), f, s), 1)
+    fr = f[:, 1:].contiguous()  # [y | mask]
+    beta = torch.from_numpy(rng.normal(scale=0.3, size=(vb, 1))
+                            .astype(np.float32)).to(dev)
+    active = torch.from_numpy(rng.random(vb) < 0.8).to(dev)
+    design = dict(sscale=s, offset=off, gmean=mean)
+    hinv = None
+    if mode == "firth2":
+        h, _, _ = glm_irls_pass(pk, g, fr, beta, torch.ones_like(active), **design)
+        _, hinv, _ = chol_small(h, inverse=True)
+    k = glm_irls_pass(pk, g, fr, beta, active, hinv, **design)
+    p = glm_irls_pass_plain(pk, g, fr, beta, active, hinv, **design)
+    assert k[0].shape == (vb, 1, 1)
+    _k3_compare(*k, *p, active, n)
+    again = glm_irls_pass(pk, g, fr, beta, active, hinv, **design)
+    assert torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])
+
+
+@pytest.mark.parametrize("n,V", [(203, 70), (1000, 64), (4099, 130), (9001, 65),
+                                 (20000, 3)])
+def test_xm1_stats_kernel(dev, n, V):
+    """K14 equals its plain version exactly (w in {0, 0.5, 1}), including a
+    ragged last byte, sample counts that span several 4,096-sample splits
+    and samples outside the mask."""
+    from plink_torch.ops.glm import xm1_stats, xm1_stats_plain
+
+    packed, feat, _ = _inputs(n, V, 1, 20)
+    npad = feat.shape[0]
+    pk = torch.from_numpy(packed).to(dev)
+    s = _sscale(n, npad, 21)
+    w = np.stack([s, s * feat[:, 1]], 1).astype(np.float32)
+    w[n:] = 0.0
+    wt = torch.from_numpy(w).to(dev)
+    mask = torch.from_numpy(np.ascontiguousarray(feat[:, 2])).to(dev)
+    k = xm1_stats(pk, wt, mask)
+    assert torch.equal(k, xm1_stats_plain(pk, wt, mask))
+    assert torch.equal(k, xm1_stats(pk, wt, mask))
+
+
 @pytest.mark.parametrize("d", [1, 2, 5, 13, 17, 30, 48])
 def test_chol_small_kernel(dev, d):
     from plink_torch.ops.glm import chol_small, chol_small_plain

@@ -70,10 +70,11 @@ def test_bad_device_name_refused(tiny, tmp_path, monkeypatch, capsys):
     ["--blocks", "no-pheno-req"],
     ["--freq", "cols=+machr2"],
     ["--glm", "interaction", "--covar", "{p}.cov"],
-    ["--glm", "cc-residualize", "hide-covar", "--covar", "{p}.cov"],
+    ["--glm", "cc-residualize", "hide-covar", "genotypic", "--covar",
+     "{p}.cov"],
     ["--glm", "--covar", "{p}.cov", "--maf", "0.01", "--af-pseudocount", "1"],
-    ["--glm", "hide-covar", "qt-residualize", "--covar", "{p}.cov", "--pheno",
-     "{p}.qt"],
+    ["--glm", "hide-covar", "qt-residualize", "dominant", "--covar", "{p}.cov",
+     "--pheno", "{p}.qt"],
 ], ids=["blocks", "freq", "interaction", "cc-residualize", "maf-filter",
         "quantitative"])
 def test_unported_flag_says_so(tiny, tmp_path, args, monkeypatch, capsys):

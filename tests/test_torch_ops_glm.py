@@ -202,7 +202,8 @@ def test_wrappers_refuse_other_devices():
     """A wrapper runs its plain version only for CPU tensors: on any other
     device it launches its kernel or raises, never falls back."""
     from plink_torch.ops.counts import geno_counts
-    from plink_torch.ops.glm import chol_small, glm_moments
+    from plink_torch.ops.glm import (chol_small, glm_irls_pass, glm_moments,
+                                     xm1_stats)
 
     meta = torch.device("meta")
     with pytest.raises(ValueError):
@@ -214,3 +215,174 @@ def test_wrappers_refuse_other_devices():
                     torch.empty((8, 5), device=meta))
     with pytest.raises(ValueError):
         chol_small(torch.empty((4, 3, 3), device=meta))
+    with pytest.raises(ValueError):
+        xm1_stats(torch.empty((4, 2), dtype=torch.uint8, device=meta),
+                  torch.empty((8, 2), device=meta), torch.empty(8, device=meta))
+    # the residualized design takes its mean and offset together, dc = 0
+    cpu = dict(dtype=torch.float32)
+    with pytest.raises(ValueError):
+        glm_irls_pass(torch.zeros((4, 2), dtype=torch.uint8),
+                      torch.zeros((4, 3), **cpu), torch.zeros((8, 2), **cpu),
+                      torch.zeros((4, 1), **cpu), torch.ones(4, dtype=torch.bool),
+                      gmean=torch.zeros(4, **cpu))
+
+
+# ---------------------------------------------------------------------------
+# the B7 entry points (residualized IRLS, --xchr-model 1) and sscale
+# ---------------------------------------------------------------------------
+
+
+def _resid_inputs(geno_factory):
+    """_panel's inputs plus a seeded null-model offset and an --xchr-model 1
+    multiplier (0.5 for a random half of the samples, 1 on the padding)."""
+    codes, blocks, gws, gwms, c, cy, y, mask = _panel(geno_factory)
+    rng = np.random.default_rng(23)
+    offs = np.zeros_like(y)
+    offs[:N] = -0.2 + 0.4 * c[:N, 1] + rng.normal(scale=0.1, size=N)
+    s = np.ones_like(y)
+    s[:N] = np.where(rng.random(N) < 0.5, 0.5, 1.0)
+    return codes, blocks, gws, gwms, c, cy, y, mask, offs.astype(np.float32), \
+        s.astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("firth", [False, True], ids=["logistic", "firth"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain", "sscale"])
+def test_glm_resid_scan_matches_jax(geno_factory, firth, scaled):
+    """glm_resid_scan (cc-/firth-residualize) against JAX's.  The moments,
+    mstats and obs as in the plain scan (rtol 1e-5, exact); beta / SE of the
+    one residualized column to rtol 1e-4 / atol 1e-5 and conv / fail / unf /
+    invalid equal on every row neither side sends to the host refit.  The
+    port takes the per-variant mean and the IRLS start from K2's sums in
+    closed form where JAX sums the centred column over the samples: the
+    start differs in the last bits, the converged fits by f32 noise."""
+    import jax.numpy as jnp
+
+    from plink_torch.ops.glm import glm_resid_scan, scan_inputs_from_numpy
+    from plink_tpu.ops.glm import glm_resid_scan as jax_scan
+
+    _, blocks, gws, gwms, c, cy, y, mask, offs, s = _resid_inputs(geno_factory)
+    ss = s if scaled else None
+    ref = [np.asarray(x) for x in jax_scan(
+        jnp.asarray(blocks), jnp.asarray(gws), jnp.asarray(gwms),
+        jnp.asarray(cy), jnp.asarray(offs), jnp.asarray(y), jnp.asarray(mask),
+        DC, 1, firth, None if ss is None else jnp.asarray(ss))]
+    ins = scan_inputs_from_numpy(blocks, gws, gwms, c, cy, y, mask,
+                                 torch.device("cpu"))
+    got = [x.numpy() for x in glm_resid_scan(
+        *ins, _t(offs), firth=firth, sscale=None if ss is None else _t(ss))]
+    (momy_r, mst_r, scr_r, b_r, se_r, conv_r, fail_r, unf_r, obs_r, inv_r,
+     _h_r) = ref
+    (momy_g, mst_g, scr_g, b_g, se_g, conv_g, fail_g, unf_g, obs_g, inv_g,
+     _h_g) = got
+    assert b_g.shape == b_r.shape == (NBLK, VB, 1)
+    np.testing.assert_allclose(momy_g, momy_r, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(mst_g, mst_r, rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(obs_g, obs_r)
+    np.testing.assert_array_equal(scr_g, scr_r)
+    refit = (_host_refit(b_r, se_r, conv_r, fail_r, unf_r, mst_r, obs_r, 0)
+             | _host_refit(b_g, se_g, conv_g, fail_g, unf_g, mst_g, obs_g, 0))
+    assert refit.sum() <= 0.15 * refit.size
+    ok = ~refit
+    for name, a, b in (("conv", conv_g, conv_r), ("fail", fail_g, fail_r),
+                       ("unf", unf_g, unf_r), ("invalid", inv_g, inv_r)):
+        np.testing.assert_array_equal(a[ok], b[ok], err_msg=name)
+    np.testing.assert_allclose(b_g[ok], b_r[ok], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(se_g[ok], se_r[ok], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain", "sscale"])
+def test_resid_irls_block_matches_jax(geno_factory, scaled):
+    """resid_irls_block (the hybrid's residualized Firth fallback) against
+    JAX's with firth=True on the block holding the separated variant, d = 1
+    (K4 on 1 x 1 matrices): obs exact, beta / SE to rtol 1e-4 / atol 1e-5
+    on the rows both sides converge."""
+    import jax.numpy as jnp
+
+    from plink_torch.ops.glm import resid_irls_block, scan_inputs_from_numpy
+    from plink_tpu.ops.glm import resid_irls_block as jax_block
+
+    _, blocks, gws, gwms, c, cy, y, mask, offs, s = _resid_inputs(geno_factory)
+    ss = s if scaled else None
+    ref = [np.asarray(x) for x in jax_block(
+        jnp.asarray(blocks[0]), jnp.asarray(gws[0]), jnp.asarray(offs),
+        jnp.asarray(y), jnp.asarray(mask), 1, True,
+        None if ss is None else jnp.asarray(ss))]
+    pk, gw, _, feat = scan_inputs_from_numpy(blocks, gws, gwms, c, cy, y, mask,
+                                             torch.device("cpu"))
+    got = [x.numpy() for x in resid_irls_block(
+        pk[0], gw[0], feat, _t(offs), sscale=None if ss is None else _t(ss))]
+    b_r, se_r, _, conv_r, fail_r, unf_r, obs_r, h_r = ref
+    b_g, se_g, _, conv_g, fail_g, unf_g, obs_g, h_g = got
+    assert b_g.shape == (VB, 1) and h_g.shape == (VB, 1, 1)
+    np.testing.assert_array_equal(obs_g, obs_r)
+    assert conv_r[1] and conv_g[1], "the separated variant converges under Firth"
+    ok = conv_r & ~fail_r & conv_g & ~fail_g
+    assert ok.sum() >= 0.9 * ok.size
+    np.testing.assert_array_equal(fail_g[ok | fail_r], fail_r[ok | fail_r])
+    np.testing.assert_allclose(b_g[ok], b_r[ok], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(se_g[ok], se_r[ok], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(h_g[ok], h_r[ok], rtol=2e-4, atol=1e-6)
+
+
+def test_xm1_stats_scan_matches_jax_exactly(geno_factory):
+    """xm1_stats_scan (K14's plain version) equals JAX's on every output:
+    sums of w in {0, 0.5, 1} and plane counts are exact in f32."""
+    import jax.numpy as jnp
+
+    from plink_torch.ops.glm import xm1_stats_scan
+    from plink_tpu.ops.glm import xm1_stats_scan as jax_xm1
+
+    _, blocks, _, _, _, _, y, mask, _, s = _resid_inputs(geno_factory)
+    mask = mask.copy()
+    mask[::7] = 0.0  # samples outside the set
+    w = np.stack([s, s * y], axis=1).astype(np.float32)
+    w[N:] = 0.0
+    ref = [np.asarray(x) for x in jax_xm1(jnp.asarray(blocks), jnp.asarray(w),
+                                          jnp.asarray(mask))]
+    got = [x.numpy() for x in xm1_stats_scan(_t(blocks), _t(w), _t(mask))]
+    assert len(got) == 4
+    for a, b in zip(got, ref):
+        assert a.shape == (NBLK, VB)
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("firth", [False, True], ids=["logistic", "firth"])
+def test_glm_logistic_scan_sscale_matches_jax(geno_factory, firth):
+    """glm_logistic_scan with the --xchr-model 1 multiplier against JAX's
+    (K2 / K3 scaled modes' plain versions), by the rules of the unscaled
+    test."""
+    import jax.numpy as jnp
+
+    from plink_torch.ops.glm import glm_logistic_scan, scan_inputs_from_numpy
+    from plink_tpu.ops.glm import glm_logistic_scan as jax_scan
+
+    _, blocks, gws, gwms, c, cy, y, mask, _, s = _resid_inputs(geno_factory)
+    ref = [np.asarray(x) for x in jax_scan(
+        jnp.asarray(blocks), jnp.asarray(gws), jnp.asarray(gwms),
+        jnp.asarray(c), jnp.asarray(cy), jnp.asarray(y), jnp.asarray(mask),
+        DC, 1, (0,), firth, jnp.asarray(s))]
+    ins = scan_inputs_from_numpy(blocks, gws, gwms, c, cy, y, mask,
+                                 torch.device("cpu"))
+    got = [x.numpy() for x in glm_logistic_scan(*ins, firth=firth,
+                                                sscale=_t(s))]
+    (momy_r, mst_r, scr_r, b_r, se_r, conv_r, fail_r, unf_r, obs_r, inv_r,
+     _h_r) = ref
+    (momy_g, mst_g, scr_g, b_g, se_g, conv_g, fail_g, unf_g, obs_g, inv_g,
+     _h_g) = got
+    np.testing.assert_allclose(momy_g, momy_r, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(mst_g, mst_r, rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(obs_g, obs_r)
+    np.testing.assert_array_equal(scr_g, scr_r)
+    refit = (_host_refit(b_r, se_r, conv_r, fail_r, unf_r, mst_r, obs_r, DC)
+             | _host_refit(b_g, se_g, conv_g, fail_g, unf_g, mst_g, obs_g, DC))
+    assert refit.sum() <= 0.15 * refit.size
+    ok = ~refit
+    for name, a, b in (("conv", conv_g, conv_r), ("fail", fail_g, fail_r),
+                       ("unf", unf_g, unf_r), ("invalid", inv_g, inv_r)):
+        np.testing.assert_array_equal(a[ok], b[ok], err_msg=name)
+    np.testing.assert_allclose(b_g[ok], b_r[ok], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(se_g[ok], se_r[ok], rtol=1e-4, atol=1e-5)
