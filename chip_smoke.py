@@ -87,6 +87,22 @@ Slice 6 (the --glm modifiers) adds, in the order they run:
      with the residualize modifiers) on a chrX copy with a .cov without
      SEX.
 
+Slice 7 (the --glm joint models) adds, in the order they run:
+  3c. K2 / K3 with two genotype columns (genotypic; K3 logistic, firth2
+     and residualized at d = 2), K15 / K16 on the interaction designs
+     d = 24 and 36, K4 at d = 36 and 64, each against its plain version in
+     f32 (every row) and f64 (JOINT_F64_ROWS rows), on block 0 of phase
+     4's panel;
+  4c. on a 500,000 x 2,048 panel: `--glm genotypic hide-covar`, `--glm
+     interaction`, `--glm dominant hide-covar --condition-list` (three
+     variants) and `--glm genotypic cc-residualize hide-covar`, 64 rows of
+     each report against numpy f64 fits (GENO_2DF from the f64 joint
+     test); `--glm genotypic interaction hide-covar --condition-list` of
+     five (d = 51: K4's block mode); the interaction path traced;
+  17c. nine joint cases on the parity panel, CUDA against CPU (a variant
+     whose floats alone differ held to numpy f64 at one of the stops an
+     f32 fit can take under plink2's rules).
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
 without the plink_torch package beside this script.
@@ -125,6 +141,8 @@ TOL_VS_F64 = 2e-5  # the kernel sums <= 2,048-sample runs in f32 (drift ~5e-6)
 TOL_LOGLIK = 1e-6  # relative; f32 per-sample terms summed in f64 on both sides
 TOL_CHOL = 1e-3  # relative to the row's largest entry; cond(H) * f32 eps
 GLM_FLOAT_RTOL = 1e-3  # report columns OR / BETA / SE / Z / T / P (bench.py's rule)
+# the statistic columns (the joint models' hold a Z or T, or the joint F)
+STAT_COLS = ("Z_STAT", "T_STAT", "Z_OR_F_STAT", "T_OR_F_STAT")
 # QC thresholds of phase 5, chosen so that every filter removes something on
 # the panel (iid genotypes, 2% missing calls, allele frequencies U(0, 1)):
 # --mind 0.028 is ~3.7 sd above a sample's mean missing rate over 4,096
@@ -143,7 +161,9 @@ RESID_KERNELS = ("geno_counts", "glm_moments", "glm_irls_resid", "chol_small")
 XM1_KERNELS = ("glm_moments", "glm_irls", "glm_moments_scaled", "glm_irls_scaled",
                "chol_small", "xm1_stats")
 XM1_LINEAR_KERNELS = ("linear_sums",)
-N_CHECK_ROWS = 64  # report rows of each slice-6 path checked against numpy f64
+N_CHECK_ROWS = 64  # report rows of each slice-6/7 path checked against numpy f64
+JOINT_VARIANTS = 2_048  # variants of the joint-model paths' panel (one block)
+JOINT_F64_ROWS = 256  # rows of each joint-model kernel check also held to f64
 QC_KERNELS = ("geno_counts", "sample_counts", "linear_sums")
 # the relationship cells: bench.py's king_50k / grm_50k panel (p50000x32768,
 # seed 42, 2% missing calls; bench.py:455-463,593-596), full width
@@ -304,7 +324,8 @@ def build():
                 args = re.findall(r"Li(\d+)E", entry)
                 short = re.search(r"\d+([a-z_]+_kernel)", entry)
                 short = short.group(1) if short else entry
-                if spill or not args or args[0] in ("12", "13", "15"):
+                if (spill or not args or args[0] in ("12", "13", "15")
+                        or "wide" in short):
                     log(f"  {short}<{','.join(args)}>: {m.group(1)} registers, "
                         f"{spill} bytes spilled")
                 entry, spill = None, 0
@@ -651,13 +672,17 @@ def check_linear_sums(torch, dev, prefix, pk, feat):
     ins64 = ((c[:, :, None] * c[:, None, :]).reshape(npad, dc * dc),
              c * y[:, None], y * y)
     ins32 = tuple(t.float().contiguous() for t in ins64)
-    k6 = G.linear_sums(pk, *ins32)
-    p6 = _chunked_dict(torch, lambda sl: G.linear_sums_plain(pk[sl], *ins32), vb, 256)
-    r6 = _chunked_dict(torch, lambda sl: G.linear_sums_plain(pk[sl], *ins64), vb, 128)
+    # A1 = REF on a seeded half of the variants: their hom-REF plane is summed
+    a1r = torch.from_numpy(np.random.default_rng(66).random(vb) < 0.5).to(dev)
+    k6 = G.linear_sums(pk, *ins32, a1r)
+    p6 = _chunked_dict(torch, lambda sl: G.linear_sums_plain(pk[sl], *ins32, a1r[sl]),
+                       vb, 256)
+    r6 = _chunked_dict(torch, lambda sl: G.linear_sums_plain(pk[sl], *ins64, a1r[sl]),
+                       vb, 128)
     # sum y^2 over each plane: the plain version with y^2 as its one-column
     # c c^T table (read back as ?cc)
     yy = _chunked_dict(torch, lambda sl: G.linear_sums_plain(
-        pk[sl], ins64[2][:, None], ins64[2][:, None], ins64[2]), vb, 128)
+        pk[sl], ins64[2][:, None], ins64[2][:, None], ins64[2], a1r[sl]), vb, 128)
     errs = {"plain": 0.0, "f64": 0.0, "plain_vs_f64": 0.0}
     mae = 0.0
     for pl in "ham":
@@ -674,15 +699,17 @@ def check_linear_sums(torch, dev, prefix, pk, feat):
                                        norm_err(torch, p6[key], r6[key], sc))
             mae = max(mae, float((k6[key] - p6[key]).abs().max()))
     assert errs["plain"] <= TOL_VS_PLAIN and errs["f64"] <= TOL_VS_F64, errs
-    again = G.linear_sums(pk, *ins32)
+    again = G.linear_sums(pk, *ins32, a1r)
     assert all(torch.equal(k6[k], again[k]) for k in k6), "K6 is not deterministic"
-    ms6 = time_ms(torch, lambda: G.linear_sums(pk, *ins32), 5)
+    ms6 = time_ms(torch, lambda: G.linear_sums(pk, *ins32, a1r), 5)
     pms6 = time_ms(torch, lambda: _chunked_dict(
-        torch, lambda sl: G.linear_sums_plain(pk[sl], *ins32), vb, 256), 1)
+        torch, lambda sl: G.linear_sums_plain(pk[sl], *ins32, a1r[sl]), vb, 256), 1)
     # library: the decoded planes [3 vb, n] by the per-sample table
     # [n, dc^2 + dc + 1] (plink_tpu's three plane products), one matmul
     codes = unpack_codes(pk)
-    nz = int((codes != 0).sum())  # (variant, sample) pairs that add a row
+    # (variant, sample) pairs that add a row: all but hom-REF, hom-ALT where
+    # the codes are swapped
+    nz = int(torch.where(a1r[:, None], codes != 2, codes != 0).sum())
     planes = torch.cat([(codes == k).float() for k in (1, 2, 3)])
     del codes
     table = torch.cat([ins32[0], ins32[1], ins32[2][:, None]], 1)
@@ -694,8 +721,9 @@ def check_linear_sums(torch, dev, prefix, pk, feat):
     log(f"K6 linear_sums [{vb}x{npad}, dc={dc}, {nf} entries]: norm err vs "
         f"plain {errs['plain']:.2e} (tol {TOL_VS_PLAIN:g}), vs f64 "
         f"{errs['f64']:.2e} (tol {TOL_VS_F64:g}; plain vs f64 "
-        f"{errs['plain_vs_f64']:.2e}), two runs identical; {ms6:.3f} ms, plain "
-        f"{pms6:.1f} ms, matmul {lib6:.3f} ms; {nz} non-hom-REF pairs")
+        f"{errs['plain_vs_f64']:.2e}), two runs identical, A1 = REF on "
+        f"{int(a1r.sum())} variants; {ms6:.3f} ms, plain {pms6:.1f} ms, matmul "
+        f"{lib6:.3f} ms; {nz} non-hom-REF pairs")
     return dict(name="linear_sums", source="plink_torch/csrc/linear_sums.cu",
                 replaces="plink_tpu/ops/glm.py:46", max_abs_err=mae,
                 max_norm_err=errs["plain"], tol=TOL_VS_PLAIN,
@@ -875,6 +903,262 @@ def check_modifier_kernels(torch, dev, prefix):
     log(f"K14 xm1_stats [{vb}x{npad}]: exact ({n_s} samples, males at 0.5); "
         f"{ms14:.4f} ms, plain {pms14:.1f} ms, f32 matmul {lib14:.3f} ms, bound "
         f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+    return rows
+
+
+def timed(torch, fn):
+    """(fn(), its ms on the card by CUDA events): one run, no warm-up (the
+    plain versions, whose time is recorded, not compared)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def check_joint_kernels(torch, dev, prefix):
+    """Phase 3c: the joint-model kernels at the main path's shapes (block 0,
+    2,048 variants x 500,000 samples, SEX + 10 PCs, dc = 12): K2 / K3 with
+    two genotype columns (genotypic: ADD, DOMDEV; K3 logistic, firth2 and
+    residualized), K15 / K16 on the `interaction` designs d = 24 (additive)
+    and d = 36 (genotypic), K4 at d = 36 and, on seeded SPD matrices, at
+    d = 64 (the block-per-matrix kernel).  Each against its plain version
+    in f32 on every row and in f64 on the first JOINT_F64_ROWS rows, timed
+    beside its bound and one library call."""
+    import numpy as np
+
+    from plink_torch.ops import glm as G
+
+    packed_all, feat, _ = main_path_inputs(torch, prefix, dev)
+    vb = 2048
+    pk = packed_all[:vb]
+    dc = feat.shape[1] - 2
+    npad = feat.shape[0]
+    sub = slice(0, JOINT_F64_ROWS)
+    feat64 = feat.double()
+    valid_f = (unpack_codes(pk) != 3).to(torch.float32)
+    n_valid = float(valid_f.sum())
+    add = torch.zeros((vb, 3), dtype=torch.float32, device=dev)
+    add[:, 0], add[:, 1] = 1.0, 2.0  # ADD with A1 = ALT
+    dom = torch.zeros_like(add)
+    dom[:, 0] = 1.0  # DOMDEV: the het indicator
+    designs = {  # name: (gw [vb, P, 3], covj)
+        "p2": (torch.stack([add, dom], 1).contiguous(), (0, 0)),
+        "d24": (torch.stack([add] * dc, 1).contiguous(), tuple(range(dc))),
+        "d36": (torch.stack([add, dom] + [add] * (dc - 1) + [dom] * (dc - 1), 1)
+                .contiguous(), (0, 0) + tuple(range(1, dc)) * 2),
+    }
+    table = {"moments": feat[:, : dc + 1], "irls": feat[:, :dc]}
+
+    def lib(kind):  # the decoded valid plane by the per-sample table
+        t = table[kind]
+        ccfl = (t[:, :, None] * t[:, None, :]).reshape(npad, -1)
+        return time_ms(torch, lambda: torch.matmul(valid_f, ccfl), 3)
+
+    def mom_check(name, gw3, covj, nrows=vb):
+        """The plain version runs (and is timed) on the first `nrows`
+        variants."""
+        gwm = torch.cat([gw3, add[:, None]], 1).contiguous()
+        cj = covj + (0,)
+        step = max(16, 4096 // gwm.shape[1] // 8)
+        k = G.glm_moments(pk, gwm, feat, None, cj)
+        p, pms = timed(torch, lambda: chunked(torch, lambda sl: G.glm_moments_plain(
+            pk[sl], gwm[sl], feat, None, cj), nrows, step))
+        r = G.glm_moments_plain(pk[sub], gwm[sub].double(), feat64, None, cj)
+        kp = k[:nrows]
+        e = norm_err(torch, kp, p, mat_scale(torch, p.double()))  # f64: no underflow
+        er = norm_err(torch, k[sub], r, mat_scale(torch, r))
+        P = gw3.shape[1]
+        ints = [0, dc, dc + 1 + P] + ([dc + 1, dc + 2] if not any(covj) else [])
+        exact = bool(torch.equal(kp[:, ints][:, :, ints], p[:, ints][:, :, ints]))
+        assert e <= TOL_VS_PLAIN and er <= TOL_VS_F64 and exact, (name, e, er, exact)
+        assert torch.equal(k, G.glm_moments(pk, gwm, feat, None, cj)), name
+        ms = time_ms(torch, lambda: G.glm_moments(pk, gwm, feat, None, cj), 3)
+        D = k.shape[1]
+        bound = _bound(n_valid * D * (D + 1),
+                       pk.numel() + (feat.numel() + gwm.numel() + k.numel()) * 4)
+        log(f"K2/K15 moments {name} [{vb}x{npad}, D={D}]: norm err vs plain "
+            f"({nrows} rows) {e:.2e}, vs f64 ({JOINT_F64_ROWS} rows) {er:.2e}, "
+            f"integer entries exact, two runs identical; {ms:.3f} ms, plain "
+            f"{pms:.1f} ms ({nrows} rows), bound {bound['bound_ms']:.3f} ms "
+            f"({bound['bound_by']})")
+        return k, dict(max_abs_err=float((kp - p).abs().max()), max_norm_err=e,
+                       tol=TOL_VS_PLAIN, max_norm_err_f64=er, tol_f64=TOL_VS_F64,
+                       ms=ms, plain_ms=pms, **bound)
+
+    def irls_check(name, gw3, covj, feat_k, beta, hinv, vscale, cond=None,
+                   nrows=vb, **design):
+        """The plain version runs (and is timed) on the first `nrows`
+        variants."""
+        # a variant with no hom-A1 (or hom-REF) call makes a genotypic design
+        # singular: its start or Hinv0 is NaN, and it is left inactive
+        active = torch.isfinite(beta).all(dim=1)
+        if hinv is not None:
+            active &= torch.isfinite(hinv).all(dim=2).all(dim=1)
+        assert float(active.float().mean()) > 0.75, (name, int(active.sum()))
+        kw = dict(design, covj=covj)
+        step = max(16, 2048 // gw3.shape[1] // 8)
+        km, kv, kl = G.glm_irls_pass(pk, gw3, feat_k, beta, active, hinv, **kw)
+
+        def plain(sl, dt=torch.float32):
+            kw_sl = {k_: (v_[sl] if k_ == "gmean" else v_) for k_, v_ in kw.items()}
+            kw_sl = {k_: (v_.to(dt) if isinstance(v_, torch.Tensor) else v_)
+                     for k_, v_ in kw_sl.items()}
+            return G.glm_irls_pass_plain(
+                pk[sl], gw3[sl].to(dt), feat_k.to(dt), beta[sl].to(dt), active[sl],
+                None if hinv is None else hinv[sl].to(dt), **kw_sl)
+
+        (pm, pv, pl), pms = timed(torch, lambda: chunked(torch, plain, nrows, step))
+        rm, rv, rl = plain(sub, torch.float64)
+        km_all, kv_all = km, kv
+        km, kv, kl = km[:nrows], kv[:nrows], None if kl is None else kl[:nrows]
+        on, son = active[:nrows], active[sub]
+        if cond is not None:
+            # firth2's hat value x^T Hinv0 x cancels terms of size cond(H0):
+            # the f64 check takes the rows an f32 sum resolves (cond < 1e4)
+            son = son & (cond[sub] < 1e4)
+        em = norm_err(torch, km[on], pm[on], mat_scale(torch, pm[on].double()))
+        ev = norm_err(torch, kv[on], pv[on], vscale[:nrows][on])
+        emr = norm_err(torch, km_all[sub][son], rm[son], mat_scale(torch, rm[son]))
+        evr = norm_err(torch, kv_all[sub][son], rv[son], vscale[sub][son])
+        el = 0.0 if kl is None else float(((kl - pl).abs() / pl.abs())[on].max())
+        assert not km_all[~active].any() and not kv_all[~active].any(), name
+        assert (max(em, ev) <= TOL_VS_PLAIN and max(emr, evr) <= TOL_VS_F64
+                and el <= TOL_LOGLIK), (name, em, ev, emr, evr, el)
+        again = G.glm_irls_pass(pk, gw3, feat_k, beta, active, hinv, **kw)
+        assert torch.equal(km_all, again[0]) and torch.equal(kv_all, again[1]), name
+        ms = time_ms(torch, lambda: G.glm_irls_pass(pk, gw3, feat_k, beta, active,
+                                                    hinv, **kw), 3)
+        d = beta.shape[1]
+        ntri = d * (d + 1) // 2
+        ops = n_valid * (2 * ntri + 4 * d + 12 + (2 * ntri if hinv is not None else 0))
+        nbytes = pk.numel() + (feat_k.numel() + vb * (d * d + 2 * d + 5)
+                               + (vb * d * d if hinv is not None else 0)) * 4
+        bound = _bound(ops, nbytes)
+        log(f"K3/K16 {name} [{vb}x{npad}, d={d}, {int(active.sum())} rows "
+            f"active]: norm err vs plain ({nrows} rows) H {em:.2e} "
+            f"vec {ev:.2e}, vs f64 ({int(son.sum())} rows) H {emr:.2e} vec "
+            f"{evr:.2e}, loglik rel {el:.2e}, two runs identical; {ms:.3f} ms, "
+            f"plain {pms:.1f} ms ({nrows} rows), bound {bound['bound_ms']:.3f} ms "
+            f"({bound['bound_by']})")
+        return km_all, dict(max_abs_err=float(max((km - pm).abs().max(),
+                                              (kv - pv).abs().max())),
+                        max_norm_err=max(em, ev), tol=TOL_VS_PLAIN,
+                        max_norm_err_f64=max(emr, evr), tol_f64=TOL_VS_F64,
+                        ms=ms, plain_ms=pms, **bound)
+
+    def fits(name, gw3, covj, momy, nrows=vb):
+        """The OLS start, then the logistic pass at it and the firth2 pass
+        at beta = 0, as glm_logistic_scan takes them."""
+        P = gw3.shape[1]
+        h0, rhs0 = G._ols_start(momy, dc, P)
+        beta0, _, _ = G.chol_small(h0, rhs=rhs0)
+        vsc = torch.sqrt(torch.diagonal(h0, dim1=1, dim2=2).clamp(min=1e-30)
+                         * momy[:, :1, 0])
+        H, la = irls_check(f"{name} logistic", gw3, covj, feat, beta0, None, vsc,
+                           nrows=nrows)
+        zero = torch.zeros_like(beta0)
+        act = torch.ones(vb, dtype=torch.bool, device=dev)
+        Hz, _, _ = G.glm_irls_pass(pk, gw3, feat, zero, act, covj=covj)
+        _, hz_inv, _ = G.chol_small(Hz, inverse=True)
+        _, lf = irls_check(f"{name} firth2", gw3, covj, feat, zero, hz_inv, vsc,
+                           cond=torch.linalg.cond(Hz.double()), nrows=nrows)
+        return H, la, lf
+
+    rows = []
+    gw_p2, cj_p2 = designs["p2"]
+    k2, m_p2 = mom_check("genotypic (K2, P = 2)", gw_p2, cj_p2)
+    rows.append(dict(name="glm_moments_p2", source="plink_torch/csrc/glm_moments_p2.cu",
+                     replaces="plink_tpu/ops/glm.py:288", **m_p2,
+                     library_ms=lib("moments")))
+    _, la, lf = fits("genotypic (K3, P = 2)", gw_p2, cj_p2, k2)
+    rows.append(dict(name="glm_irls_p2", source="plink_torch/csrc/glm_irls_p2.cu",
+                     replaces="plink_tpu/ops/glm.py:383", **la,
+                     firth2_ms=lf["ms"], firth2_bound_ms=lf["bound_ms"],
+                     library_ms=lib("irls")))
+    # residualized, two centred columns: means and start from K2's sums, the
+    # offset of a seeded null model
+    rng = np.random.default_rng(62)
+    bnull = torch.from_numpy(rng.normal(scale=0.2, size=dc)).float().to(dev)
+    off = (feat[:, :dc] @ bnull).contiguous()
+    mean, h0r, rhs0r = G._resid_start(k2, dc, 2)
+    feat_r = feat[:, dc:].contiguous()
+    beta_r, _, _ = G.chol_small(h0r, rhs=rhs0r)
+    vscr = torch.sqrt(torch.diagonal(h0r, dim1=1, dim2=2).clamp(min=1e-30)
+                      * k2[:, :1, 0])
+    rd = dict(offset=off, gmean=mean)
+    _, ra = irls_check("genotypic residualized (K3, d = 2) logistic", gw_p2,
+                       (0, 0), feat_r, beta_r, None, vscr, **rd)
+    act = torch.ones(vb, dtype=torch.bool, device=dev)
+    Hr, _, _ = G.glm_irls_pass(pk, gw_p2, feat_r, torch.zeros_like(beta_r), act, **rd)
+    _, hr_inv, _ = G.chol_small(Hr, inverse=True)
+    _, rf = irls_check("genotypic residualized (K3, d = 2) firth2", gw_p2, (0, 0),
+                       feat_r, torch.zeros_like(beta_r), hr_inv, vscr,
+                       cond=torch.linalg.cond(Hr.double()), **rd)
+    table_r = torch.stack([feat_r[:, 0], feat_r[:, 1], off], 1)
+    rows.append(dict(name="glm_irls_resid_p2", source="plink_torch/csrc/glm_irls_p2.cu",
+                     replaces="plink_tpu/ops/glm.py:623", **ra, firth2_ms=rf["ms"],
+                     library_ms=time_ms(torch, lambda: torch.matmul(valid_f, table_r), 3)))
+
+    wide = {}
+    # the d = 36 plain versions take 3-9 s on the whole block: they run (and
+    # are timed) on its first 512 variants
+    for key, nrows in (("d24", vb), ("d36", 512)):
+        gw3, covj = designs[key]
+        k15, m15 = mom_check(f"interaction {key} (K15)", gw3, covj, nrows)
+        H, la, lf = fits(f"interaction {key} (K16)", gw3, covj, k15, nrows)
+        wide[key] = (m15, la, lf, H)
+    m24, la24, lf24, _ = wide["d24"]
+    m36, la36, lf36, H36 = wide["d36"]
+    rows.append(dict(name="glm_moments_wide", source="plink_torch/csrc/glm_wide.cu",
+                     replaces="plink_tpu/ops/glm.py:288", **m24,
+                     d36_ms=m36["ms"], d36_plain_512_ms=m36["plain_ms"],
+                     d36_bound_ms=m36["bound_ms"], library_ms=lib("moments")))
+    rows.append(dict(name="glm_irls_wide", source="plink_torch/csrc/glm_wide.cu",
+                     replaces="plink_tpu/ops/glm.py:383", **la24,
+                     firth2_ms=lf24["ms"], d36_ms=la36["ms"],
+                     d36_firth2_ms=lf36["ms"], d36_plain_512_ms=la36["plain_ms"],
+                     d36_bound_ms=la36["bound_ms"], library_ms=lib("irls")))
+
+    # K4: the d = 36 Hessians (one thread a matrix) and seeded SPD d = 64
+    # matrices (one block a matrix)
+    a = torch.from_numpy(np.random.default_rng(63).normal(size=(vb, 64, 64))).to(dev)
+    spd64 = (a @ a.transpose(1, 2) / 64 + torch.eye(64, device=dev,
+                                                     dtype=torch.float64)).float()
+    for d, h in ((36, H36), (64, spd64)):
+        rhs = h[:, :, 0].contiguous()
+        kx, ki, kd = G.chol_small(h, rhs=rhs, inverse=True, logdet=True)
+        (px, pi, pdet), pms = timed(torch, lambda: G.chol_small_plain(h, rhs, True,
+                                                                      True))
+        # rows an f32 factor resolves to the 1e-3 rule: cond < 1e4 (a
+        # genotypic row with few hom-A1 carriers has DOMDEV ~ ADD)
+        good = torch.linalg.cond(h.double()) < 1e4
+        ex = float(((kx - px).abs().amax(1) / px.abs().amax(1))[good].max())
+        ei = float(((ki - pi).abs().amax((1, 2)) / pi.abs().amax((1, 2)))[good].max())
+        ed = float(((kd - pdet).abs() / pdet.abs().clamp(min=1.0))[good].max())
+        assert max(ex, ei, ed) <= TOL_CHOL and bool(good.float().mean() > 0.5), \
+            (d, ex, ei, ed, int(good.sum()))
+        ms = time_ms(torch, lambda: G.chol_small(h, rhs=rhs, inverse=True,
+                                                 logdet=True), 10)
+        libms = time_ms(torch, lambda: torch.linalg.inv_ex(h), 10)  # no raise
+        bound = _bound(vb * (d ** 3 / 3 + 2 * d * d + d ** 3),
+                       vb * (2 * d * d + 2 * d + 1) * 4)
+        log(f"K4 chol_small [{vb},{d},{d}]: rel err solve {ex:.2e} inverse "
+            f"{ei:.2e} logdet {ed:.2e} (tol {TOL_CHOL:g}; {int(good.sum())} rows "
+            f"with cond < 1e4); {ms:.4f} ms, plain "
+            f"{pms:.2f} ms, linalg.inv_ex {libms:.4f} ms")
+        if d == 64:
+            rows.append(dict(name="chol_small_wide", source="plink_torch/csrc/chol_small.cu",
+                             replaces="plink_tpu/ops/glm.py:125", max_abs_err=float(
+                                 (ki - pi)[good].abs().max()), max_norm_err=max(ex, ei, ed),
+                             tol=TOL_CHOL, ms=ms, plain_ms=pms, **bound,
+                             library_ms=libms, d36_ms=d36_ms))
+        else:
+            d36_ms = ms
+    del valid_f
     return rows
 
 
@@ -1336,38 +1620,54 @@ def float_allowed(col, y):
     f32 noise is large relative to itself."""
     if col == "P":
         return GLM_FLOAT_RTOL * max(1e-8, abs(y)) + 1e-9
-    return GLM_FLOAT_RTOL * (max(abs(y), 1.0) if col in ("Z_STAT", "T_STAT")
+    return GLM_FLOAT_RTOL * (max(abs(y), 1.0) if col in STAT_COLS
                              else abs(y))
 
 
-def compare_reports(a, b, beta_by_se=False):
+def compare_reports(a, b, beta_by_se=False, refit=None):
     """Every column of report `a` against the same rows of `b`: exact, except
     OR / SE / Z / P within float_allowed.  With `beta_by_se` (the modifier
     parity cases) a BETA is held to GLM_FLOAT_RTOL of max(|BETA|, SE), as T
     is to max(|T|, 1): a BETA near 0 carries the f32 noise of the linear
-    sums, large relative to itself and small against its SE.  Returns the
-    largest float difference as a fraction of what is allowed (<= 1)."""
+    sums, large relative to itself and small against its SE.  With `refit`
+    (the joint-model parity), a variant whose floats alone differ is passed
+    as refit(rows of `a`, column index) to be held to an f64 fit instead:
+    two f32 fits read plink2's loglik threshold through rounding of ~1e-7
+    |ll| against the threshold's 1e-8 |ll|, so they may stop an iteration
+    apart, and the SE then comes from different iterates (f64_variant).
+    Returns the largest float difference as a fraction of what is allowed
+    (<= 1), over the variants not held to f64."""
     ha, ra = read_report(a)
     hb, rb = read_report(b, limit=len(ra))
     assert ha == hb and len(ra) == len(rb), (a, b, ha, hb, len(ra), len(rb))
-    floats = {"OR", "LOG(OR)_SE", "Z_STAT", "BETA", "SE", "T_STAT", "P"}
-    worst, bad = 0.0, []
+    floats = {"OR", "LOG(OR)_SE", "BETA", "SE", "P", *STAT_COLS}
+    idc = ha.index("ID") if "ID" in ha else None
+    worst, bad = {}, []  # worst: the largest fraction of each variant
     for x, y in zip(ra, rb):
+        vid = x[idc] if idc is not None else None
         for col, u, v in zip(ha, x, y):
-            if col in floats and u != "NA" and v != "NA":
+            if col in floats and u != "NA" and v != "NA" and u != v:
                 allowed = float_allowed(col, float(v))
                 if beta_by_se and col == "BETA" and y[ha.index("SE")] != "NA":
                     allowed = GLM_FLOAT_RTOL * max(abs(float(v)),
                                                    float(y[ha.index("SE")]))
                 frac = abs(float(u) - float(v)) / allowed
-                worst = max(worst, frac)
+                worst[vid] = max(worst.get(vid, 0.0), frac)
                 ok = frac <= 1.0
             else:
                 ok = u == v
             if not ok:
                 bad.append((col, x, y))
+    if refit is not None and bad:
+        floats_only = {x[idc] for c, x, _ in bad if c in floats}
+        floats_only -= {x[idc] for c, x, _ in bad if c not in floats}
+        col = {c: ha.index(c) for c in ha}
+        for vid in sorted(floats_only):
+            refit([x for x in ra if x[idc] == vid], col)
+            worst.pop(vid, None)
+        bad = [(c, x, y) for c, x, y in bad if x[idc] not in floats_only]
     assert not bad, f"{len(bad)} cells differ; first: {bad[:3]}"
-    return worst
+    return max(worst.values(), default=0.0)
 
 
 def logistic_argv(prefix, out):
@@ -2216,58 +2516,20 @@ def xm1_argvs(xprefix, prefix, out):
                               out + "_qt", "--silent"]}
 
 
-def _f64_logit(X, y, off=0.0, firth=False):
-    """plink2's logistic (LogisticRegressionD: OLS start on 4.8639 (y - 0.5),
-    Newton steps until |dll| < 1e-8 (0.05 + |ll|), SE from the Hessian of
-    the last solve) or Firth regression (FirthRegressionD: from 0, steps
-    capped at 5, stop when the step, the score and the penalised loglik
-    change are all below 1e-5, SE from the last step's second-weight
-    Hessian), written in numpy f64 from those rules, with a fixed offset.
-    The reported numbers depend on where the rules stop on a low-count
-    variant, so the check follows them.  Returns (beta, SE, P) of every
-    column."""
+def _f64_logit(X, y, off=0.0, firth=False, with_hinv=False):
+    """plink_torch.testing.f64_logit (plink2's logistic / Firth rules in
+    numpy f64, with a fixed offset), which must converge.  Returns (beta,
+    SE, P) of every column (and, `with_hinv`, the covariance the SE come
+    from)."""
     import numpy as np
     from scipy.special import ndtr
 
-    def terms(b):
-        eta = X @ b + off
-        p = 1.0 / (1.0 + np.exp(-eta))
-        ll = float(np.where(y != 0, -np.logaddexp(0, -eta), -np.logaddexp(0, eta)).sum())
-        return p, p * (1.0 - p), ll
+    from plink_torch.testing import f64_logit
 
-    if firth:
-        b, pll_old, dmax = np.zeros(X.shape[1]), 0.0, 0.0
-        for it in range(27):
-            p, w, ll = terms(b)
-            H = (X.T * w) @ X
-            h = w * ((X @ np.linalg.inv(H)) * X).sum(axis=1)
-            u = X.T @ (y - p + h * (0.5 - p))
-            pll = ll + 0.5 * np.linalg.slogdet(H)[1]
-            if it and dmax <= 1e-5 and np.abs(u).max() < 1e-5 and pll - pll_old < 1e-5:
-                break
-            pll_old = pll
-            hinv = np.linalg.inv((X.T * ((1.0 + h) * w)) @ X)
-            step = hinv @ u
-            dmax = np.abs(step).max()
-            step *= min(1.0, 5.0 / max(dmax, 1e-300))
-            dmax = min(dmax, 5.0)
-            b = b + step
-        else:
-            raise AssertionError("the f64 Firth reference did not converge")
-    else:
-        b = np.linalg.solve(X.T @ X, X.T @ (4.863891244002886 * (y - 0.5)))
-        p, w, ll_old = terms(b)
-        for _ in range(24):
-            hinv = np.linalg.inv((X.T * w) @ X)
-            b = b - hinv @ (X.T @ (p - y))
-            p, w, ll = terms(b)
-            if abs(ll - ll_old) < 1e-8 * (0.05 + abs(ll)):
-                break
-            ll_old = ll
-        else:
-            raise AssertionError("the f64 logistic reference did not converge")
-    se = np.sqrt(np.diag(hinv))
-    return b, se, 2.0 * ndtr(-np.abs(b / se))
+    b, se, hinv, conv = f64_logit(X, y, off, firth)
+    assert conv, "the f64 reference fit did not converge"
+    p = 2.0 * ndtr(-np.abs(b / se))
+    return (b, se, p, hinv) if with_hinv else (b, se, p)
 
 
 def _check_rows(label, rows, hdr, fit_row, n_rows):
@@ -2433,6 +2695,393 @@ def run_xm1_paths(torch, prefix, tmp, card, n_variants):
     return found
 
 
+def write_both(prefix, dst):
+    """<dst>: the panel's PHENO1 (from its .psam) and QT1 (from its .qt) in
+    one phenotype file, so one run fits the logistic and the linear report."""
+    with open(prefix + ".psam") as f, open(prefix + ".qt") as q, \
+            open(dst, "w") as g:
+        hdr = f.readline().rstrip("\n").split("\t")
+        q.readline()
+        g.write("#IID\tPHENO1\tQT1\n")
+        for ln, lq in zip(f, q):
+            t = ln.rstrip("\n").split("\t")
+            g.write(f"{t[0]}\t{t[hdr.index('PHENO1')]}\t{lq.split()[1]}\n")
+
+
+def joint_argvs(prefix, both, cond, cond5, few):
+    """The joint-model paths (slice 7): label -> (argv, report
+    extensions)."""
+    logi, lin = "PHENO1.glm.logistic.hybrid", "QT1.glm.linear"
+    base = ["--pfile", prefix, "--covar", prefix + ".cov"]
+    return {
+        "genotypic": (base + ["--pheno", both, "--glm", "genotypic",
+                              "hide-covar"], [logi, lin]),
+        "interaction": (base + ["--pheno", both, "--glm", "interaction"],
+                        [logi, lin]),
+        "condition": (base + ["--pheno", both, "--glm", "dominant", "hide-covar",
+                              "--condition-list", cond], [logi, lin]),
+        "genotypic_cc_residualize": (base + ["--glm", "genotypic", "cc-residualize",
+                                             "hide-covar"], [logi]),
+        # d = 1 + 5 + 11 + 2 x 17 = 51 > 48: K4's block-per-matrix mode, on
+        # 21 common variants (`few`: the host's f64 collinearity recheck of
+        # a 500,000 x 51 design takes ~1 s a variant)
+        "wide": (base + ["--glm", "genotypic", "interaction", "hide-covar",
+                         "--condition-list", cond5, "--extract", few], [logi]),
+    }
+
+
+# plane weights (het, hom-ALT, valid) of each model column, A1 = ALT / REF
+_MODEL_W = {"ADD": ((1, 2, 0), (-1, -2, 2)), "DOMDEV": ((1, 0, 0), (1, 0, 0)),
+            "DOM": ((1, 1, 0), (0, -1, 1)), "REC": ((0, 1, 0), (-1, -1, 1)),
+            "HET": ((1, 0, 0), (1, 0, 0)), "HOM": ((0, 1, 0), (-1, -1, 1))}
+_MODELS = (("genotypic", ["ADD", "DOMDEV"]), ("hethom", ["HOM", "HET"]),
+           ("dominant", ["DOM"]), ("recessive", ["REC"]), ("hetonly", ["HET"]))
+
+
+def f64_variant(prefix, vrows, col, mods, C, cnames, keep, y, firth, offs=None,
+                scale=None):
+    """numpy f64 fits of one variant's report rows `vrows`: the logistic /
+    Firth regression with plink2's stopping rules, at every stop an f32 fit
+    can take under them (plink_torch.testing.f64_logit with slack 10; with
+    `offs`, the residualized design [centred model columns] with the null
+    model's offset {firth: offset}), or least squares, over [1 | C (columns
+    `cnames`) | model columns | (interaction) model x covariate columns] and
+    the samples in `keep` with the variant called, the model columns times
+    the per-sample `scale` where one is given (--xchr-model 1 on chrX: 0.5
+    for males).  Returns ([{TEST: (OR or
+    BETA, SE, Z or T, P)}], obs), plink2's own stop first; GENO_2DF from the
+    f64 joint test (Wald on the main effects' covariance for the logistic,
+    the reduced model's F for the linear, P with (2, OBS_CT) degrees of
+    freedom)."""
+    import numpy as np
+    from scipy.special import fdtrc, ndtr, stdtr
+
+    from plink_torch.testing import f64_logit
+
+    r = vrows[0]
+    g = pgen_codes(prefix, [int(r[col["ID"]][3:])])[0]
+    alt = r[col["A1"]] == r[col["ALT"]]
+    ok_s = keep & (g != 3)
+    g = g[ok_s]
+    het, hom = (g == 1), (g == 2)
+    model = next((m for k, m in _MODELS if k in mods), ["ADD"])
+    Cs = C[ok_s]
+    gcols = []
+    for m in model:
+        wm = _MODEL_W[m][0 if alt else 1]
+        gcols.append((wm[0] * het + wm[1] * hom + wm[2])
+                     * (1.0 if scale is None else scale[ok_s]))
+    linear = "BETA" in col
+    nobs = int(ok_s.sum())
+    if offs is not None:
+        names = list(model)
+        X = np.column_stack(gcols)
+        X = X - X.mean(axis=0)
+        fits = f64_logit(X, y[ok_s], offs[firth][ok_s], firth=firth, slack=10.0)
+    else:
+        names = ["INTERCEPT", *cnames, *model]
+        parts = [np.ones((g.size, 1)), Cs, np.column_stack(gcols)]
+        if "interaction" in mods:
+            names += [f"{m}x{c}" for m in model for c in cnames]
+            parts += [gc[:, None] * Cs for gc in gcols]
+        X = np.concatenate(parts, axis=1)
+        if linear:
+            xtx_inv = np.linalg.inv(X.T @ X)
+            b = xtx_inv @ (X.T @ y[ok_s])
+            res = y[ok_s] - X @ b
+            sigma2 = res @ res / (X.shape[0] - X.shape[1])
+            fits = [(b, np.sqrt(sigma2 * np.diag(xtx_inv)), None)]
+        else:
+            fits = f64_logit(X, y[ok_s], firth=firth, slack=10.0)
+    out = []
+    for b, se, hinv in fits:
+        want = {}
+        for i, n in enumerate(names):
+            z = b[i] / se[i]
+            p = 2.0 * stdtr(nobs - X.shape[1], -abs(z)) if linear \
+                else 2.0 * ndtr(-abs(z))
+            want[n] = (b[i] if linear else math.exp(b[i]), se[i], z, p)
+        if len(model) == 2:
+            mi = [names.index(m) for m in model]
+            if linear:
+                X0 = X[:, [i for i in range(len(names)) if i not in mi]]
+                b0 = np.linalg.lstsq(X0, y[ok_s], rcond=None)[0]
+                rss0 = float(((y[ok_s] - X0 @ b0) ** 2).sum())
+                fstat = ((rss0 - float(res @ res)) / 2) / sigma2
+            else:
+                bm = b[mi]
+                fstat = float(bm @ np.linalg.inv(hinv[np.ix_(mi, mi)]) @ bm) / 2
+            want["GENO_2DF"] = (None, None, fstat, fdtrc(2, nobs, fstat))
+        out.append(want)
+    return out, nobs
+
+
+def hold_to_f64(label, vrows, col, wants, nobs):
+    """`vrows` against the f64 fits `wants` (f64_variant): OBS_CT exact;
+    every row against one of the fits, OR / SE / P and the statistic within
+    float_allowed, BETA within GLM_FLOAT_RTOL of max(|BETA|, SE).  Returns
+    the largest difference as a fraction of what is allowed, under the fit
+    that matches best."""
+    linear = "BETA" in col
+    eff_c, se_c = ("BETA", "SE") if linear else ("OR", "LOG(OR)_SE")
+    stat_c = next(c for c in STAT_COLS if c in col)
+    for r in vrows:
+        assert r[col["OBS_CT"]] == str(nobs), (label, r, nobs)
+
+    def worst(want):
+        w = 0.0
+        for r in vrows:
+            eff, se_, stat, p = want[r[col["TEST"]]]
+            for c, v in ((eff_c, eff), (se_c, se_), (stat_c, stat), ("P", p)):
+                if v is None:
+                    if r[col[c]] != "NA":
+                        return math.inf
+                    continue
+                allowed = float_allowed(c, v)
+                if c == "BETA":
+                    allowed = GLM_FLOAT_RTOL * max(abs(v), se_)
+                w = max(w, abs(float(r[col[c]]) - v) / allowed)
+        return w
+
+    best = min(worst(w) for w in wants)
+    assert best <= 1.0, (label, best, vrows, wants[0])
+    return best
+
+
+def check_joint_rows(prefix, label, mods, path, C, cnames, keep, y, n_rows,
+                     per_variant=4, offs=None):
+    """n_rows rows of a joint-model report (per_variant rows from each of
+    n_rows / per_variant variants spread over it, FIRTH?=Y variants first),
+    each variant held to its numpy f64 fit (f64_variant, hold_to_f64)."""
+    hdr, rows = read_report(path)
+    col = {c: hdr.index(c) for c in hdr}
+    by_vid = {}
+    for r in rows:
+        by_vid.setdefault(r[col["ID"]], []).append(r)
+    ok = [v for v, rs in by_vid.items() if all(r[col["ERRCODE"]] == "." for r in rs)]
+    fi = col.get("FIRTH?")
+    firth_v = [v for v in ok if fi is not None and by_vid[v][0][fi] == "Y"]
+    per_variant = min(per_variant, len(rows) // len(by_vid))
+    n_var = n_rows // per_variant
+    pick = firth_v[: n_var // 2]
+    rest = [v for v in ok if v not in pick]
+    pick += rest[:: max(1, len(rest) // max(1, n_var - len(pick)))][: n_var - len(pick)]
+    worst, checked = 0.0, 0
+    for vid in pick:
+        vrows = by_vid[vid]
+        firth = fi is not None and vrows[0][fi] == "Y"
+        wants, nobs = f64_variant(prefix, vrows, col, mods, C, cnames, keep, y,
+                                  firth, offs)
+        sel = vrows[:: max(1, len(vrows) // per_variant)][:per_variant]
+        if "GENO_2DF" in wants[0] and vrows[-1] not in sel:
+            sel[-1] = vrows[-1]
+        worst = max(worst, hold_to_f64(label, sel, col, wants, nobs))
+        checked += len(sel)
+    assert checked >= n_rows * 3 // 4, (label, checked)
+    log(f"{label}: {checked} rows of {len(pick)} variants ({len(firth_v)} FIRTH?=Y "
+        f"variants in the report) = numpy f64 fits: OBS_CT exact, floats within "
+        f"{worst:.3f} of their tolerance")
+
+
+def run_joint_paths(torch, prefix, tmp, card, n_variants):
+    """Phase 4c: the joint-model paths on a panel of the main one's width
+    and n_variants variants (JOINT_VARIANTS: the host's f64 collinearity
+    rechecks and emit of the genotypic models grow with the variants):
+    genotypic (K2 / K3 with two columns), interaction (K15 / K16, d = 24),
+    dominant with three --condition-list variants (dc = 15) and genotypic
+    cc-residualize (K3 residualized at d = 2); each run writes the logistic
+    and (but the residualized one) the linear report; 64 rows of each
+    against numpy f64 fits.  Then genotypic interaction with five
+    --condition-list variants on 21 of the panel's variants (d = 51: K15 /
+    K16 and K4's block-per-matrix mode on the path; its wall and launches
+    only).  The interaction path
+    is traced.  Returns {label: launches}."""
+    import numpy as np
+
+    both = os.path.join(tmp, "joint.both")
+    write_both(prefix, both)
+    # common variants: those of the first 128 with an ALT frequency in
+    # [0.3, 0.7] (the conditions, then the wide path's 16)
+    codes = pgen_codes(prefix, list(range(128)))
+    freq = np.array([g[g != 3].mean() / 2 for g in codes])
+    common = [v for v in range(128) if 0.3 <= freq[v] <= 0.7]
+    assert len(common) >= 21, len(common)
+    cond_all, cond_v = common[:5], common[:3]
+    cond, cond5, few = (os.path.join(tmp, f"joint.{x}") for x in ("cond", "cond5",
+                                                                  "few"))
+    # the wide path's --extract keeps the five conditioned variants (a
+    # condition outside the variant set is "not found")
+    for path, vs in ((cond, cond_v), (cond5, cond_all), (few, common[:21])):
+        with open(path, "w") as f:
+            f.writelines(f"snp{v}\n" for v in vs)
+    C, y, sex, qt = _panel_design(prefix)
+    cnames = ["SEX"] + [f"PC{i}" for i in range(1, 11)]
+    argvs = joint_argvs(prefix, both, cond, cond5, few)
+    expect = {"genotypic": ("glm_moments_p2", "glm_irls_p2", "chol_small",
+                            "linear_sums"),
+              "interaction": ("glm_moments_wide", "glm_irls_wide", "chol_small",
+                              "linear_sums"),
+              "condition": ("glm_moments", "glm_irls", "chol_small", "linear_sums"),
+              "genotypic_cc_residualize": ("glm_moments_p2", "glm_irls_resid_p2",
+                                           "chol_small"),
+              "wide": ("glm_moments_wide", "glm_irls_wide", "chol_small_wide")}
+    found = {}
+    for label, (argv, exts) in argvs.items():
+        out = os.path.join(tmp, f"joint_{label}")
+        wall, launches = drive(torch, argv + ["--out", out, "--silent"], out)
+        assert all(launches[k] > 0 for k in expect[label]), (label, launches)
+        found[label] = launches
+        errs = {}
+        for e in exts:
+            hdr, rows = read_report(f"{out}.{e}")
+            for r in rows:
+                errs[r[hdr.index("ERRCODE")]] = errs.get(r[hdr.index("ERRCODE")], 0) + 1
+        log(f"{label} path: {N_SAMPLES} samples x "
+            f"{21 if label == 'wide' else n_variants} variants: "
+            f"{wall:.2f}s wall on {card}; ERRCODE {errs}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if label == "wide":  # its kernels' modes are held to plain in 3c
+            continue
+        mods = set(argv[argv.index("--glm") + 1:])
+        keep = np.ones(len(y), bool)
+        Cp, cn = C[:, 1:], list(cnames)
+        if label == "condition":
+            # the conditioned variants' A1 dosages lead the covariates (the
+            # model is dominant, the conditions additive); a sample missing
+            # any of them drops out
+            hdr, rows = read_report(f"{out}.{exts[0]}")
+            a1 = {r[hdr.index("ID")]: r[hdr.index("A1")] == r[hdr.index("ALT")]
+                  for r in rows}
+            ccols = []
+            for v, g in zip(cond_v, pgen_codes(prefix, cond_v)):
+                d = g.astype(float)
+                if not a1[f"snp{v}"]:
+                    d = 2.0 - d
+                keep &= g != 3
+                ccols.append(d * (g != 3))  # additive: no coding modifier
+            Cp, cn = np.column_stack(ccols + [Cp]), [f"snp{v}" for v in cond_v] + cn
+        offs = None
+        if label == "genotypic_cc_residualize":
+            Cn = np.column_stack([np.ones(len(y)), Cp])
+            offs = {f: Cn @ _f64_logit(Cn, y, firth=f)[0] for f in (False, True)}
+        for e in exts:
+            yy = y if "PHENO1" in e else qt
+            check_joint_rows(prefix, f"{label} {e.split('.', 1)[1]} rows", mods,
+                             f"{out}.{e}", Cp, cn, keep, yy, N_CHECK_ROWS,
+                             offs=offs)
+    trace_path(torch, argvs["interaction"][0]
+               + ["--out", os.path.join(tmp, "joint_traced"), "--silent"],
+               "interaction")
+    return found
+
+
+def run_joint_parity(tmp, prefix, n, m):
+    """The joint models on the parity panel, CUDA against CPU by
+    compare_reports (BETA against its SE): each genotype model, the additive
+    interaction design (d = 24, on chr1 and, scaled, on the chrX copy of the
+    modifier parity), --condition-list and genotypic cc-residualize.  The
+    d = 36 design runs in phase 3c only: its CPU run alone would take about
+    a minute here."""
+    from plink_torch import cli
+
+    both, nosex, xprefix = prefix + ".both", prefix + ".nosex.cov", prefix + "_x"
+    cond = prefix + ".cond"
+    with open(cond, "w") as f:
+        f.write("snp3\nsnp11\n")
+    cov = ["--covar", prefix + ".cov"]
+    logi, lin = "PHENO1.glm.logistic.hybrid", "QT1.glm.linear"
+    cases = (
+        ("genotypic", ["--glm", "genotypic", *cov], [logi, lin]),
+        ("hethom", ["--glm", "hethom", "hide-covar", *cov], [logi, lin]),
+        ("dominant_no_firth", ["--glm", "dominant", "no-firth", "hide-covar", *cov],
+         ["PHENO1.glm.logistic", lin]),
+        ("recessive", ["--glm", "recessive", "hide-covar", *cov], [logi]),
+        ("hetonly", ["--glm", "hetonly", "hide-covar", *cov], [logi]),
+        ("interaction", ["--glm", "interaction", "hide-covar", *cov], [logi, lin]),
+        ("condition_recessive", ["--glm", "hide-covar", *cov, "--condition-list",
+                                 cond, "recessive"], [logi, lin]),
+        ("genotypic_cc_residualize", ["--glm", "genotypic", "cc-residualize",
+                                      "hide-covar", *cov], [logi]),
+        ("interaction_xchr1", ["--pfile", xprefix, "--pheno", both, "--covar", nosex,
+                               "--glm", "interaction", "hide-covar", "--xchr-model",
+                               "1"], [logi, lin]),
+    )
+    import numpy as np
+
+    C, y, sex, qt = _panel_design(prefix)
+    cnames = ["SEX"] + [f"PC{i}" for i in range(1, 11)]
+    held = []
+
+    def refit_of(label, args, ext):
+        """The f64 reference of a parity case's variant: a CUDA row that
+        differs from the CPU one must match it at one of the stops an f32
+        fit can take (f64_variant).  The chrX copy's variants take the
+        PCs, then SEX as the chrX pass adds it, over the samples of known
+        sex, with male dosages halved under --xchr-model 1."""
+        rest = args[args.index("--glm") + 1:]
+        mods = set(rest[: next((i for i, a in enumerate(rest) if a.startswith("--")),
+                               len(rest))])
+        Cp, cn, keep = C[:, 1:], list(cnames), np.ones(len(y), bool)
+        if args[0] == "--pfile":  # the chrX copy with the .nosex.cov
+            assert args[1] == xprefix and "--xchr-model" in args, args
+            Cp, cn = C[:, 2:], cnames[1:]
+        if "--condition-list" in args:  # recessive-coded snp3, snp11 lead
+            ccols = []
+            hdr, rows = read_report(f"{os.path.join(tmp, 'joint_cuda_' + label)}.{ext}")
+            a1 = {r[hdr.index("ID")]: r[hdr.index("A1")] == r[hdr.index("ALT")]
+                  for r in rows}
+            for v, g in zip((3, 11), pgen_codes(prefix, [3, 11])):
+                d = g.astype(float) if a1[f"snp{v}"] else 2.0 - g
+                keep &= g != 3
+                ccols.append(np.maximum(d - 1.0, 0.0) * (g != 3))
+            Cp, cn = np.column_stack(ccols + [Cp]), ["snp3", "snp11"] + cn
+        offs = None
+        if "cc-residualize" in mods:
+            Cn = np.column_stack([np.ones(len(y)), Cp])
+            offs = {f: Cn @ _f64_logit(Cn, y, firth=f)[0] for f in (False, True)}
+
+        def refit(rows, col):
+            fi = col.get("FIRTH?")
+            firth = ext.endswith("glm.firth") or (fi is not None and rows[0][fi] == "Y")
+            cp_, cn_, keep_, scale = Cp, cn, keep, None
+            if rows[0][col["#CHROM"]] == "X":
+                cp_, cn_ = np.column_stack([Cp, sex]), cn + ["SEX"]
+                keep_, scale = keep & (sex != 0), np.where(sex == 1, 0.5, 1.0)
+            wants, nobs = f64_variant(prefix, rows, col, mods, cp_, cn_, keep_,
+                                      qt if "QT1" in ext else y, firth, offs,
+                                      scale)
+            hold_to_f64(f"parity {label} {rows[0][col['ID']]}", rows, col, wants,
+                        nobs)
+            held.append(rows[0][col["ID"]])
+
+        return refit
+
+    os.environ["PLINK_TORCH_VB"] = "256"
+    try:
+        for label, args, exts in cases:
+            outs, secs = {}, {}
+            full = args if args[0] == "--pfile" else \
+                ["--pfile", prefix, "--pheno", both] + args
+            for tag, devname in (("cuda", "cuda"), ("cpu", "cpu")):
+                os.environ["PLINK_TORCH_DEVICE"] = devname
+                outs[tag] = os.path.join(tmp, f"joint_{tag}_{label}")
+                t0 = time.perf_counter()
+                rc = cli.main(full + ["--out", outs[tag], "--silent"])
+                assert rc == 0, (label, tag, rc)
+                secs[tag] = time.perf_counter() - t0
+            held.clear()
+            worst = max(compare_reports(f"{outs['cuda']}.{e}", f"{outs['cpu']}.{e}",
+                                        beta_by_se=True, refit=refit_of(label, args, e))
+                        for e in exts)
+            log(f"parity {label} [{n}x{m}]: CUDA = CPU ({' '.join(exts)}; floats "
+                f"within {worst:.2f} of their tolerance; {len(held)} variants "
+                f"whose floats differ held to numpy f64 instead {held}; CUDA "
+                f"{secs['cuda']:.1f}s, CPU {secs['cpu']:.1f}s)")
+    finally:
+        os.environ.pop("PLINK_TORCH_VB", None)
+        os.environ.pop("PLINK_TORCH_DEVICE", None)
+
+
 def run_modifier_parity(tmp, prefix, n, m):
     """The --glm modifiers on the parity panel, CUDA against CPU: every
     report by compare_reports (BETA against its SE), the .id files byte for
@@ -2443,14 +3092,7 @@ def run_modifier_parity(tmp, prefix, n, m):
     from plink_torch import cli
 
     both, nosex = prefix + ".both", prefix + ".nosex.cov"
-    with open(prefix + ".psam") as f, open(prefix + ".qt") as q, \
-            open(both, "w") as g:
-        hdr = f.readline().rstrip("\n").split("\t")
-        q.readline()
-        g.write("#IID\tPHENO1\tQT1\n")
-        for ln, lq in zip(f, q):
-            t = ln.rstrip("\n").split("\t")
-            g.write(f"{t[0]}\t{t[hdr.index('PHENO1')]}\t{lq.split()[1]}\n")
+    write_both(prefix, both)
     with open(prefix + ".cov") as f, open(nosex, "w") as g:
         for ln in f:
             t = ln.rstrip("\n").split("\t")
@@ -2612,6 +3254,16 @@ def run_parity(tmp):
         os.environ.pop("PLINK_TORCH_DEVICE", None)
 
 
+def joint_panel(tmp):
+    """The joint-model paths' panel: 500,000 x JOINT_VARIANTS, made as the
+    main panel (seed 42, its covariates and QT1)."""
+    jprefix = os.path.join(tmp, "jpanel")
+    t0 = time.perf_counter()
+    make_panel(jprefix, N_SAMPLES, JOINT_VARIANTS, 42)
+    log(f"panel {N_SAMPLES}x{JOINT_VARIANTS}: {time.perf_counter() - t0:.1f}s")
+    return jprefix
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", type=int, default=N_VARIANTS,
@@ -2647,6 +3299,10 @@ def main(argv=None):
         stamp("kernels")
         rows = check_kernels(torch, dev, prefix)
         torch.cuda.empty_cache()
+        t0 = stamp("joint-model kernels")
+        rows += check_joint_kernels(torch, dev, prefix)
+        torch.cuda.empty_cache()
+        phase_secs["joint-model kernels"] = time.perf_counter() - t0
         t0 = stamp("--glm modifier kernel modes")
         rows += check_modifier_kernels(torch, dev, prefix)
         torch.cuda.empty_cache()
@@ -2671,6 +3327,10 @@ def main(argv=None):
         xm = run_xm1_paths(torch, prefix, tmp, card, args.variants)
         paths["xm1_logistic"], paths["xm1_linear"] = xm["logistic"], xm["linear"]
         phase_secs["--xchr-model 1 paths"] = time.perf_counter() - t0
+        t0 = stamp("joint-model paths")
+        paths.update(run_joint_paths(torch, joint_panel(tmp), tmp, card,
+                                     JOINT_VARIANTS))
+        phase_secs["joint-model paths"] = time.perf_counter() - t0
         stamp("pair kernels")
         from plink_torch.bench_gen import gen_panel
 
@@ -2734,9 +3394,12 @@ def main(argv=None):
         t0 = stamp("--glm modifier parity")
         run_modifier_parity(tmp, os.path.join(tmp, "small"), *SMALL[:2])
         phase_secs["modifier parity"] = time.perf_counter() - t0
+        t0 = stamp("joint-model parity")
+        run_joint_parity(tmp, os.path.join(tmp, "small"), *SMALL[:2])
+        phase_secs["joint-model parity"] = time.perf_counter() - t0
         stamp("done")
-        log("slice-6 phases: " + ", ".join(f"{k} {v:.1f}s"
-                                           for k, v in phase_secs.items()))
+        log("slice-6/7 phases: " + ", ".join(f"{k} {v:.1f}s"
+                                             for k, v in phase_secs.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lib_names = {"glm_irls_pass": "glm_irls"}

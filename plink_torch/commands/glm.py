@@ -17,15 +17,20 @@ of LogisticRegressionD (:3590), and GlmLinear (2.0/plink2_glm_linear.cc).
 
 The device passes are ops/glm.py: kernels K2-K4 (logistic; K3's
 residualized design for cc-/firth-residualize, K2/K3's scaled design and
-K14 for --xchr-model 1) and K6 (the linear plane sums, solved per variant
-in f64 on the host; run twice more with s- and s^2-scaled tables under
+K14 for --xchr-model 1; K2/K3 with two genotype columns for genotypic and
+hethom; K15/K16 for `interaction`, whose G x covariate columns carry a
+covariate factor, and for any design too wide for K2/K3) and K6 (the
+linear plane sums, solved per variant in f64 on the host for every model
+and interaction design; run twice more with s- and s^2-scaled tables under
 --xchr-model 1); the A1 choice counts with K1.  Rows the f32 device fit
 cannot resolve to reference precision are refitted per variant in f64 on
-the host, as in plink_tpu.
+the host, as in plink_tpu; on panels of at most 65,536 samples every row
+of a joint (GENO_2DF) model is.  --condition / --condition-list add the
+named variants' A1 dosages as leading covariates.
 
-Not yet ported (each raises NotPortedError): dosage, the genotype models
-(genotypic, hethom, dominant, recessive, hetonly), interaction, --condition,
-permutation (aperm, mperm=, permute-qt-residuals) and local covariates.
+Not yet ported (each raises NotPortedError): dosage, permutation (aperm,
+mperm=, permute-qt-residuals), local covariates, and logistic designs
+wider than d = 96 (the CUDA kernels' limit).
 """
 
 from __future__ import annotations
@@ -210,19 +215,92 @@ _GLM_MODEL_MODS = {"genotypic", "hethom", "dominant", "recessive", "hetonly"}
 # explicitly ('firth-fallback'); perm-count, no-x-sex (read by
 # _ploidy_groups), skip-invalid-pheno and cols= are accepted as plink_tpu
 # accepts them
-_GLM_PORTED_MODS = {
-    "hide-covar", "firth", "no-firth", "firth-fallback", "intercept", "log10",
-    "omit-ref", "sex", "allow-no-covars", "pheno-ids", "cc-residualize",
-    "firth-residualize", "qt-residualize", "single-prec-cc", "perm-count",
-    "no-x-sex", "skip-invalid-pheno",
+_GLM_PORTED_MODS = _GLM_MODEL_MODS | {
+    "interaction", "hide-covar", "firth", "no-firth", "firth-fallback",
+    "intercept", "log10", "omit-ref", "sex", "allow-no-covars", "pheno-ids",
+    "cc-residualize", "firth-residualize", "qt-residualize", "single-prec-cc",
+    "perm-count", "no-x-sex", "skip-invalid-pheno",
 }
 # the rest of what plink_tpu's --glm accepts: later slices of the port
-_GLM_LATER_MODS = _GLM_MODEL_MODS | {"interaction", "aperm",
-                                     "permute-qt-residuals"}
+_GLM_LATER_MODS = {"aperm", "permute-qt-residuals"}
+# widest logistic design (covariates incl. intercept + genotype columns)
+# the CUDA kernels take (ops/glm.py WIDE_MAX_D)
+_MAX_LOGISTIC_D = 96
 _GLM_LATER_PREFIXES = ("mperm=", "local-covar=", "local-psam=", "local-pvar=")
 _GLM_KNOWN_UNSUPPORTED_MODS = {
     "zs", "local-omit-last", "local-haps", "local-cats",
 }
+
+
+def _load_condition(ds: Dataset, cfg, a1_is_alt, log: RunLogger):
+    """--condition / --condition-list (plink_tpu _load_condition; ref
+    GlmCondition, 2.0/plink2_glm.cc:1260): the A1 dosage of each named
+    variant as a leading quantitative covariate named by its ID, ahead of
+    the --covar columns.  'dominant' caps the dosage at 1, 'recessive' maps
+    it to max(dosage - 1, 0) (both refused on haploid variants); haploid
+    dosages other than chrX are halved.  Returns (names, data [n_raw, k]
+    f64, nonmissing [n_raw] bool: every named variant called)."""
+    if cfg.condition:
+        want = [cfg.condition[0]]
+        mods = set(cfg.condition[1:])
+        flagname = "--condition"
+    else:
+        with open(cfg.condition_list[0]) as f:
+            want = f.read().split()
+        mods = set(cfg.condition_list[1:])
+        flagname = "--condition-list"
+    dominant = "dominant" in mods
+    recessive = "recessive" in mods
+    vid_to_idx: dict = {}
+    dups = set()
+    for i in np.flatnonzero(ds.variant_mask):
+        v = str(ds.vi.vid[i])
+        if v in vid_to_idx:
+            dups.add(v)
+        vid_to_idx[v] = i
+    names, colvals = [], []
+    nonmiss_all = np.ones(ds.raw_sample_ct, bool)
+    skip_ct = 0
+    haploid = ds.is_haploid_all()
+    is_x = ds.vi.chrom == X_CODE
+    seen = set()
+    for v in want:
+        if v in seen:
+            continue
+        seen.add(v)
+        if v in dups:
+            raise ValueError(
+                f"{flagname} variant ID '{v}' appears multiple times in dataset.")
+        if v not in vid_to_idx:
+            skip_ct += 1
+            continue
+        i = vid_to_idx[v]
+        codes = _unpack_np(ds.reader.read_packed(i, 1))[0][: ds.raw_sample_ct]
+        nm = codes != 3
+        d = codes.astype(np.float64)
+        if not a1_is_alt[i]:
+            d = 2.0 - d
+        d[~nm] = 0.0
+        if (dominant or recessive) and haploid[i]:
+            raise ValueError(f"{flagname} 'dominant'/'recessive' cannot be used "
+                             "with haploid variants.")
+        if dominant:
+            d = np.minimum(d, 1.0)
+        elif recessive:
+            d = np.maximum(d - 1.0, 0.0)
+        if haploid[i] and not is_x[i]:
+            d = d * 0.5
+        names.append(v)
+        colvals.append(d)
+        nonmiss_all &= nm
+    if skip_ct:
+        log.log(f"Warning: {skip_ct} {flagname} variant ID"
+                f"{'s' if skip_ct != 1 else ''} not found.")
+    ct = len(names)
+    log.log(f"--condition[-list]: {ct} covariate{'s' if ct != 1 else ''} added.")
+    data = (np.column_stack(colvals) if colvals
+            else np.zeros((ds.raw_sample_ct, 0)))
+    return names, data, nonmiss_all
 
 
 def _hap_scale(ds) -> np.ndarray:
@@ -247,8 +325,8 @@ def _ploidy_groups(ds, cfg, mods, smask, cov_names, cov_data, log):
       dosages (0..1 coding, PLINK 1.x default; ref GetGenoDosages male
       halving under !xchr_model_2).
 
-    The diploid-only genotype models (plink_tpu's _GLM_MODEL_MODS branch)
-    are a later slice: run_glm refuses them before this runs.
+    - 'dominant'/'recessive'/'hetonly'/'genotypic'/'hethom' exclude the
+      haploid chromosomes (chrY, MT) and run one pass over the rest.
 
     Returns None when a single pass suffices, else a list of
     (vmask_g, smask_g, cov_names_g, cov_data_g[, gmul_g]) tuples where the
@@ -263,6 +341,19 @@ def _ploidy_groups(ds, cfg, mods, smask, cov_names, cov_data, log):
     sexnm_ct = int((smask & (sex != 0)).sum())
     n_inc = int(smask.sum())
     x_fully_diploid = (male_ct == 0) and (sexnm_ct == n_inc) and xchr_model
+
+    if mods & _GLM_MODEL_MODS:
+        # diploid-only models: drop the haploid chromosomes (chrX kept only
+        # in the fully-diploid all-female case)
+        drop = ds.is_haploid_all().copy()
+        if x_fully_diploid:
+            drop &= ~is_x
+        if (vmask & drop).any():
+            ct = int((vmask & drop).sum())
+            log.log(f"--glm: Excluding {ct} non-diploid variant"
+                    f"{'s' if ct != 1 else ''} (diploid-only genotype model).")
+            return [(vmask & ~drop, smask, cov_names, cov_data)]
+        return None
 
     has_x = bool((vmask & is_x).any())
     has_y = bool((vmask & is_y).any())
@@ -496,6 +587,11 @@ def run_glm(ds: Dataset, cfg, log: RunLogger) -> None:
     freqs = alt_allele_freqs(ds, founders_only=not cfg.nonfounders)
     a1_is_alt = np.ones(ds.raw_variant_ct, bool) if omit_ref else ~(freqs > 0.5)
     mark("A1 counts")
+    if cfg.condition or cfg.condition_list:
+        cnames, cdata, cnonmiss = _load_condition(ds, cfg, a1_is_alt, log)
+        cov_names = cnames + cov_names
+        cov_data = np.concatenate([cdata, cov_data], axis=1)
+        cov_nonmiss = cov_nonmiss & cnonmiss
     if "sex" in mods:
         cov_names = cov_names + ["SEX"]
         cov_data = np.concatenate(
@@ -662,15 +758,20 @@ def _glm_linear(
     vb = _auto_vb(-(-n // 4) * 4)
     c = np.concatenate([np.ones((n, 1)), cov_data[inc]], axis=1)
 
-    # predictors: const, genotype predictors, covariates; each is (name,
-    # plane weights (wH, wA, wV) when A1 is ALT, when A1 is REF, c column)
+    # predictors: const, genotype predictors, covariates, then (interaction)
+    # each genotype predictor times each covariate; each is (name, plane
+    # weights (wH, wA, wV) when A1 is ALT, when A1 is REF, c column)
     pred_specs = [("CONST", (0, 0, 1), (0, 0, 1), 0)]
     pred_specs += [(nm_, wa, wr, 0) for nm_, wa, wr in geno_preds]
     pred_specs += [(cn, (0, 0, 1), (0, 0, 1), j + 1)
                    for j, cn in enumerate(cov_names)]
+    if "interaction" in mods:
+        pred_specs += [(f"{g}x{cn}", wa, wr, j + 1) for g, wa, wr in geno_preds
+                       for j, cn in enumerate(cov_names)]
     d = len(pred_specs)
-    geno_idx = list(range(1, 1 + len(geno_preds)))
-    is_geno = [p in geno_idx for p in range(d)]
+    geno_idx = list(range(1, 1 + len(geno_preds)))  # the joint test's columns
+    # every column with a genotype factor (main effects and interactions)
+    is_geno = [wa != (0, 0, 1) or wr != (0, 0, 1) for _, wa, wr, _ in pred_specs]
     tests = [s_[0] for s_ in pred_specs[1:]]
     if hide_covar:
         tests = [t for t in tests if t not in cov_names]
@@ -679,7 +780,8 @@ def _glm_linear(
     if "intercept" in mods:
         tests = ["INTERCEPT"] + tests
     log10 = "log10" in mods
-    exact_s_fn = _exact_s_builder(ds, inc, c, a1_is_alt, geno_preds, gmul)
+    geno_desc = [sp for sp, g in zip(pred_specs, is_geno) if g]
+    exact_s_fn = _exact_s_builder(ds, inc, c, a1_is_alt, geno_desc, gmul)
 
     # shared f64 blocks (role of RegressionNmPrecomp)
     ctc_full = c.T @ c
@@ -719,9 +821,16 @@ def _glm_linear(
         header_out.append(header)
     mark("pack+upload")
 
+    # K6 sums each variant's hom-A1 plane (hom-REF where A1 is REF), so
+    # every model is assembled from its A1 weights alone
+    a1_ref = np.zeros(pd.nblocks * pd.vb, bool)
+    a1_ref[:M] = ~a1_is_alt
+    a1_ref = torch.from_numpy(a1_ref.reshape(pd.nblocks, pd.vb)).to(ds.device)
+
     def scan(ccfl_, cy_, y2_):
         return {k: v.cpu().numpy().astype(np.float64)
-                for k, v in linear_sums_scan(pd.packed, ccfl_, cy_, y2_).items()}
+                for k, v in linear_sums_scan(pd.packed, ccfl_, cy_, y2_,
+                                             a1_ref).items()}
 
     # powers[k]: the plane sums with the per-sample table scaled by s^k, and
     # the matching sample-set totals (plane * s * c_j c_k == plane *
@@ -756,7 +865,6 @@ def _glm_linear(
             if pw == 0:
                 yy_v = yy_full - sums["myy"]
         nm = plane[0][2][:, 0, 0]
-        flip = ~a1_is_alt[v0 + ia]
 
         def cross(w1, w2, j1, j2, pw=0):
             # plane products collapse: H*H = H, H*V = H, A*V = A, H*A = 0
@@ -777,30 +885,27 @@ def _glm_linear(
         xtx = np.zeros((b, d, d))
         xty = np.zeros((b, d))
         for p in range(d):
-            _, wa1, wr1, j1 = pred_specs[p]
+            _, wa1, _, j1 = pred_specs[p]
             for q in range(p, d):
-                _, wa2, wr2, j2 = pred_specs[q]
+                _, wa2, _, j2 = pred_specs[q]
                 pw = (is_geno[p] + is_geno[q]) if scaled else 0
-                val = np.where(flip, cross(wr1, wr2, j1, j2, pw),
-                               cross(wa1, wa2, j1, j2, pw))
+                val = cross(wa1, wa2, j1, j2, pw)
                 xtx[:, p, q] = val
                 xtx[:, q, p] = val
             pwy = int(is_geno[p]) if scaled else 0
-            xty[:, p] = np.where(flip, xy(wr1, j1, pwy), xy(wa1, j1, pwy))
+            xty[:, p] = xy(wa1, j1, pwy)
 
         # A1 dosage sums for A1_FREQ / const-allele detection (one and two
         # genotype factors: s- and s^2-weighted when scaled)
         pw1, pw2 = (1, 2) if scaled else (0, 0)
-        g1 = np.where(flip, cross((-1, -2, 2), (0, 0, 1), 0, 0, pw1),
-                      cross((1, 2, 0), (0, 0, 1), 0, 0, pw1))
-        gg1 = np.where(flip, cross((-1, -2, 2), (-1, -2, 2), 0, 0, pw2),
-                       cross((1, 2, 0), (1, 2, 0), 0, 0, pw2))
+        g1 = cross((1, 2, 0), (0, 0, 1), 0, 0, pw1)
+        gg1 = cross((1, 2, 0), (1, 2, 0), 0, 0, pw2)
 
         # haploid genotype coding 0..1: scale geno rows/cols of the
         # sufficient statistics (s for cross terms, s^2 for geno-geno)
         hs_b = hs_all[v0 + ia]
         if (hs_b != 1.0).any():
-            for p in geno_idx:
+            for p in np.flatnonzero(is_geno):
                 xtx[:, p, :] *= hs_b[:, None]
                 xtx[:, :, p] *= hs_b[:, None]
                 xty[:, p] *= hs_b
@@ -982,8 +1087,9 @@ def _collinearity_err(s, nm_i):
 
 
 def _exact_s_builder(ds, inc, c, a1_is_alt, preds=(_ADD,), gmul=None):
-    """Returns a per-variant callback computing exact f64 X^T X for the
-    borderline-collinearity recheck."""
+    """Returns a per-variant callback computing exact f64 X^T X of [c |
+    preds] for the borderline-collinearity recheck (`preds` as in
+    _variant_design_f64)."""
     def exact_s(vidx):
         X, _ = _variant_design_f64(ds, inc, c, bool(a1_is_alt[vidx]), vidx,
                                    preds, gmul)
@@ -1076,9 +1182,10 @@ def _variant_design_f64(ds, inc, c, alt_is_a1, vidx, preds=(_ADD,),
                         gmul=None):
     """Host f64 design matrix [nm, d] for one variant: [c | G_1..G_P] with
     the flip-resolved genotype predictors (name, plane weights when A1 is
-    ALT, when A1 is REF); haploid variants scale 0.5 like the device
-    kernels, and `gmul` (raw-sample genotype multiplier, --xchr-model 1)
-    multiplies each sample's predictors."""
+    ALT, when A1 is REF[, c column that multiplies it (interaction), 0 for
+    none]); haploid variants scale 0.5 like the device kernels, and `gmul`
+    (raw-sample genotype multiplier, --xchr-model 1) multiplies each
+    sample's predictors."""
     codes = _unpack_np(ds.reader.read_packed(vidx, 1))[0][: ds.raw_sample_ct][inc]
     val = codes != 3
     hp = (codes == 1).astype(np.float64)
@@ -1086,11 +1193,14 @@ def _variant_design_f64(ds, inc, c, alt_is_a1, vidx, preds=(_ADD,),
     vp = val.astype(np.float64)
     scale = float(_hap_scale(ds)[vidx])
     cols = [c]
-    for _nm, wa, wr in preds:
+    for pred in preds:
+        wa, wr = pred[1:3]
         w = wa if alt_is_a1 else wr
         g = (w[0] * hp + w[1] * ap + w[2] * vp) * scale
         if gmul is not None:
             g = g * gmul[inc]
+        if len(pred) > 3 and pred[3]:
+            g = g * c[:, pred[3]]
         cols.append(g[:, None])
     return np.concatenate(cols, axis=1)[val], val
 
@@ -1183,7 +1293,7 @@ def _firth_f64(X, yv, offset=None):
             return None
         winv = np.where(w < w.max() * 1e-24, 0.0, 1.0 / w)
         h0inv = (u * winv) @ vt
-        hd = v * ((X @ h0inv) * X).sum(axis=1)  # x_s^T h0inv x_s, vectorised
+        hd = v * ((X @ h0inv) * X).sum(axis=1)  # x_s^T h0inv x_s
         ustar = X.T @ (yv - p + hd * (0.5 - p))
         # dethh = |prod(singular values)| (HalfSymmInvertedDet)
         with np.errstate(divide="ignore"):
@@ -1286,10 +1396,15 @@ def _glm_logistic(
     `sink` appends per-variant row strings to it and the header to
     `header_out` (the per-ploidy passes share one report).
 
-    cc-/firth-residualize fit the residualized design (K3, dc = 0) with the
-    null model's linear predictor as offset; `gmul` (raw-sample genotype
-    multiplier, --xchr-model 1) runs K2/K3 in their scaled modes and K14
-    for the allele-observation counts."""
+    The design is [1 | covariates | G_1..G_P]: the model's genotype
+    predictors (one, or two for genotypic / hethom), then under
+    'interaction' each of them times each covariate (K15 / K16 then carry
+    those columns' covariate factor).  cc-/firth-residualize fit the
+    residualized design (K3, dc = 0, d = P) with the null model's linear
+    predictor as offset; `gmul` (raw-sample genotype multiplier,
+    --xchr-model 1) runs the kernels in their scaled modes and K14 for the
+    allele-observation counts.  A joint model (GENO_2DF) adds the Wald test
+    of its P main effects."""
     from ..ops.glm import (firth_irls_block, glm_logistic_scan,
                            glm_resid_scan, resid_irls_block, xm1_stats_scan)
 
@@ -1297,11 +1412,26 @@ def _glm_logistic(
     resid = "cc-residualize" in mods or "firth-residualize" in mods
     single_prec = "single-prec-cc" in mods
     dev = ds.device
+    geno_preds, joint_name = _geno_predictors(mods)
+    n_main = len(geno_preds)
     inc = np.flatnonzero(smask)
     n = inc.size
     y = ydata[inc].astype(np.float64)  # 0 = control, 1 = case
     dc = len(cov_names) + 1
-    d = dc + 1
+    # kernel genotype predictors: the main effects, then the G x C
+    # interactions; each is (name, plane weights for A1 = ALT, for A1 = REF,
+    # covariate column that multiplies it).  Design [1 | covariates | G_1..G_P]
+    kern_preds = [(nm_, wa, wr, 0) for nm_, wa, wr in geno_preds]
+    if "interaction" in mods:
+        kern_preds += [(f"{nm_}x{cn}", wa, wr, j + 1) for nm_, wa, wr in geno_preds
+                       for j, cn in enumerate(cov_names)]
+    P = len(kern_preds)
+    covj = tuple(sp[3] for sp in kern_preds)
+    d = dc + P
+    if d > _MAX_LOGISTIC_D:
+        raise NotPortedError(
+            f"--glm: a logistic design of width d = {d} is not yet ported to "
+            f"plink_torch (its CUDA kernels take d <= {_MAX_LOGISTIC_D}).")
     c = np.concatenate([np.ones((n, 1)), cov_data[inc]], axis=1)
     vb = _auto_vb(-(-n // 4) * 4)
     mark = _phase_timer(log)
@@ -1310,7 +1440,7 @@ def _glm_logistic(
         offs_log, offs_fir = _null_offsets(c, y, "cc-residualize" in mods,
                                            always_firth, no_firth)
         mark("null model fits")
-    exact_s_fn = _exact_s_builder(ds, inc, c, a1_is_alt, gmul=gmul)
+    exact_s_fn = _exact_s_builder(ds, inc, c, a1_is_alt, kern_preds, gmul)
     if vmask is None:
         vmask = ds.variant_mask
     standalone = sink is None
@@ -1340,33 +1470,44 @@ def _glm_logistic(
     firth_col = not always_firth and not no_firth
     log10 = "log10" in mods
     p_col = "NEG_LOG10_P" if log10 else "P"
+    stat_col = "Z_OR_F_STAT" if joint_name else "Z_STAT"
     header = (
         "#CHROM\tPOS\tID\tREF\tALT\tPROVISIONAL_REF?\tA1\tOMITTED\tA1_FREQ\t"
         + ("FIRTH?\t" if firth_col else "")
-        + f"TEST\tOBS_CT\tOR\tLOG(OR)_SE\tZ_STAT\t{p_col}\tERRCODE\n"
+        + f"TEST\tOBS_CT\tOR\tLOG(OR)_SE\t{stat_col}\t{p_col}\tERRCODE\n"
     )
     if header_out is not None:
         header_out.append(header)
+    # report order: INTERCEPT, main effects, covariates, interactions, joint
     tests = ["INTERCEPT"] if "intercept" in mods else []
-    tests.append("ADD")
+    tests += [sp[0] for sp in kern_preds[:n_main]]
     if not hide_covar:
         tests += list(cov_names)
-    test_pred = {"INTERCEPT": 0, "ADD": dc}
+    tests += [sp[0] for sp in kern_preds[n_main:]]
+    if joint_name:
+        tests.append(joint_name)
+    test_pred = {"INTERCEPT": 0}
+    for p_, sp in enumerate(kern_preds):
+        test_pred[sp[0]] = dc + p_
     for j, cn in enumerate(cov_names):
         test_pred[cn] = 1 + j
 
-    # plane weights of every block: the model predictor, and (moments pass)
-    # an always-additive copy for the A1-dosage separation/const statistics
+    # plane weights of every block: the model's predictors [nb, vb, P, 3],
+    # and (moments pass) an always-additive copy for the A1-dosage
+    # separation/const statistics
     alt_pad_all = np.zeros(pd.nblocks * pd.vb, bool)
     alt_pad_all[:M] = a1_is_alt
     alt_b = alt_pad_all.reshape(pd.nblocks, pd.vb)
+    w_alt = np.array([sp[1] for sp in kern_preds], np.float32)  # [P, 3]
+    w_ref = np.array([sp[2] for sp in kern_preds], np.float32)
     w_add = np.where(alt_b[:, :, None], np.array(_ADD[1], np.float32),
                      np.array(_ADD[2], np.float32))  # [nb, vb, 3]
     # haploid genotype coding is 0..1 (dosage halved; z/p invariant, OR/SE
     # match the reference's per-copy scale)
     hs_pad = np.ones(pd.nblocks * pd.vb, np.float32)
     hs_pad[:M] = _hap_scale(ds)
-    gw_all = (w_add * hs_pad.reshape(pd.nblocks, pd.vb)[:, :, None])[:, :, None, :]
+    gw_all = (np.where(alt_b[:, :, None, None], w_alt, w_ref)
+              * hs_pad.reshape(pd.nblocks, pd.vb)[:, :, None, None])
     gwm_all = np.concatenate([gw_all, w_add[:, :, None, :]], axis=2)
     gw_d = torch.from_numpy(np.ascontiguousarray(gw_all)).to(dev)
     gwm_d = torch.from_numpy(np.ascontiguousarray(gwm_all)).to(dev)
@@ -1382,9 +1523,9 @@ def _glm_logistic(
             firth=resid_firth_scan, sscale=sscale_d)
     else:
         outs = glm_logistic_scan(pd.packed, gw_d, gwm_d, feat_d,
-                                 firth=always_firth, sscale=sscale_d)
+                                 firth=always_firth, sscale=sscale_d, covj=covj)
     (momy_d, mstats_d, screen_d, beta_d, se_d, conv_d, fail_d, unf_d,
-     obs_d, invalid_d, _hinv_d) = outs
+     obs_d, invalid_d, hinv_d) = outs
     # fetch the small per-variant results; the moments stay on the device
     # and a block's slice is fetched only for screen-flagged rows
     mstats_all = mstats_d.cpu().numpy().astype(np.float64)
@@ -1396,9 +1537,13 @@ def _glm_logistic(
     unf_all = unf_d.cpu().numpy()
     obs_all = obs_d.cpu().numpy()
     invalid_all = invalid_d.cpu().numpy()
+    # the joint test reads the covariance of every row
+    hinv_all = hinv_d.cpu().numpy().astype(np.float64) if joint_name else None
     if resid:
         beta_all = np.stack([_widen(b_, dc, d) for b_ in beta_all])
         se_all = np.stack([_widen(s_, dc, d) for s_ in se_all])
+        if joint_name:
+            hinv_all = np.stack([_widen(h_, dc, d) for h_ in hinv_all])
     xm1 = None
     if gmul is not None:
         # --xchr-model 1 allele observations (K14): allele_obs = 2 sum(s),
@@ -1434,7 +1579,11 @@ def _glm_logistic(
                             out[k_] = True
         return out
 
-    keep_cols = list(range(dc)) + [dc + 1]
+    keep_cols = list(range(dc)) + list(range(dc + 1, dc + 1 + P))
+    # small panels: every row of a joint model is refitted in f64 on the
+    # host, so the joint Wald statistic comes from the reference's
+    # double-precision fit (plink_tpu _glm_logistic :2009-2014)
+    refit_all = bool(joint_name) and n <= 65536
     for bi in range(pd.nblocks):
         v0 = bi * pd.vb
         vct = min(pd.vb, M - v0)
@@ -1462,21 +1611,22 @@ def _glm_logistic(
         obs = obs_all[bi]
         obs_f = obs.astype(np.float64)
 
+        mac = np.minimum(g_tot, 2.0 * obs_f - g_tot)
+
         def _extreme(beta_a, se_a, conv_a, fail_a, unf_a, base):
             # rows whose f32 trajectory may diverge from the reference's f64
             # LogisticRegressionD/FirthRegressionD: quasi-separated fits
             # (huge |beta| or SE on the genotype predictor), non-converged
-            # rows, and low minor-dosage-count rows, whose f32 SE noise
-            # exceeds the 1e-3 parity budget
+            # rows, and low minor-count rows, whose f32 SE noise exceeds
+            # the 1e-3 parity budget
             with np.errstate(invalid="ignore"):
                 bm = np.abs(beta_a[:, dc:]).max(axis=1)
                 sm = se_a[:, dc:].max(axis=1)
-            mac = np.minimum(g_tot, 2.0 * obs_f - g_tot)
             ext = (bm > 5.0) | (sm > 5.0) | (mac < 30.0) | fail_a | unf_a | ~conv_a
             return ext & base & ~pre_bad
 
         refined = np.zeros(pd.vb, bool)
-        hfull = np.zeros((pd.vb, d, d))
+        hfull = hinv_all[bi].copy() if joint_name else np.zeros((pd.vb, d, d))
 
         def _refine(rows, firth_mode, beta_a, se_a, hfull_a, conv_a, fail_a,
                     unf_a):
@@ -1489,7 +1639,7 @@ def _glm_logistic(
             for i in rows:
                 vidx = v0 + i
                 X, val = _variant_design_f64(
-                    ds, inc, c, bool(a1_is_alt[vidx]), vidx, gmul=gmul)
+                    ds, inc, c, bool(a1_is_alt[vidx]), vidx, kern_preds, gmul)
                 if resid:
                     Xg = X[:, dc:] - X[:, dc:].mean(axis=0)
                     offv = (offs_fir if firth_mode else offs_log)[val]
@@ -1528,6 +1678,10 @@ def _glm_logistic(
             rows = np.flatnonzero(_extreme(beta, se, conv, fail, unf,
                                            in_block & ~const))
             _refine(rows, True, beta, se, hfull, conv, fail, unf)
+            if refit_all:
+                extra = in_block & ~const & ~pre_bad & ~refined & ~fail
+                _refine(np.flatnonzero(extra), True, beta, se, hfull, conv,
+                        fail, unf)
         else:
             # separation pre-check over BOTH alleles, REF first (ref loop
             # "Does any genotype column have zero case or zero control
@@ -1553,6 +1707,10 @@ def _glm_logistic(
                 _extreme(beta, se, conv, fail, unf, in_block & ~const & ~sep)
             )
             _refine(rows, False, beta, se, hfull, conv, fail, unf)
+            if refit_all:
+                extra = in_block & ~const & ~pre_bad & ~refined & ~fail & ~sep
+                _refine(np.flatnonzero(extra), False, beta, se, hfull, conv,
+                        fail, unf)
             if no_firth:
                 fail = fail | sep  # SEPARATION errcode path
             else:
@@ -1570,12 +1728,14 @@ def _glm_logistic(
                         fb, fse, _, fconv, ffail, funf, _fobs, fhfull = (
                             x.cpu().numpy() for x in firth_irls_block(
                                 pd.packed[bi], gw_d[bi], feat_d, need_d,
-                                sscale_d))
+                                sscale_d, covj))
                     fb = fb.astype(np.float64)
                     fse = fse.astype(np.float64)
                     fhfull = fhfull.astype(np.float64)
                     fconv, ffail, funf = fconv.copy(), ffail.copy(), funf.copy()
                     fext = _extreme(fb, fse, fconv, ffail, funf, need_firth)
+                    if refit_all:
+                        fext |= need_firth & ~pre_bad
                     _refine(np.flatnonzero(fext), True, fb, fse, fhfull,
                             fconv, ffail, funf)
                     m = need_firth
@@ -1590,6 +1750,9 @@ def _glm_logistic(
         rr = np.flatnonzero(refined)
         if rr.size:
             invalid[rr] = _invalid_rows(hfull, rr)
+        fstat, logp_joint = _joint_wald(beta, hfull, conv & ~fail & ~const
+                                        & ~invalid, dc, n_main, obs) \
+            if joint_name else (None, None)
         with np.errstate(divide="ignore", invalid="ignore"):
             # A1_FREQ = A1 dosage / allele observations; under --xchr-model
             # 1 with the male-adjusted denominator (ref line 5753)
@@ -1598,23 +1761,50 @@ def _glm_logistic(
         _emit_logistic_rows(
             sink, v0, ia, beta, se, fail, unf, obs, a1f, const, used_firth,
             firth_col, tests, test_pred, chrom, provref, a1, omitted, vi, d,
-            no_firth, pre_err, invalid, log10, sep_allele,
+            no_firth, pre_err, invalid, log10, sep_allele, joint_name, fstat,
+            logp_joint,
         )
     mark("host postprocess+emit")
     if standalone:
         _write_sink(f"{cfg.out}.{pheno_name}.{suffix}", header, sink, log)
 
 
+def _joint_wald(beta, hfull, ok, dc, n_main, obs):
+    """Joint Wald test of the P main genotype effects (plink_tpu
+    _glm_logistic :2112-2133; ref the constraint set of plink2_glm.cc:2867,
+    LinearHypothesisChisq + FstatToLnP(chisq / q, q, sample_obs_ct)):
+    F = b^T Sigma^-1 b / q over the rows in `ok`, Sigma inverted as plink2
+    without LAPACK does (_pinv_nolapack).  Returns (F, ln p), NaN
+    elsewhere."""
+    fstat = np.full(beta.shape[0], np.nan)
+    logp = np.full(beta.shape[0], np.nan)
+    bm = beta[:, dc : dc + n_main]
+    cov_m = hfull[:, dc : dc + n_main, dc : dc + n_main]
+    for i in np.flatnonzero(ok):
+        ci = _pinv_nolapack(cov_m[i])
+        if ci is None:
+            continue
+        w_ = float(bm[i] @ ci @ bm[i])
+        if w_ >= 0:
+            fstat[i] = w_ / n_main
+    okf = np.isfinite(fstat)
+    if okf.any():
+        logp[okf] = np.asarray(f_logsf(fstat[okf], float(n_main),
+                                       obs[okf].astype(np.float64)))
+    return fstat, logp
+
+
 def _emit_logistic_rows(
     sink, v0, ia, beta, se, fail, unf, obs, a1f, const, used_firth,
     firth_col, tests, test_pred, chrom, provref, a1, omitted, vi, d, no_firth,
-    pre_err, invalid, log10, sep_allele,
+    pre_err, invalid, log10, sep_allele, joint_name=None, fstat=None,
+    logp_joint=None,
 ):
     with np.errstate(divide="ignore", invalid="ignore"):
         zstat = np.where(se > 0, beta / se, np.nan)
     # ln p only for columns that reach the report (hide-covar emits 1-2 of
     # ~14 design columns; the host continued fraction is not free)
-    need_cols = sorted({test_pred[t] for t in tests})
+    need_cols = sorted({test_pred[t] for t in tests if t != joint_name})
     logp = np.full_like(zstat, np.nan)
     logp[:, need_cols] = np.asarray(
         zstat_logp_2sided(np.nan_to_num(zstat[:, need_cols])))
@@ -1658,6 +1848,16 @@ def _emit_logistic_rows(
         ok_err = "UNFINISHED" if unf[i] else ERR_OK
         fcol = f"{firth_str}\t" if firth_col else ""
         for tname in tests:
+            if tname == joint_name:
+                if bad or not np.isfinite(fstat[i]):
+                    ec = errcode if bad else "INVALID_RESULT"
+                    lines.append(
+                        f"{meta}\t{fcol}{tname}\t{nm_i}\tNA\tNA\tNA\tNA\t{ec}\n")
+                else:
+                    lines.append(
+                        f"{meta}\t{fcol}{tname}\t{nm_i}\tNA\tNA\t{g6(fstat[i])}\t"
+                        f"{_p_str(logp_joint[i], log10)}\t{ok_err}\n")
+                continue
             pi = test_pred[tname]
             if bad or not np.isfinite(beta[i, pi]) or not np.isfinite(se[i, pi]):
                 ec = errcode if bad else "INVALID_RESULT"

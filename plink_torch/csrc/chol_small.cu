@@ -11,9 +11,15 @@
 //
 // Bound: latency.  ~d^3/2 flops per matrix (1.5 MFLOP for 2,048 matrices of
 // d = 13), far below any throughput limit; the card is mostly idle for the
-// few microseconds it runs.  Design: one thread per matrix, the factor and
-// its inverse in per-thread (local) arrays sized by a compile-time bound on
-// d, no shared memory and no synchronisation.
+// few microseconds it runs.  Design, d <= 48: one thread per matrix, the
+// factor and its inverse in per-thread (local) arrays sized by a
+// compile-time bound on d, no shared memory and no synchronisation.
+// 48 < d <= 96 (the wide --glm interaction designs): one 128-thread block
+// per matrix with the packed factor and its inverse in shared memory (2 x
+// 18.6 KB at d = 96); each column of the factor is one pivot and a
+// parallel update of the rows below it, each column of L^-1 one thread, each
+// entry of the inverse one thread, the triangular solves one thread, every
+// sum in the one-thread kernel's order.  Wider designs are refused.
 #include "common.cuh"
 
 namespace {
@@ -105,6 +111,100 @@ __global__ void chol_small_kernel(const float* __restrict__ h, int vb, int d,
   }
 }
 
+constexpr int kCholWideMax = 96;
+constexpr int kCholWideThreads = 128;
+
+__global__ void __launch_bounds__(kCholWideThreads)
+chol_wide_kernel(const float* __restrict__ h, int d,
+                 const float* __restrict__ rhs, float* __restrict__ x,
+                 float* __restrict__ inv, float* __restrict__ logdet) {
+  constexpr int T = kCholWideMax * (kCholWideMax + 1) / 2;
+  __shared__ float L[T];  // lower triangle, row-major: (i, j) at i(i+1)/2 + j
+  __shared__ float M[T];  // L^-1, same layout
+  __shared__ float y[kCholWideMax];
+  __shared__ int ok_s;
+  const int v = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float* a = h + static_cast<int64_t>(v) * d * d;
+  if (tid == 0) ok_s = 1;
+  __syncthreads();
+  for (int j = 0; j < d; ++j) {
+    const int jj = j * (j + 1) / 2;
+    if (tid == 0) {
+      float s = a[j * d + j];
+      for (int k = 0; k < j; ++k) s -= L[jj + k] * L[jj + k];
+      if (!(s > 0.f)) ok_s = 0;
+      L[jj + j] = sqrtf(s);
+    }
+    __syncthreads();
+    if (!ok_s) break;
+    const float rinv = 1.f / L[jj + j];
+    for (int i = j + 1 + tid; i < d; i += kCholWideThreads) {
+      const int ii = i * (i + 1) / 2;
+      float t = a[i * d + j];
+      for (int k = 0; k < j; ++k) t -= L[ii + k] * L[jj + k];
+      L[ii + j] = t * rinv;
+    }
+    __syncthreads();
+  }
+  const bool ok = ok_s != 0;
+  const float nan = __int_as_float(0x7fc00000);
+  if (logdet && tid == 0) {
+    float s = 0.f;
+    if (ok)
+      for (int j = 0; j < d; ++j) s += logf(L[j * (j + 1) / 2 + j]);
+    logdet[v] = ok ? 2.f * s : nan;
+  }
+  if (x && tid == 0) {
+    float* xo = x + static_cast<int64_t>(v) * d;
+    if (!ok) {
+      for (int i = 0; i < d; ++i) xo[i] = nan;
+    } else {
+      const float* g = rhs + static_cast<int64_t>(v) * d;
+      for (int i = 0; i < d; ++i) {
+        const int ii = i * (i + 1) / 2;
+        float s = g[i];
+        for (int k = 0; k < i; ++k) s -= L[ii + k] * y[k];
+        y[i] = s / L[ii + i];
+      }
+      for (int i = d - 1; i >= 0; --i) {
+        float s = y[i];
+        for (int k = i + 1; k < d; ++k) s -= L[k * (k + 1) / 2 + i] * y[k];
+        y[i] = s / L[i * (i + 1) / 2 + i];
+      }
+      for (int i = 0; i < d; ++i) xo[i] = y[i];
+    }
+  }
+  if (!inv) return;
+  float* io = inv + static_cast<int64_t>(v) * d * d;
+  if (!ok) {
+    for (int i = tid; i < d * d; i += kCholWideThreads) io[i] = nan;
+    return;
+  }
+  for (int j = tid; j < d; j += kCholWideThreads) {  // column j of L^-1
+    M[j * (j + 1) / 2 + j] = 1.f / L[j * (j + 1) / 2 + j];
+    for (int i = j + 1; i < d; ++i) {
+      const int ii = i * (i + 1) / 2;
+      float s = 0.f;
+      for (int k = j; k < i; ++k) s += L[ii + k] * M[k * (k + 1) / 2 + j];
+      M[ii + j] = -s / L[ii + i];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < d * (d + 1) / 2; e += kCholWideThreads) {
+    int i = 0;
+    while ((i + 1) * (i + 2) / 2 <= e) ++i;
+    const int j = e - i * (i + 1) / 2;  // j <= i
+    float s = 0.f;
+    for (int k = i; k < d; ++k) {
+      const int kk = k * (k + 1) / 2;
+      s += M[kk + i] * M[kk + j];
+    }
+    io[i * d + j] = s;
+    io[j * d + i] = s;
+  }
+}
+
 template <int MAXD>
 cudaError_t launch_chol(const float* h, int vb, int d, const float* rhs,
                         float* x, float* inv, float* logdet,
@@ -117,11 +217,11 @@ cudaError_t launch_chol(const float* h, int vb, int d, const float* rhs,
 
 }  // namespace
 
-// h [vb, d, d] f32.  Each output is written when its pointer is not null:
-// x [vb, d] = h^-1 rhs (rhs [vb, d]), inv [vb, d, d], logdet [vb].
+// h [vb, d, d] f32 (d <= 96).  Each output is written when its pointer is
+// not null: x [vb, d] = h^-1 rhs (rhs [vb, d]), inv [vb, d, d], logdet [vb].
 PT_EXPORT int pt_chol_small(const void* h, int vb, int d, const void* rhs,
                             void* x, void* inv, void* logdet, void* stream) {
-  if (d < 1 || d > 48 || (x && !rhs)) return cudaErrorInvalidValue;
+  if (d < 1 || d > kCholWideMax || (x && !rhs)) return cudaErrorInvalidValue;
   const float* hp = static_cast<const float*>(h);
   const float* rp = static_cast<const float*>(rhs);
   float* xp = static_cast<float*>(x);
@@ -129,5 +229,7 @@ PT_EXPORT int pt_chol_small(const void* h, int vb, int d, const void* rhs,
   float* lp = static_cast<float*>(logdet);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 16) return launch_chol<16>(hp, vb, d, rp, xp, ip, lp, s);
-  return launch_chol<48>(hp, vb, d, rp, xp, ip, lp, s);
+  if (d <= 48) return launch_chol<48>(hp, vb, d, rp, xp, ip, lp, s);
+  chol_wide_kernel<<<vb, kCholWideThreads, 0, s>>>(hp, d, rp, xp, ip, lp);
+  return cudaGetLastError();
 }

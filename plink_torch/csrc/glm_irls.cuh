@@ -29,16 +29,24 @@
 // |ll| > ~100, so the test would compare roundings and the iteration that
 // stops (hence the reported SE) would depend on the summation order.
 //
+// P (template) genotype predictor columns G_1..G_P, each with its own
+// plane weights (plink_tpu `_plane_cols`, :288-325, without `covj`; the
+// designs whose columns carry a covariate factor run on K16, glm_wide.cu):
+// P = 1 is the additive / dominant / recessive / hetonly design of the main
+// path, P = 2 the genotypic and hethom models (glm_irls_p2.cu).  The P = 1
+// instantiations unroll to the code the kernel ran before P existed.
+//
 // Design flags (template, so the main path's instantiations compile as
 // they did before the flags existed):
 //   kScale: G *= s_s, a per-sample genotype multiplier (plink_tpu
 //           `_plane_cols` sscale, :313-314; 0.5 for males on chrX under
 //           --xchr-model 1);
 //   kResid: the residualized design of cc-/firth-residualize (plink_tpu
-//           `_resid_body`, :623-643): no covariates (dc = 0, d = 1), the one
-//           column G' = (G - mean_v) * valid centred on the per-variant mean
-//           over valid samples, and a fixed per-sample offset in the linear
-//           predictor, eta = (beta G' + offset) * valid (`eta_of`, :371-379).
+//           `_resid_body`, :623-643): no covariates (dc = 0, d = P), each
+//           column G'_p = (G_p - mean_vp) * valid centred on its per-variant
+//           mean over valid samples, and a fixed per-sample offset in the
+//           linear predictor, eta = (beta . G' + offset) * valid (`eta_of`,
+//           :371-379).
 //
 // Bound: operations.  ~200 FP32 instructions per (variant, sample) pair at
 // d = 13 (decode, the d-term dot product, one exp and one log1p, and the
@@ -77,7 +85,7 @@ __device__ __forceinline__ void logistic_terms(float eta, float& p, float& q,
   q = (eta >= 0.f) ? small : big;
 }
 
-template <int NC, int MODE, int FLAGS>
+template <int NC, int P, int MODE, int FLAGS>
 __global__ void __launch_bounds__(kTileVariants)
 irls_pass_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
                  const float* __restrict__ feat, int64_t npad, int64_t split_len,
@@ -89,7 +97,7 @@ irls_pass_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
   constexpr bool SCALE = (FLAGS & kScale) != 0;
   constexpr bool RESID = (FLAGS & kResid) != 0;
   static_assert(!RESID || NC == 0, "the residualized design has no covariates");
-  constexpr int D = NC + 1;
+  constexpr int D = NC + P;
   constexpr int F = NC + 2;  // per-sample table: c[0..NC-1], y, mask
   constexpr int NTRI = D * (D + 1) / 2;
   constexpr int NT = NTRI + D;
@@ -107,14 +115,18 @@ irls_pass_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
   const bool on = v < vb && active[v] != 0;
 
   float b[D];
-  float w0 = 0.f, w1 = 0.f, w2 = 0.f, gm = 0.f;
+  float w0[P], w1[P], w2[P], gm[P];
 #pragma unroll
   for (int j = 0; j < D; ++j) b[j] = on ? beta[static_cast<int64_t>(v) * D + j] : 0.f;
-  if (on) {
-    w0 = gw[static_cast<int64_t>(v) * 3 + 0];
-    w1 = gw[static_cast<int64_t>(v) * 3 + 1];
-    w2 = gw[static_cast<int64_t>(v) * 3 + 2];
-    if (RESID) gm = gmean[v];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    w0[p] = w1[p] = w2[p] = gm[p] = 0.f;
+    if (on) {
+      w0[p] = gw[(static_cast<int64_t>(v) * P + p) * 3 + 0];
+      w1[p] = gw[(static_cast<int64_t>(v) * P + p) * 3 + 1];
+      w2[p] = gw[(static_cast<int64_t>(v) * P + p) * 3 + 2];
+      if (RESID) gm[p] = gmean[static_cast<int64_t>(v) * P + p];
+    }
   }
   if (MODE == 1) {
     int t = 0;
@@ -160,9 +172,12 @@ irls_pass_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
         float x[D];
 #pragma unroll
         for (int j = 0; j < NC; ++j) x[j] = f[j];
-        x[NC] = w0 * hpl + w1 * apl + w2 * valid;
-        if (SCALE) x[NC] *= ss[j0 + k];
-        if (RESID) x[NC] = (x[NC] - gm) * valid;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          x[NC + p] = w0[p] * hpl + w1[p] * apl + w2[p] * valid;
+          if (SCALE) x[NC + p] *= ss[j0 + k];
+          if (RESID) x[NC + p] = (x[NC + p] - gm[p]) * valid;
+        }
         float eta = 0.f;
 #pragma unroll
         for (int j = 0; j < D; ++j) eta = fmaf(b[j], x[j], eta);
@@ -213,7 +228,7 @@ irls_pass_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
   }
 }
 
-template <int NC, int MODE, int FLAGS>
+template <int NC, int P, int MODE, int FLAGS>
 cudaError_t launch_irls_mode(const dim3 grid, size_t smem, const uint8_t* packed,
                              int64_t nb_bytes, int vb, const float* feat,
                              int64_t npad, int64_t split_len, const float* gw,
@@ -222,16 +237,16 @@ cudaError_t launch_irls_mode(const dim3 grid, size_t smem, const uint8_t* packed
                              const float* offset, const float* gmean,
                              float* part, double* part_ll, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      irls_pass_kernel<NC, MODE, FLAGS>,
+      irls_pass_kernel<NC, P, MODE, FLAGS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  irls_pass_kernel<NC, MODE, FLAGS><<<grid, kTileVariants, smem, stream>>>(
+  irls_pass_kernel<NC, P, MODE, FLAGS><<<grid, kTileVariants, smem, stream>>>(
       packed, nb_bytes, vb, feat, npad, split_len, gw, beta, hinv, active,
       sscale, offset, gmean, part, part_ll);
   return cudaGetLastError();
 }
 
-template <int NC, int FLAGS>
+template <int NC, int FLAGS, int P = 1>
 cudaError_t launch_irls(const uint8_t* packed, int64_t nb_bytes, int vb,
                         const float* feat, int64_t npad, int mode,
                         int64_t split_len, int splits, const float* gw,
@@ -240,7 +255,7 @@ cudaError_t launch_irls(const uint8_t* packed, int64_t nb_bytes, int vb,
                         const float* offset, const float* gmean, float* part,
                         double* part_ll, float* out_mat, float* out_vec,
                         double* out_ll, cudaStream_t stream) {
-  constexpr int D = NC + 1;
+  constexpr int D = NC + P;
   constexpr int F = NC + 2 + ((FLAGS & kScale) ? 1 : 0) + ((FLAGS & kResid) ? 1 : 0);
   constexpr int NTRI = D * (D + 1) / 2;
   const size_t smem = sizeof(float) *
@@ -248,11 +263,11 @@ cudaError_t launch_irls(const uint8_t* packed, int64_t nb_bytes, int vb,
   const dim3 grid((vb + kTileVariants - 1) / kTileVariants, splits);
   const cudaError_t err =
       mode == 0
-          ? launch_irls_mode<NC, 0, FLAGS>(grid, smem, packed, nb_bytes, vb,
+          ? launch_irls_mode<NC, P, 0, FLAGS>(grid, smem, packed, nb_bytes, vb,
                                            feat, npad, split_len, gw, beta,
                                            hinv, active, sscale, offset, gmean,
                                            part, part_ll, stream)
-          : launch_irls_mode<NC, 1, FLAGS>(grid, smem, packed, nb_bytes, vb,
+          : launch_irls_mode<NC, P, 1, FLAGS>(grid, smem, packed, nb_bytes, vb,
                                            feat, npad, split_len, gw, beta,
                                            hinv, active, sscale, offset, gmean,
                                            part, part_ll, stream);

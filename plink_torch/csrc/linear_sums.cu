@@ -8,10 +8,20 @@
 // plane's is used).  The host assembles any model's X^T X and X^T y from
 // them and the sample-set totals.
 //
+// A1 orientation: for a variant flagged in `a1_ref` (its A1 allele is REF)
+// the kernel swaps the hom-REF and hom-ALT codes as it decodes, so the
+// second plane holds the hom-A1 samples for every variant and the host
+// assembles each model from the A1 weights alone.  plink_tpu sums the
+// hom-ALT plane and forms such a variant's A1 dosage as 2 valid - het -
+// 2 hom-ALT: for a rare REF allele that cancels the f32 sums of nearly
+// every sample down to a few carriers (2e-3 in P on interaction designs
+// at n = 2,000).
+//
 // Bound: operations.  The planes are mutually exclusive and c_j c_k is
-// symmetric, so each (variant, sample) pair whose code is not hom-REF adds
-// one feature row [c_j c_k (j <= k) | c_j y | y^2] of NF = dc(dc+1)/2 + dc
-// + 1 entries (91 at dc = 12) to one of three accumulator rows: ~1e11 FP32
+// symmetric, so each (variant, sample) pair whose code is not the unsummed
+// homozygote (hom-REF, or hom-ALT where swapped) adds one feature row
+// [c_j c_k (j <= k) | c_j y | y^2] of NF = dc(dc+1)/2 + dc + 1 entries
+// (91 at dc = 12) to one of three accumulator rows: ~1e11 FP32
 // adds for 2,048 variants of 500,000 samples against 256 MB of packed
 // input.  Design: a small GEMM of the 0/1 plane indicators by the feature
 // table.  A block takes 32 variants (8 per warp) and one split of at most
@@ -36,8 +46,9 @@ constexpr int kLinTile = 64;  // samples per shared-memory tile
 template <int EPL>
 __global__ void __launch_bounds__(kWarps * 32)
 linear_sums_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes,
-                   int vb, const float* __restrict__ feat, int nf,
-                   int64_t npad, int64_t split_len, float* __restrict__ part) {
+                   int vb, const uint8_t* __restrict__ a1_ref,
+                   const float* __restrict__ feat, int nf, int64_t npad,
+                   int64_t split_len, float* __restrict__ part) {
   constexpr int NFP = EPL * 32;
   __shared__ float sfeat[kLinTile * NFP];
   const int lane = threadIdx.x & 31;
@@ -49,9 +60,13 @@ linear_sums_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes,
   const bool aligned = ((nb_bytes & 3) == 0) &&
                        ((reinterpret_cast<uintptr_t>(packed) & 3) == 0);
   const uint8_t* rows[kWarpVariants];
+  uint32_t swap[kWarpVariants];  // all ones: swap codes 0 and 2
 #pragma unroll
-  for (int w = 0; w < kWarpVariants; ++w)
-    rows[w] = packed + static_cast<int64_t>(min(vbase + w, vb - 1)) * nb_bytes;
+  for (int w = 0; w < kWarpVariants; ++w) {
+    const int v = min(vbase + w, vb - 1);
+    rows[w] = packed + static_cast<int64_t>(v) * nb_bytes;
+    swap[w] = (a1_ref != nullptr && a1_ref[v]) ? 0xffffffffu : 0u;
+  }
   float acc[3][kWarpVariants][EPL];
 #pragma unroll
   for (int p = 0; p < 3; ++p)
@@ -70,13 +85,16 @@ linear_sums_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes,
     __syncthreads();
     // Tiles and splits start on multiples of 16 samples, so a 16-sample
     // word never straddles two of them; its samples past the row's end
-    // decode as hom-REF (code 0) and add nothing, and their feature rows
-    // are zero.
+    // decode as hom-REF (code 0, or 2 when swapped) and add nothing, as
+    // their feature rows are zero.
     for (int j0 = 0; j0 < tn; j0 += 16) {
       uint32_t codes[kWarpVariants];
 #pragma unroll
-      for (int w = 0; w < kWarpVariants; ++w)
-        codes[w] = load_codes16(rows[w], nb_bytes, t0 + j0, aligned);
+      for (int w = 0; w < kWarpVariants; ++w) {
+        const uint32_t c = load_codes16(rows[w], nb_bytes, t0 + j0, aligned);
+        // flip the high bit of every 2-bit code whose low bit is 0: 0 <-> 2
+        codes[w] = c ^ ((~c & 0x55555555u) << 1 & swap[w]);
+      }
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
         float f[EPL];
@@ -147,12 +165,13 @@ __global__ void linear_reduce_kernel(const float* __restrict__ part, int splits,
 
 template <int EPL>
 cudaError_t launch_linear(const uint8_t* packed, int64_t nb_bytes, int vb,
-                          const float* feat, int nf, int dc, int64_t npad,
+                          const uint8_t* a1_ref, const float* feat, int nf,
+                          int dc, int64_t npad,
                           int64_t split_len, int splits, float* part,
                           double* out, cudaStream_t stream) {
   const dim3 grid((vb + kBlockVariants - 1) / kBlockVariants, splits);
   linear_sums_kernel<EPL><<<grid, kWarps * 32, 0, stream>>>(
-      packed, nb_bytes, vb, feat, nf, npad, split_len, part);
+      packed, nb_bytes, vb, a1_ref, feat, nf, npad, split_len, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t total = 3LL * vb * nf;
@@ -164,12 +183,14 @@ cudaError_t launch_linear(const uint8_t* packed, int64_t nb_bytes, int vb,
 
 }  // namespace
 
-// packed [vb, nb_bytes] u8; feat [npad, nf] f32 with npad = 4 * nb_bytes
+// packed [vb, nb_bytes] u8; a1_ref [vb] u8 (1: swap the variant's hom-REF
+// and hom-ALT codes) or null; feat [npad, nf] f32 with npad = 4 * nb_bytes
 // and nf = dc(dc+1)/2 + dc + 1 (rows: c_j c_k for j <= k, c_j y, y^2; zero
 // for padding samples); part [splits, 3, vb, nf] f32 scratch; out
-// [3, vb, dc*dc + dc + 1] f64 (planes het, hom-ALT, missing).
+// [3, vb, dc*dc + dc + 1] f64 (planes het, hom-A1, missing).
 PT_EXPORT int pt_linear_sums(const void* packed, long long nb_bytes, int vb,
-                             const void* feat, int dc, long long split_len,
+                             const void* a1_ref, const void* feat, int dc,
+                             long long split_len,
                              int splits, void* part, void* out, void* stream) {
   const int nf = dc * (dc + 1) / 2 + dc + 1;
   const int64_t npad = 4 * static_cast<int64_t>(nb_bytes);
@@ -177,7 +198,8 @@ PT_EXPORT int pt_linear_sums(const void* packed, long long nb_bytes, int vb,
 #define PT_CASE(E)                                                           \
   case E:                                                                    \
     return launch_linear<E>(static_cast<const uint8_t*>(packed), nb_bytes,   \
-                            vb, static_cast<const float*>(feat), nf, dc,     \
+                            vb, static_cast<const uint8_t*>(a1_ref),         \
+                            static_cast<const float*>(feat), nf, dc,         \
                             npad, split_len, splits,                         \
                             static_cast<float*>(part),                       \
                             static_cast<double*>(out),                       \

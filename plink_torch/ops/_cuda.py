@@ -46,10 +46,17 @@ _ENTRY = {
                   _P, _P, _P, _P]),
     "glm_irls_x": ("pt_glm_irls_pass_x",
                    [_P, _L, _I, _P, _L, _I, _I, _I, _L, _I] + [_P] * 13),
+    "glm_moments_p2": ("pt_glm_moments_p2",
+                       [_P, _L, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P]),
+    "glm_irls_p2": ("pt_glm_irls_pass_p2",
+                    [_P, _L, _I, _P, _L, _I, _I, _I, _L, _I] + [_P] * 13),
+    "glm_wide": ("pt_glm_wide", [_P, _L, _I, _P, _L, _I, _I, _P, _I, _L, _I]
+                 + [_P] * 11),
     "xm1_stats": ("pt_xm1_stats", [_P, _L, _I, _P, _P, _I, _P, _P, _P]),
     "chol_small": ("pt_chol_small", [_P, _I, _I, _P, _P, _P, _P, _P]),
     "sample_counts": ("pt_sample_counts", [_P, _L, _I, _P, _I, _I, _P, _P]),
-    "linear_sums": ("pt_linear_sums", [_P, _L, _I, _P, _I, _L, _I, _P, _P, _P]),
+    "linear_sums": ("pt_linear_sums", [_P, _L, _I, _P, _P, _I, _L, _I, _P, _P,
+                                       _P]),
     "king_gram": ("pt_king_gram", [_P, _L, _L, _P, _L, _I, _L, _I, _L, _D, _I,
                                    _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "grm_gram": ("pt_grm_gram", [_P, _L, _L, _P, _P, _P, _L, _L, _I, _L, _I,
@@ -64,16 +71,22 @@ _ENTRY = {
                                          _P, _P, _P]),
 }
 # kernel modes counted apart from their entry point's default mode: name ->
-# entry point (K2 scaled; K3 scaled and residualized share glm_irls_x)
+# entry point (K2 scaled; K3 scaled and residualized share glm_irls_x; K3
+# residualized with two columns is a mode of glm_irls_p2; K15 and K16 share
+# glm_wide; K4 above d = 48)
 _MODES = {"glm_moments_scaled": "glm_moments", "glm_irls_scaled": "glm_irls_x",
-          "glm_irls_resid": "glm_irls_x"}
+          "glm_irls_resid": "glm_irls_x", "glm_irls_resid_p2": "glm_irls_p2",
+          "glm_moments_wide": "glm_wide", "glm_irls_wide": "glm_wide",
+          "chol_small_wide": "chol_small"}
+# entry points launched only through their modes
+_MODE_ONLY = ("glm_irls_x", "glm_wide")
 # entry points whose source file is not named after them
 _SOURCE = {"pca_x": "pca_apply", "pca_xt": "pca_apply", "ld_band_bits": "ld_band",
            "ld_band_stats": "ld_band", "ld_gram_pair": "ld_band"}
 _SOURCES = sorted({_SOURCE.get(k, k) for k in _ENTRY})
 
 LAUNCHES: dict[str, int] = dict.fromkeys(
-    [k for k in _ENTRY if k != "glm_irls_x"] + list(_MODES), 0)
+    [k for k in _ENTRY if k not in _MODE_ONLY] + list(_MODES), 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

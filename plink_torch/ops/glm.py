@@ -1,20 +1,24 @@
-"""GLM on the device: the linear sums (K6), kernels K2-K4 with the
-logistic-hybrid IRLS around them, and the --xchr-model 1 statistics (K14).
+"""GLM on the device: the linear sums (K6), kernels K2-K4 and K15-K16 with
+the logistic-hybrid IRLS around them, and the --xchr-model 1 statistics
+(K14).
 
 Counterparts of plink_tpu/ops/glm.py:
 - `linear_sums` (K6, csrc/linear_sums.cu) for `_linear_sums_body`, and
   `linear_sums_scan` for `linear_sums_scan`;
-- `glm_moments` (K2, csrc/glm_moments.cu) for `_plane_cols` +
-  `_moments_from_cols`, with the per-sample multiplier `sscale`;
-- `glm_irls_pass` (K3, csrc/glm_irls.cuh) for the `_design_ops`
-  contractions of one logistic or Firth IRLS evaluation, over the design
-  [c | G], [c | G s] (`sscale`) or the residualized [G'] of `_resid_body`
-  with its fixed offset;
+- `glm_moments` (K2, csrc/glm_moments*.cu; K15, csrc/glm_wide.cu) for
+  `_plane_cols` + `_moments_from_cols`, with P predictor columns, the
+  covariate factors `covj` and the per-sample multiplier `sscale`;
+- `glm_irls_pass` (K3, csrc/glm_irls*.cu; K16, csrc/glm_wide.cu) for the
+  `_design_ops` contractions of one logistic or Firth IRLS evaluation,
+  over the design [c | G_1..G_P] (each G_p optionally times a covariate
+  column and s) or the residualized [G'_1..G'_P] of `_resid_body` with its
+  fixed offset;
 - `chol_small` (K4, csrc/chol_small.cu) for `_chol_small`,
   `_solve_psd`, `_inv_psd` and the Cholesky log-determinant;
-- `glm_logistic_scan` / `firth_irls_block` for `glm_logistic_scan` /
-  `firth_irls_block`, with `_valid_params_flags` and
-  `_collin_screen_device` as tensor ops on the device (no sample axis);
+- `glm_logistic_scan` / `firth_irls_block` / `design_moments_block` /
+  `logistic_irls_block` for the entry points of the same names, with
+  `_valid_params_flags` and `_collin_screen_device` as tensor ops on the
+  device (no sample axis);
 - `glm_resid_scan` / `resid_irls_block` for the cc-/firth-residualize
   entry points of the same names;
 - `xm1_stats` (K14, csrc/xm1_stats.cu) and `xm1_stats_scan` for
@@ -22,11 +26,14 @@ Counterparts of plink_tpu/ops/glm.py:
 
 Each kernel wrapper takes the plain PyTorch version beside it for CPU
 tensors and launches the kernel for CUDA tensors.  The logistic design is
-[c (dc covariates incl. intercept) | G] with one additive genotype
-predictor (P = 1); per-sample inputs travel as one table
+[c (dc covariates incl. intercept) | G_1..G_P] with P genotype predictors
+(1 for the additive, dominant, recessive and hetonly models, 2 for
+genotypic and hethom, P (1 + k) under `interaction`, whose G x C columns
+carry the covariate index `covj`); per-sample inputs travel as one table
 feat = [c | y | mask] of shape [npad, dc + 2] (dc = 0 in the residualized
 design: [y | mask]), and the optional per-sample multiplier s and offset as
-f32 [npad] beside it.
+f32 [npad] beside it.  Which kernel a design runs on is a rule on (P,
+covj, d): `_register_kernel`.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import NotPortedError
 from . import _cuda
 from .counts import geno_counts
 from .planes import planes, unpack_codes
@@ -42,6 +50,12 @@ _GLM_MAXIT = 25  # ref: plink2_glm_logistic.cc "maxit = 25"
 _FIRTH_MAXIT = 25
 _Z_INIT = 4.863891244002886  # IRLS start: OLS on z = 4.8639 * (y - 0.5)
 MAX_DC = 16  # widest covariate block the CUDA kernels are instantiated for
+# widest covariate block sent to the P = 2 register kernels (K2 at D = dc +
+# 4, K3 at d = dc + 2): ptxas (sm_90a) gives every P = 2 instantiation up
+# to dc = 14 <= 255 registers and no spill, K3 firth2 spills at dc = 15 and
+# K3 at dc = 16; wider designs run on K15 / K16
+P2_MAX_DC = 14
+WIDE_MAX_D = 96  # widest design K15 / K16 and K4 take
 
 
 # ---------------------------------------------------------------------------
@@ -76,15 +90,14 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _kernel_device(name, packed, dc, resid=False):
+def _kernel_device(name, packed, dc):
     if packed.device.type == "cpu":
         return False
     if packed.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {packed.device}")
-    if not (dc == 0 if resid else 1 <= dc <= MAX_DC):
+    if not 1 <= dc <= MAX_DC:
         raise ValueError(f"{name}: the CUDA kernel takes 1..{MAX_DC} "
-                         f"covariate columns, or none in the residualized "
-                         f"design (got {dc})")
+                         f"covariate columns (got {dc})")
     return True
 
 
@@ -108,16 +121,21 @@ def _splits(npad: int) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
-def linear_sums_plain(packed, ccfl, cy, y2):
+def linear_sums_plain(packed, ccfl, cy, y2, a1_ref=None):
     """Plain version of K6 (plink_tpu `_linear_sums_body`): the het,
-    hom-ALT and missing planes of packed uint8 [vb, NB] against ccfl
+    hom-A1 and missing planes of packed uint8 [vb, NB] against ccfl
     [npad, dc*dc] (c_j c_k), cy [npad, dc] (c_j y) and y2 [npad] (y^2),
-    npad = 4*NB, in their float type.  Returns hcc/acc/mcc [vb, dc*dc],
-    hcy/acy/mcy [vb, dc], myy [vb]."""
+    npad = 4*NB, in their float type.  The hom-A1 plane is the hom-ALT
+    one, or the hom-REF one for the variants flagged in a1_ref bool [vb]
+    (plink_tpu sums hom-ALT only; see csrc/linear_sums.cu for why the port
+    orients).  Returns hcc/acc/mcc [vb, dc*dc], hcy/acy/mcy [vb, dc], myy
+    [vb]."""
     codes = unpack_codes(packed)
-    het, homalt, miss = ((codes == c).to(ccfl.dtype) for c in (1, 2, 3))
-    return {"hcc": het @ ccfl, "acc": homalt @ ccfl, "mcc": miss @ ccfl,
-            "hcy": het @ cy, "acy": homalt @ cy, "mcy": miss @ cy,
+    if a1_ref is not None:  # swap codes 0 and 2 of the flagged variants
+        codes = torch.where(a1_ref[:, None] & (codes % 2 == 0), 2 - codes, codes)
+    het, homa1, miss = ((codes == c).to(ccfl.dtype) for c in (1, 2, 3))
+    return {"hcc": het @ ccfl, "acc": homa1 @ ccfl, "mcc": miss @ ccfl,
+            "hcy": het @ cy, "acy": homa1 @ cy, "mcy": miss @ cy,
             "myy": miss @ y2}
 
 
@@ -129,13 +147,14 @@ def _linear_feat(ccfl, cy, y2):
     return torch.cat([ccfl[:, j * dc + k], cy, y2[:, None]], dim=1).contiguous()
 
 
-def linear_sums(packed, ccfl, cy, y2):
+def linear_sums(packed, ccfl, cy, y2, a1_ref=None):
     """K6: the plane sums of `linear_sums_plain` for one variant block.
     packed uint8 [vb, NB], ccfl f32 [npad, dc*dc], cy f32 [npad, dc], y2 f32
-    [npad], with padding samples zero in all three.  CPU tensors take the
-    plain version (in their float type); CUDA tensors launch the kernel,
-    which sums at most 2,048 samples per f32 accumulator, adds the splits in
-    f64 and returns f64."""
+    [npad], with padding samples zero in all three; a1_ref bool [vb] or
+    None (no variant flagged).  CPU tensors take the plain version (in
+    their float type); CUDA tensors launch the kernel, which sums at most
+    2,048 samples per f32 accumulator, adds the splits in f64 and returns
+    f64."""
     vb, nb = packed.shape
     dc = cy.shape[1]
     dev = packed.device
@@ -143,31 +162,93 @@ def linear_sums(packed, ccfl, cy, y2):
     _check("linear_sums ccfl", ccfl, torch.float32, (4 * nb, dc * dc), dev)
     _check("linear_sums cy", cy, torch.float32, (4 * nb, dc), dev)
     _check("linear_sums y2", y2, torch.float32, (4 * nb,), dev)
+    if a1_ref is not None:
+        _check("linear_sums a1_ref", a1_ref, torch.bool, (vb,), dev)
     if not _kernel_device("linear_sums", packed, dc):
-        return linear_sums_plain(packed, ccfl, cy, y2)
+        return linear_sums_plain(packed, ccfl, cy, y2, a1_ref)
     feat = _linear_feat(ccfl, cy, y2)
     split_len, splits = _splits(4 * nb)
     part = torch.empty((splits, 3, vb, feat.shape[1]), dtype=torch.float32,
                        device=dev)
     out = torch.empty((3, vb, dc * dc + dc + 1), dtype=torch.float64, device=dev)
-    _cuda.launch("linear_sums", packed.data_ptr(), nb, vb, feat.data_ptr(), dc,
-                 split_len, splits, part.data_ptr(), out.data_ptr())
+    flags = None if a1_ref is None else a1_ref.to(torch.uint8)
+    _cuda.launch("linear_sums", packed.data_ptr(), nb, vb, _cuda.ptr(flags),
+                 feat.data_ptr(), dc, split_len, splits, part.data_ptr(),
+                 out.data_ptr())
     d2 = dc * dc
     return {"hcc": out[0, :, :d2], "acc": out[1, :, :d2], "mcc": out[2, :, :d2],
             "hcy": out[0, :, d2:d2 + dc], "acy": out[1, :, d2:d2 + dc],
             "mcy": out[2, :, d2:d2 + dc], "myy": out[2, :, -1]}
 
 
-def linear_sums_scan(blocks, ccfl, cy, y2):
+def linear_sums_scan(blocks, ccfl, cy, y2, a1_ref=None):
     """Whole-dataset linear sums (plink_tpu `linear_sums_scan`): K6 per
-    block of blocks uint8 [nb, vb, NB]; returns the dict of
-    `linear_sums` stacked to [nb, vb, ...]."""
-    outs = [linear_sums(blocks[bi], ccfl, cy, y2) for bi in range(blocks.shape[0])]
+    block of blocks uint8 [nb, vb, NB], with a1_ref bool [nb, vb] or None;
+    returns the dict of `linear_sums` stacked to [nb, vb, ...]."""
+    outs = [linear_sums(blocks[bi], ccfl, cy, y2,
+                        None if a1_ref is None else a1_ref[bi])
+            for bi in range(blocks.shape[0])]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 # ---------------------------------------------------------------------------
-# K2: moments
+# predictor columns and the kernel each design runs on
+# ---------------------------------------------------------------------------
+
+
+def _gw3(gw):
+    """Plane weights as [vb, P, 3] (a [vb, 3] tensor is the one-column
+    design)."""
+    return gw[:, None, :] if gw.dim() == 2 else gw
+
+
+def _covj(covj, npr):
+    """The per-predictor covariate column of `_plane_cols` as a tuple of
+    npr ints (0: no covariate factor)."""
+    covj = tuple(int(j) for j in covj) if covj else (0,) * npr
+    if len(covj) != npr:
+        raise ValueError(f"covj has {len(covj)} entries for {npr} predictors")
+    return covj
+
+
+def _plane_cols(packed, gw3, table, mask, covj, sscale=None):
+    """Plain decode (plink_tpu `_plane_cols`): the valid plane and the
+    predictor columns G_p = (wH het + wA homalt + wV valid) * table[:,
+    covj_p] (when covj_p > 0) * sscale, each [vb, npad]."""
+    valid, het, homalt = planes(packed, mask)
+    gcols = []
+    for p in range(gw3.shape[1]):
+        g = (gw3[:, p, 0:1] * het + gw3[:, p, 1:2] * homalt
+             + gw3[:, p, 2:3] * valid)
+        if covj[p]:
+            g = g * table[None, :, covj[p]]
+        if sscale is not None:
+            g = g * sscale[None, :]
+        gcols.append(g)
+    return valid, gcols
+
+
+def _wide_d(name, d):
+    if d > WIDE_MAX_D:
+        raise NotPortedError(
+            f"{name}: a design of width d = {d} is wider than the CUDA "
+            f"kernels take (d <= {WIDE_MAX_D})")
+
+
+def _register_kernel(P, covj, dc, sscale):
+    """Whether the thread-per-variant K2 / K3 take a design of P genotype
+    columns over dc covariate columns (`dc` counts y for K2): P = 1 at
+    1 <= dc <= MAX_DC (also scaled), P = 2 unscaled at 1 <= dc <=
+    P2_MAX_DC; no covariate factor.  Everything else runs on K15 / K16."""
+    if any(covj):
+        return False
+    if P == 1:
+        return 1 <= dc <= MAX_DC
+    return P == 2 and sscale is None and 1 <= dc <= P2_MAX_DC
+
+
+# ---------------------------------------------------------------------------
+# K2 / K15: moments
 # ---------------------------------------------------------------------------
 
 
@@ -191,46 +272,85 @@ def _moments_from_cols(gcols, valid, cy):
     return h
 
 
-def glm_moments_plain(packed, gwm, feat, sscale=None):
+def glm_moments_plain(packed, gwm, feat, sscale=None, covj=None):
     dc = feat.shape[1] - 2
-    valid, het, homalt = planes(packed, feat[:, dc + 1])
-    gcols = [gwm[:, p, 0:1] * het + gwm[:, p, 1:2] * homalt
-             + gwm[:, p, 2:3] * valid for p in range(2)]
-    if sscale is not None:
-        gcols = [g * sscale[None, :] for g in gcols]
-    return _moments_from_cols(gcols, valid, feat[:, : dc + 1])
+    cy = feat[:, : dc + 1]
+    valid, gcols = _plane_cols(packed, gwm, cy, feat[:, dc + 1],
+                               _covj(covj, gwm.shape[1]), sscale)
+    return _moments_from_cols(gcols, valid, cy)
 
 
-def glm_moments(packed, gwm, feat, sscale=None):
-    """K2: packed uint8 [vb, NB], gwm f32 [vb, 2, 3] (model predictor, ADD),
-    feat f32 [4*NB, dc+2] -> momy f32 [vb, dc+3, dc+3] over the design
-    [c | y | G | ADD]; with sscale f32 [4*NB] (the scaled mode) both
-    predictor columns are multiplied by it."""
+def glm_moments(packed, gwm, feat, sscale=None, covj=None):
+    """K2 / K15: packed uint8 [vb, NB], gwm f32 [vb, NP, 3] (the model's
+    predictors, then ADD), feat f32 [4*NB, dc+2] -> momy f32 [vb, D, D],
+    D = dc + 1 + NP, over the design [c | y | G_1 .. G_NP]; with sscale f32
+    [4*NB] (the scaled mode) every predictor column is multiplied by it, and
+    covj (NP ints) multiplies column p by feat[:, covj[p]] when covj[p] > 0.
+    K2 (csrc/glm_moments.cu, glm_moments_p2.cu) takes NP = 2, and NP = 3
+    unscaled, with no covariate factor; K15 (csrc/glm_wide.cu) takes the
+    rest up to D = 98."""
     vb, nb = packed.shape
     dc = feat.shape[1] - 2
-    _check("glm_moments packed", packed, torch.uint8, (vb, nb), packed.device)
-    _check("glm_moments gwm", gwm, torch.float32, (vb, 2, 3), packed.device)
-    _check("glm_moments feat", feat, torch.float32, (4 * nb, dc + 2),
-           packed.device)
+    dev = packed.device
+    npr = gwm.shape[1]
+    _check("glm_moments packed", packed, torch.uint8, (vb, nb), dev)
+    _check("glm_moments gwm", gwm, torch.float32, (vb, npr, 3), dev)
+    _check("glm_moments feat", feat, torch.float32, (4 * nb, dc + 2), dev)
     if sscale is not None:
-        _check("glm_moments sscale", sscale, torch.float32, (4 * nb,),
-               packed.device)
-    if not _kernel_device("glm_moments", packed, dc):
-        return glm_moments_plain(packed, gwm, feat, sscale)
-    D = dc + 3
+        _check("glm_moments sscale", sscale, torch.float32, (4 * nb,), dev)
+    covj = _covj(covj, npr)
+    if max(covj) > dc:
+        raise ValueError(f"glm_moments: covj {covj} beyond the {dc} covariates")
+    if dev.type == "cpu":
+        return glm_moments_plain(packed, gwm, feat, sscale, covj)
+    if dev.type != "cuda":
+        raise ValueError(f"glm_moments: unsupported device {dev}")
+    D = dc + 1 + npr
     split_len, splits = _splits(4 * nb)
-    part = torch.empty((splits, D * (D + 1) // 2, vb), dtype=torch.float32,
-                       device=packed.device)
-    out = torch.empty((vb, D, D), dtype=torch.float32, device=packed.device)
-    _cuda.launch("glm_moments" if sscale is None else "glm_moments_scaled",
-                 packed.data_ptr(), nb, vb, feat.data_ptr(), 4 * nb, dc,
-                 split_len, splits, gwm.data_ptr(), _cuda.ptr(sscale),
-                 part.data_ptr(), out.data_ptr())
+    out = torch.empty((vb, D, D), dtype=torch.float32, device=dev)
+    if _register_kernel(npr - 1, covj, dc, sscale):
+        part = torch.empty((splits, D * (D + 1) // 2, vb), dtype=torch.float32,
+                           device=dev)
+        if npr == 3:
+            _cuda.launch("glm_moments_p2", packed.data_ptr(), nb, vb,
+                         feat.data_ptr(), 4 * nb, dc, split_len, splits,
+                         gwm.data_ptr(), part.data_ptr(), out.data_ptr())
+        else:
+            _cuda.launch("glm_moments" if sscale is None else "glm_moments_scaled",
+                         packed.data_ptr(), nb, vb, feat.data_ptr(), 4 * nb, dc,
+                         split_len, splits, gwm.data_ptr(), _cuda.ptr(sscale),
+                         part.data_ptr(), out.data_ptr())
+        return out
+    _wide_d("glm_moments", D - 2)
+    _wide(2, packed, feat, dc + 1, gwm, covj, split_len, splits, sscale=sscale,
+          out_mat=out)
     return out
 
 
+def _wide(mode, packed, feat, nc, gw3, covj, split_len, splits, beta=None,
+          hinv=None, active=None, sscale=None, out_mat=None, out_vec=None,
+          out_ll=None):
+    """One K15 (mode 2) or K16 (0 logistic, 1 firth2) launch."""
+    vb, nb = packed.shape
+    np_ = gw3.shape[1]
+    D = nc + np_
+    nt = D * (D + 1) // 2 + (0 if mode == 2 else D)
+    dev = packed.device
+    part = torch.empty((splits, nt, vb), dtype=torch.float32, device=dev)
+    part_ll = torch.empty((splits, vb), dtype=torch.float64, device=dev) \
+        if mode == 0 else None
+    cj = torch.tensor(covj, dtype=torch.int32, device=dev)
+    act = None if active is None else active.to(torch.uint8)
+    _cuda.launch("glm_moments_wide" if mode == 2 else "glm_irls_wide",
+                 packed.data_ptr(), nb, vb, feat.data_ptr(), 4 * nb, nc, np_,
+                 cj.data_ptr(), mode, split_len, splits, gw3.data_ptr(),
+                 _cuda.ptr(beta), _cuda.ptr(hinv), _cuda.ptr(act),
+                 _cuda.ptr(sscale), part.data_ptr(), _cuda.ptr(part_ll),
+                 out_mat.data_ptr(), _cuda.ptr(out_vec), _cuda.ptr(out_ll))
+
+
 # ---------------------------------------------------------------------------
-# K3: one IRLS evaluation
+# K3 / K16: one IRLS evaluation
 # ---------------------------------------------------------------------------
 
 
@@ -247,44 +367,53 @@ def _loglik(yv, valid, eta):
     return ll.to(torch.float64).sum(dim=1)
 
 
-def _hessian(w, c, g):
-    """sum_s w x x^T over [c | g] -> [vb, d, d]."""
+def _hessian(w, c, gcols):
+    """sum_s w x x^T over [c | G_1..G_P] -> [vb, d, d]."""
     vb, n = w.shape
     dc = c.shape[1]
+    d = dc + len(gcols)
     ccfl = (c[:, :, None] * c[:, None, :]).reshape(n, dc * dc)
-    h = torch.empty((vb, dc + 1, dc + 1), dtype=w.dtype, device=w.device)
+    h = torch.empty((vb, d, d), dtype=w.dtype, device=w.device)
     h[:, :dc, :dc] = (w @ ccfl).reshape(vb, dc, dc)
-    wg = w * g
-    cg = wg @ c
-    h[:, :dc, dc] = cg
-    h[:, dc, :dc] = cg
-    h[:, dc, dc] = (wg * g).sum(dim=1)
+    for p, g in enumerate(gcols):
+        wg = w * g
+        cg = wg @ c
+        h[:, :dc, dc + p] = cg
+        h[:, dc + p, :dc] = cg
+        for q in range(p, len(gcols)):
+            gg = (wg * gcols[q]).sum(dim=1)
+            h[:, dc + p, dc + q] = gg
+            h[:, dc + q, dc + p] = gg
     return h
 
 
-def _xtv(r, c, g):
-    return torch.cat([r @ c, (r * g).sum(dim=1, keepdim=True)], dim=1)
+def _xtv(r, c, gcols):
+    return torch.cat([r @ c] + [(r * g).sum(dim=1, keepdim=True) for g in gcols],
+                     dim=1)
 
 
 def glm_irls_pass_plain(packed, gw, feat, beta, active, hinv=None,
-                        sscale=None, offset=None, gmean=None):
+                        sscale=None, offset=None, gmean=None, covj=None):
+    gw3 = _gw3(gw)
+    P = gw3.shape[1]
     dc = feat.shape[1] - 2
     c, y = feat[:, :dc], feat[:, dc]
-    valid, het, homalt = planes(packed, feat[:, dc + 1])
-    g = gw[:, 0:1] * het + gw[:, 1:2] * homalt + gw[:, 2:3] * valid
-    if sscale is not None:
-        g = g * sscale[None, :]
+    valid, gcols = _plane_cols(packed, gw3, c, feat[:, dc + 1], _covj(covj, P),
+                               sscale)
     if gmean is not None:
-        g = (g - gmean[:, None]) * valid
-    eta = beta[:, :dc] @ c.t() + beta[:, dc:] * g
+        gm = gmean.reshape(-1, P)
+        gcols = [(g - gm[:, p, None]) * valid for p, g in enumerate(gcols)]
+    eta = beta[:, :dc] @ c.t()
+    for p, g in enumerate(gcols):
+        eta = eta + beta[:, dc + p : dc + p + 1] * g
     if offset is not None:
         eta = eta + offset[None, :]
     eta = eta * valid
     yv = y[None, :] * valid
     # 1 - p as sigmoid(-eta) (no cancellation at large |eta|); y is 0/1
     sg, q = torch.sigmoid(eta), torch.sigmoid(-eta)
-    p = sg * valid
-    y_minus_p = torch.where(yv != 0, q * valid, -p)
+    p_ = sg * valid
+    y_minus_p = torch.where(yv != 0, q * valid, -p_)
     ll = None
     if hinv is None:
         ll = _loglik(yv, valid, eta)
@@ -294,13 +423,17 @@ def glm_irls_pass_plain(packed, gw, feat, beta, active, hinv=None,
         v = sg * q * valid
         # h_s = v_s x_s^T Hinv x_s without materialising [vb, n, d]
         ccfl = (c[:, :, None] * c[:, None, :]).reshape(c.shape[0], dc * dc)
-        quad = (hinv[:, :dc, :dc].reshape(hinv.shape[0], dc * dc) @ ccfl.t()
-                + 2.0 * g * (hinv[:, :dc, dc] @ c.t())
-                + g * g * hinv[:, dc, dc:])
+        quad = hinv[:, :dc, :dc].reshape(hinv.shape[0], dc * dc) @ ccfl.t()
+        for p, g in enumerate(gcols):
+            quad = quad + 2.0 * g * (hinv[:, :dc, dc + p] @ c.t())
+        for p, g in enumerate(gcols):  # the symmetric G block, once a pair
+            for q2 in range(p, len(gcols)):
+                quad = quad + ((1.0 if q2 == p else 2.0) * g * gcols[q2]
+                               * hinv[:, dc + p, dc + q2 : dc + q2 + 1])
         hd = v * quad
-        r = (y_minus_p + hd * (0.5 - p)) * valid
+        r = (y_minus_p + hd * (0.5 - p_)) * valid
         w = (1.0 + hd) * v
-    mat, vec = _hessian(w, c, g), _xtv(r, c, g)
+    mat, vec = _hessian(w, c, gcols), _xtv(r, c, gcols)
     on = active.to(torch.bool)
     mat = torch.where(on[:, None, None], mat, torch.zeros_like(mat))
     vec = torch.where(on[:, None], vec, torch.zeros_like(vec))
@@ -310,26 +443,33 @@ def glm_irls_pass_plain(packed, gw, feat, beta, active, hinv=None,
 
 
 def glm_irls_pass(packed, gw, feat, beta, active, hinv=None, sscale=None,
-                  offset=None, gmean=None):
-    """K3: one fused IRLS evaluation at `beta` for the rows with `active`.
+                  offset=None, gmean=None, covj=None):
+    """K3 / K16: one fused IRLS evaluation at `beta` for the rows with
+    `active`.
 
-    packed uint8 [vb, NB], gw f32 [vb, 3], feat f32 [4*NB, dc+2], beta f32
-    [vb, d], active bool [vb]; d = dc + 1.  Logistic mode (hinv None):
-    returns (H = X^T W X, X^T (p - y), loglik f64).  firth2 mode (hinv = H0^-1
-    [vb, d, d]): returns (X^T diag((1+h) v) X, ustar, None).  Inactive rows
-    come back as zeros.
+    packed uint8 [vb, NB], gw f32 [vb, 3] or [vb, P, 3] (P genotype
+    columns), feat f32 [4*NB, dc+2], beta f32 [vb, d], active bool [vb];
+    d = dc + P.  Logistic mode (hinv None): returns (H = X^T W X,
+    X^T (p - y), loglik f64).  firth2 mode (hinv = H0^-1 [vb, d, d]): returns
+    (X^T diag((1+h) v) X, ustar, None).  Inactive rows come back as zeros.
 
-    sscale f32 [4*NB] multiplies G (scaled design).  gmean f32 [vb] selects
-    the residualized design (feat = [y | mask], dc = 0, d = 1): the column
-    is (G - gmean) * valid and offset f32 [4*NB], which it requires, enters
-    the linear predictor."""
+    sscale f32 [4*NB] multiplies every G (scaled design); covj (P ints)
+    multiplies G_p by feat[:, covj[p]] when covj[p] > 0 (interaction terms).
+    gmean f32 [vb, P] (or [vb] for P = 1) selects the residualized design
+    (feat = [y | mask], dc = 0, d = P): the columns are (G_p - gmean_p) *
+    valid and offset f32 [4*NB], which it requires, enters the linear
+    predictor.  K3 (csrc/glm_irls*.cu) takes P = 1 and, unscaled, P = 2
+    with no covariate factor, and the residualized designs; K16
+    (csrc/glm_wide.cu) the rest up to d = 96."""
     vb, nb = packed.shape
+    gw3 = _gw3(gw)
+    P = gw3.shape[1]
     dc = feat.shape[1] - 2
-    d = dc + 1
+    d = dc + P
     dev = packed.device
     resid = gmean is not None
     _check("glm_irls_pass packed", packed, torch.uint8, (vb, nb), dev)
-    _check("glm_irls_pass gw", gw, torch.float32, (vb, 3), dev)
+    _check("glm_irls_pass gw", gw3, torch.float32, (vb, P, 3), dev)
     _check("glm_irls_pass feat", feat, torch.float32, (4 * nb, dc + 2), dev)
     _check("glm_irls_pass beta", beta, torch.float32, (vb, d), dev)
     _check("glm_irls_pass active", active, torch.bool, (vb,), dev)
@@ -337,40 +477,57 @@ def glm_irls_pass(packed, gw, feat, beta, active, hinv=None, sscale=None,
         _check("glm_irls_pass hinv", hinv, torch.float32, (vb, d, d), dev)
     if sscale is not None:
         _check("glm_irls_pass sscale", sscale, torch.float32, (4 * nb,), dev)
-    if resid != (offset is not None) or (resid and dc != 0):
+    covj = _covj(covj, P)
+    if max(covj) >= max(dc, 1):
+        raise ValueError(f"glm_irls_pass: covj {covj} beyond the {dc} covariates")
+    if resid != (offset is not None) or (resid and (dc != 0 or any(covj)
+                                                    or P > 2)):
         raise ValueError("glm_irls_pass: gmean and offset go together, in the "
-                         "residualized design (feat = [y | mask])")
+                         "residualized design (feat = [y | mask], P <= 2, no "
+                         "covariate factor)")
     if resid:
-        _check("glm_irls_pass gmean", gmean, torch.float32, (vb,), dev)
+        _check("glm_irls_pass gmean", gmean.reshape(vb, P), torch.float32,
+               (vb, P), dev)
         _check("glm_irls_pass offset", offset, torch.float32, (4 * nb,), dev)
-    if not _kernel_device("glm_irls_pass", packed, dc, resid):
-        return glm_irls_pass_plain(packed, gw, feat, beta, active, hinv,
-                                   sscale, offset, gmean)
+    if dev.type == "cpu":
+        return glm_irls_pass_plain(packed, gw3, feat, beta, active, hinv,
+                                   sscale, offset, gmean, covj)
+    if dev.type != "cuda":
+        raise ValueError(f"glm_irls_pass: unsupported device {dev}")
     mode = 0 if hinv is None else 1
     split_len, splits = _splits(4 * nb)
+    mat = torch.empty((vb, d, d), dtype=torch.float32, device=dev)
+    vec = torch.empty((vb, d), dtype=torch.float32, device=dev)
+    ll = torch.empty(vb, dtype=torch.float64, device=dev) if mode == 0 else None
+    if not resid and not _register_kernel(P, covj, dc, sscale):
+        _wide_d("glm_irls_pass", d)
+        _wide(mode, packed, feat, dc, gw3, covj, split_len, splits, beta=beta,
+              hinv=hinv, active=active, sscale=sscale, out_mat=mat,
+              out_vec=vec, out_ll=ll)
+        return mat, vec, ll
     nt = d * (d + 1) // 2 + d
     part = torch.empty((splits, nt, vb), dtype=torch.float32, device=dev)
     part_ll = torch.empty((splits, vb), dtype=torch.float64, device=dev) \
         if mode == 0 else None
-    mat = torch.empty((vb, d, d), dtype=torch.float32, device=dev)
-    vec = torch.empty((vb, d), dtype=torch.float32, device=dev)
-    ll = torch.empty(vb, dtype=torch.float64, device=dev) if mode == 0 else None
     act = active.to(torch.uint8)
-    if sscale is None and not resid:
+    if P == 1 and sscale is None and not resid:
         _cuda.launch("glm_irls", packed.data_ptr(), nb, vb, feat.data_ptr(),
-                     4 * nb, dc, mode, split_len, splits, gw.data_ptr(),
+                     4 * nb, dc, mode, split_len, splits, gw3.data_ptr(),
                      beta.data_ptr(), _cuda.ptr(hinv), act.data_ptr(),
                      part.data_ptr(), _cuda.ptr(part_ll), mat.data_ptr(),
                      vec.data_ptr(), _cuda.ptr(ll))
+        return mat, vec, ll
+    flags = (1 if sscale is not None else 0) | (2 if resid else 0)
+    if P == 1:
+        name = "glm_irls_resid" if resid else "glm_irls_scaled"
     else:
-        flags = (1 if sscale is not None else 0) | (2 if resid else 0)
-        _cuda.launch("glm_irls_resid" if resid else "glm_irls_scaled",
-                     packed.data_ptr(), nb, vb, feat.data_ptr(), 4 * nb, dc,
-                     mode, flags, split_len, splits, gw.data_ptr(),
-                     beta.data_ptr(), _cuda.ptr(hinv), act.data_ptr(),
-                     _cuda.ptr(sscale), _cuda.ptr(offset), _cuda.ptr(gmean),
-                     part.data_ptr(), _cuda.ptr(part_ll), mat.data_ptr(),
-                     vec.data_ptr(), _cuda.ptr(ll))
+        name = "glm_irls_resid_p2" if resid else "glm_irls_p2"
+    _cuda.launch(name, packed.data_ptr(), nb, vb, feat.data_ptr(), 4 * nb, dc,
+                 mode, flags, split_len, splits, gw3.data_ptr(),
+                 beta.data_ptr(), _cuda.ptr(hinv), act.data_ptr(),
+                 _cuda.ptr(sscale), _cuda.ptr(offset), _cuda.ptr(gmean),
+                 part.data_ptr(), _cuda.ptr(part_ll), mat.data_ptr(),
+                 vec.data_ptr(), _cuda.ptr(ll))
     return mat, vec, ll
 
 
@@ -417,10 +574,11 @@ def chol_small_plain(h, rhs=None, inverse=False, logdet=False):
 
 
 def chol_small(h, rhs=None, inverse=False, logdet=False):
-    """K4: batched Cholesky of SPD h f32 [vb, d, d] (d <= 48).  Returns
-    (h^-1 rhs [vb, d] if rhs is given, h^-1 [vb, d, d] if inverse,
-    log det h [vb] if logdet), None for what was not asked; rows that are not
-    positive definite come back NaN."""
+    """K4: batched Cholesky of SPD h f32 [vb, d, d] (d <= 96 on the card:
+    one thread per matrix up to d = 48, one block per matrix above, counted
+    as mode chol_small_wide).  Returns (h^-1 rhs [vb, d] if rhs is given,
+    h^-1 [vb, d, d] if inverse, log det h [vb] if logdet), None for what was
+    not asked; rows that are not positive definite come back NaN."""
     vb, d, _ = h.shape
     dev = h.device
     _check("chol_small h", h, torch.float32, (vb, d, d), dev)
@@ -428,15 +586,17 @@ def chol_small(h, rhs=None, inverse=False, logdet=False):
         _check("chol_small rhs", rhs, torch.float32, (vb, d), dev)
     if dev.type == "cpu":
         return chol_small_plain(h, rhs, inverse, logdet)
-    if dev.type != "cuda" or d > 48:
-        raise ValueError(f"chol_small: unsupported device {dev} or d={d} > 48")
+    if dev.type != "cuda":
+        raise ValueError(f"chol_small: unsupported device {dev}")
+    _wide_d("chol_small", d)
     x = torch.empty((vb, d), dtype=torch.float32, device=dev) \
         if rhs is not None else None
     inv = torch.empty((vb, d, d), dtype=torch.float32, device=dev) \
         if inverse else None
     ld = torch.empty(vb, dtype=torch.float32, device=dev) if logdet else None
-    _cuda.launch("chol_small", h.data_ptr(), vb, d, _cuda.ptr(rhs),
-                 _cuda.ptr(x), _cuda.ptr(inv), _cuda.ptr(ld))
+    _cuda.launch("chol_small" if d <= 48 else "chol_small_wide", h.data_ptr(),
+                 vb, d, _cuda.ptr(rhs), _cuda.ptr(x), _cuda.ptr(inv),
+                 _cuda.ptr(ld))
     return x, inv, ld
 
 
@@ -454,8 +614,8 @@ def _logistic_core(pk, gw, feat, h0, rhs0, active, **design):
     equations (h0, rhs0) of the OLS start.  Each K3 call at beta_k gives
     ll_k, H_k and the gradient; convergence compares ll_{k+1} with ll_k,
     with the step-size fallback, and the reported SE comes from H of the
-    last solve.  `design` holds glm_irls_pass's sscale / offset / gmean.
-    Returns (beta, se, ll, conv, failed, unfinished, hinv)."""
+    last solve.  `design` holds glm_irls_pass's sscale / offset / gmean /
+    covj.  Returns (beta, se, ll, conv, failed, unfinished, hinv)."""
     vb = pk.shape[0]
     d = h0.shape[1]
     beta, _, _ = chol_small(h0, rhs=rhs0)
@@ -492,11 +652,12 @@ def _logistic_core(pk, gw, feat, h0, rhs0, active, **design):
 def _firth_core(pk, gw, feat, active, **design):
     """Batched Firth-penalised IRLS (plink_tpu _firth_core).  Per iteration:
     K3 logistic (v, H0, loglik) -> K4 (H0^-1, log det) -> K3 firth2
-    (ustar, H2) -> K4 (H2^-1); with d = 1 (the residualized design) K4
-    runs on 1 x 1 matrices.  `design` as in _logistic_core.  Returns (beta,
-    se, pll, conv, failed, unfinished, h2inv)."""
+    (ustar, H2) -> K4 (H2^-1) (K16 for K3 on the wide designs); with d = 1
+    (the residualized design) K4 runs on 1 x 1 matrices.  `design` as in
+    _logistic_core.  Returns (beta, se, pll, conv, failed, unfinished,
+    h2inv)."""
     vb = pk.shape[0]
-    d = feat.shape[1] - 1
+    d = feat.shape[1] - 2 + _gw3(gw).shape[1]
     dev = pk.device
     beta = torch.zeros((vb, d), dtype=torch.float32, device=dev)
     pll_old = torch.zeros(vb, dtype=torch.float64, device=dev)
@@ -579,61 +740,110 @@ def _collin_screen_device(momy, dc, np_=1):
     return ok | (nm <= d)
 
 
-def _mstats(momy, dc):
-    """Per-variant scalars of the moments [c | y | G | ADD]: ADD sum, ADD
-    sum of squares, ADD sum over cases, obs, cases."""
-    addc = dc + 2
+def _mstats(momy, dc, np_=1):
+    """Per-variant scalars of the moments [c | y | G_1..G_P | ADD]: ADD sum,
+    ADD sum of squares, ADD sum over cases, obs, cases."""
+    addc = dc + 1 + np_
     return torch.stack([momy[:, 0, addc], momy[:, addc, addc], momy[:, dc, addc],
                         momy[:, 0, 0], momy[:, 0, dc]], dim=1)
 
 
-def glm_logistic_scan(blocks, gws, gwms, feat, firth=False, sscale=None):
-    """Whole-dataset hybrid-GLM pass (plink_tpu glm_logistic_scan, ADD model):
-    per variant block the moments matrix (K2), then the logistic (or, with
-    `firth`, the Firth) IRLS from it.  blocks uint8 [nb, vb, NB], gws f32
-    [nb, vb, 1, 3], gwms f32 [nb, vb, 2, 3], feat f32 [npad, dc+2]; sscale
-    f32 [npad] multiplies every predictor column (K2 / K3 scaled modes).
+def _ols_start(momy, dc, np_):
+    """The IRLS start's normal equations from the moments (plink_tpu
+    `_glm_scan_body`): h0 = X^T X over valid samples, rhs0 = X^T z with
+    z = 4.8639 (y - 0.5)."""
+    idx = list(range(dc)) + [dc + 1 + p for p in range(np_)]
+    h0 = momy[:, idx][:, :, idx].contiguous()
+    rhs0 = (_Z_INIT * (momy[:, idx, dc] - 0.5 * momy[:, idx, 0])).contiguous()
+    return h0, rhs0
 
-    Returns, stacked over blocks: (momy [nb, vb, dc+3, dc+3], mstats
-    [nb, vb, 5], screen_ok, beta [nb, vb, d], se, conv, fail, unf, obs,
-    invalid, hinv [nb, vb, d, d]) with d = dc + 1."""
+
+def _with_add(gw3):
+    """The moments pass's weights: the model's predictors, then a last
+    column (its values only fill momy's last row and column)."""
+    return torch.cat([gw3, gw3[:, :1]], dim=1).contiguous()
+
+
+def glm_logistic_scan(blocks, gws, gwms, feat, firth=False, sscale=None,
+                      covj=None):
+    """Whole-dataset hybrid-GLM pass (plink_tpu glm_logistic_scan): per
+    variant block the moments matrix (K2 / K15), then the logistic (or, with
+    `firth`, the Firth) IRLS from it (K3 / K16, K4).  blocks uint8
+    [nb, vb, NB], gws f32 [nb, vb, P, 3], gwms f32 [nb, vb, P+1, 3] (the
+    model's predictors, then ADD), feat f32 [npad, dc+2]; sscale f32 [npad]
+    multiplies every predictor column; covj (P ints) multiplies G_p by
+    covariate column covj[p] (interaction terms; ADD takes none).
+
+    Returns, stacked over blocks: (momy [nb, vb, D, D] with D = dc + P + 2,
+    mstats [nb, vb, 5], screen_ok, beta [nb, vb, d], se, conv, fail, unf,
+    obs, invalid, hinv [nb, vb, d, d]) with d = dc + P."""
     dc = feat.shape[1] - 2
-    d = dc + 1
-    if gws.shape[2] != 1:
-        raise ValueError("glm_logistic_scan: one genotype predictor (ADD) only")
-    idx = list(range(dc)) + [dc + 1]
+    P = gws.shape[2]
+    d = dc + P
+    covj = _covj(covj, P)
     outs = []
     for bi in range(blocks.shape[0]):
         pk = blocks[bi]
-        gw = gws[bi, :, 0, :].contiguous()
-        momy = glm_moments(pk, gwms[bi].contiguous(), feat, sscale)
+        gw = gws[bi].contiguous()
+        momy = glm_moments(pk, gwms[bi].contiguous(), feat, sscale, covj + (0,))
         active = torch.ones(pk.shape[0], dtype=torch.bool, device=pk.device)
+        design = dict(sscale=sscale, covj=covj)
         if firth:
-            res = _firth_core(pk, gw, feat, active, sscale=sscale)
+            res = _firth_core(pk, gw, feat, active, **design)
         else:
-            h0 = momy[:, idx][:, :, idx].contiguous()
-            rhs0 = (_Z_INIT * (momy[:, idx, dc] - 0.5 * momy[:, idx, 0])).contiguous()
-            res = _logistic_core(pk, gw, feat, h0, rhs0, active, sscale=sscale)
+            h0, rhs0 = _ols_start(momy, dc, P)
+            res = _logistic_core(pk, gw, feat, h0, rhs0, active, **design)
         beta, se, _ll, conv, fail, unf, hinv = res
-        outs.append((momy, _mstats(momy, dc), _collin_screen_device(momy, dc),
+        outs.append((momy, _mstats(momy, dc, P), _collin_screen_device(momy, dc, P),
                      beta, se, conv, fail, unf, momy[:, 0, 0],
                      _valid_params_flags(hinv, d), hinv))
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
-def firth_irls_block(packed, gw, feat, active=None, sscale=None):
-    """Firth regression over one block (plink_tpu firth_irls_block, ADD
-    model) for the rows in `active` (all rows when None).  packed uint8
-    [vb, NB], gw f32 [vb, 1, 3].  Returns (beta, se, pll, conv, fail, unf,
-    obs, h2inv)."""
+def firth_irls_block(packed, gw, feat, active=None, sscale=None, covj=None):
+    """Firth regression over one block (plink_tpu firth_irls_block) for the
+    rows in `active` (all rows when None).  packed uint8 [vb, NB], gw f32
+    [vb, P, 3], covj as in glm_logistic_scan.  Returns (beta [vb, d], se,
+    pll, conv, fail, unf, obs, h2inv [vb, d, d])."""
     vb, nb = packed.shape
     if active is None:
         active = torch.ones(vb, dtype=torch.bool, device=packed.device)
     beta, se, pll, conv, fail, unf, h2inv = _firth_core(
-        packed, gw[:, 0, :].contiguous(), feat, active, sscale=sscale)
+        packed, gw.contiguous(), feat, active, sscale=sscale,
+        covj=_covj(covj, gw.shape[1]))
     cts = geno_counts(packed, feat[:, -1:].contiguous())[0]
     obs = (cts[:, :3].sum(dim=1)).to(torch.float32)
     return beta, se, pll, conv, fail, unf, obs, h2inv
+
+
+def design_moments_block(packed, gw, feat, covj=None, sscale=None):
+    """plink_tpu design_moments_block: X^T X over the valid samples of
+    [c | G_1..G_P] for one block -> f32 [vb, d, d].  feat is [c | mask]
+    (dc = feat.shape[1] - 1 columns of c), gw f32 [vb, P, 3].  One K2 / K15
+    pass (the table's last c column stands in K2's y slot, and the moments'
+    ADD column is dropped)."""
+    d = feat.shape[1] - 1 + gw.shape[1]
+    mom = glm_moments(packed, _with_add(gw), feat, sscale,
+                      _covj(covj, gw.shape[1]) + (0,))
+    return mom[:, :d, :d].contiguous()
+
+
+def logistic_irls_block(packed, gw, feat, covj=None, sscale=None):
+    """plink_tpu logistic_irls_block: the logistic IRLS of one block over
+    [c | G_1..G_P] from the OLS start (one K2 / K15 pass for it, then K3 /
+    K16 and K4 per iteration).  feat f32 [npad, dc+2] = [c | y | mask], gw
+    f32 [vb, P, 3].  Returns (beta, se, ll f64, conv, fail, unf, obs,
+    hinv)."""
+    dc = feat.shape[1] - 2
+    P = gw.shape[1]
+    covj = _covj(covj, P)
+    momy = glm_moments(packed, _with_add(gw), feat, sscale, covj + (0,))
+    h0, rhs0 = _ols_start(momy, dc, P)
+    active = torch.ones(packed.shape[0], dtype=torch.bool, device=packed.device)
+    beta, se, ll, conv, fail, unf, hinv = _logistic_core(
+        packed, gw.contiguous(), feat, h0, rhs0, active, sscale=sscale,
+        covj=covj)
+    return beta, se, ll, conv, fail, unf, momy[:, 0, 0], hinv
 
 
 # ---------------------------------------------------------------------------
@@ -641,50 +851,54 @@ def firth_irls_block(packed, gw, feat, active=None, sscale=None):
 # ---------------------------------------------------------------------------
 
 
-def _resid_start(momy, dc):
-    """The residualized design's per-variant mean and IRLS start from the
-    moments [c | y | G | ADD] (c[:, 0] the intercept).
+def _resid_start(momy, dc, np_=1):
+    """The residualized design's per-variant means and IRLS start from the
+    moments [c | y | G_1..G_P | ADD] (c[:, 0] the intercept).
 
-    plink_tpu's `_resid_body` takes mean_v = sum_valid(G s) / max(obs, 1) in
-    f32 over the samples, centres G' = (G s - mean_v) valid, and starts the
-    logistic IRLS from OLS on z = 4.8639 (y - 0.5) over the valid samples:
-    h0 = sum valid G'^2, rhs0 = sum z G' (`_logistic_core` with init=None;
-    the offset is not in that start).  Here both come in closed form from
-    K2's sums instead of a separate pass over the samples:
-        h0 = S2 - 2 m S1 + m^2 obs,
-        rhs0 = 4.8639 ((S_yG - m S_y) - 0.5 (S1 - m obs)),
-    S1 = sum v G s, S2 = sum v (G s)^2, S_yG = sum v y G s, S_y = sum v y,
-    computed in f64 from K2's f32 moments (the mean therefore differs from
-    plink_tpu's f32 sample sum in the last bits; the fits agree within the
-    GLM rule).  Returns (mean f32 [vb], h0 f32 [vb, 1, 1], rhs0 f32 [vb, 1])."""
+    plink_tpu's `_resid_body` takes mean_vp = sum_valid(G_p s) / max(obs, 1)
+    in f32 over the samples, centres G'_p = (G_p s - mean_vp) valid, and
+    starts the logistic IRLS from OLS on z = 4.8639 (y - 0.5) over the valid
+    samples: h0 = sum valid G' G'^T, rhs0 = sum z G' (`_logistic_core` with
+    init=None; the offset is not in that start).  Here both come in closed
+    form from K2's sums instead of a separate pass over the samples:
+        h0_pq = S2_pq - (m_p S1_q + S1_p m_q) + m_p m_q obs,
+        rhs0_p = 4.8639 ((S_yG_p - m_p S_y) - 0.5 (S1_p - m_p obs)),
+    S1_p = sum v G_p s, S2_pq = sum v G_p G_q s^2, S_yG_p = sum v y G_p s,
+    S_y = sum v y, computed in f64 from K2's f32 moments (the mean therefore
+    differs from plink_tpu's f32 sample sum in the last bits; the fits agree
+    within the GLM rule).  Returns (mean f32 [vb, P], h0 f32 [vb, P, P],
+    rhs0 f32 [vb, P])."""
     m64 = momy.to(torch.float64)
-    g = dc + 1
-    obs, s1, s2 = m64[:, 0, 0], m64[:, 0, g], m64[:, g, g]
-    sy, syg = m64[:, 0, dc], m64[:, dc, g]
-    mean = s1 / torch.clamp(obs, min=1.0)
-    h0 = s2 - 2.0 * mean * s1 + mean * mean * obs
-    rhs0 = _Z_INIT * ((syg - mean * sy) - 0.5 * (s1 - mean * obs))
-    return (mean.to(torch.float32), h0.to(torch.float32)[:, None, None],
-            rhs0.to(torch.float32)[:, None])
+    gi = [dc + 1 + p for p in range(np_)]
+    obs, s1, s2 = m64[:, 0, 0], m64[:, 0, gi], m64[:, gi][:, :, gi]
+    sy, syg = m64[:, 0, dc], m64[:, dc, gi]
+    mean = s1 / torch.clamp(obs, min=1.0)[:, None]
+    h0 = (s2 - (mean[:, :, None] * s1[:, None, :] + s1[:, :, None] * mean[:, None, :])
+          + mean[:, :, None] * mean[:, None, :] * obs[:, None, None])
+    rhs0 = _Z_INIT * ((syg - mean * sy[:, None]) - 0.5 * (s1 - mean * obs[:, None]))
+    return (mean.to(torch.float32).contiguous(), h0.to(torch.float32).contiguous(),
+            rhs0.to(torch.float32).contiguous())
 
 
 def glm_resid_scan(blocks, gws, gwms, feat, offset, firth=False, sscale=None):
     """Residualized whole-dataset pass (plink_tpu glm_resid_scan): per block
-    the moments of the full design [c | y | G | ADD] (K2, scaled by sscale
-    when given; the host's separation and A1 statistics are unchanged),
-    then the logistic (Firth with `firth`) IRLS of the residualized design
-    (K3 with dc = 0) with the null model's linear predictor `offset` f32
-    [npad] as a fixed term.  Returns the tuple of glm_logistic_scan with
-    d = 1 in beta / se / hinv; `invalid` is the diagonal-only check of the
-    residualized fit (a variance < 1e-20 or not finite)."""
+    the moments of the full design [c | y | G_1..G_P | ADD] (K2, scaled by
+    sscale when given; the host's separation and A1 statistics are
+    unchanged), then the logistic (Firth with `firth`) IRLS of the
+    residualized design (K3 with dc = 0, d = P) with the null model's linear
+    predictor `offset` f32 [npad] as a fixed term.  Returns the tuple of
+    glm_logistic_scan with d = P in beta / se / hinv; `invalid` is the
+    diagonal-only check of the residualized fit (a variance < 1e-20 or not
+    finite)."""
     dc = feat.shape[1] - 2
+    P = gws.shape[2]
     feat_r = feat[:, dc:].contiguous()  # [y | mask]
     outs = []
     for bi in range(blocks.shape[0]):
         pk = blocks[bi]
-        gw = gws[bi, :, 0, :].contiguous()
+        gw = gws[bi].contiguous()
         momy = glm_moments(pk, gwms[bi].contiguous(), feat, sscale)
-        mean, h0, rhs0 = _resid_start(momy, dc)
+        mean, h0, rhs0 = _resid_start(momy, dc, P)
         active = torch.ones(pk.shape[0], dtype=torch.bool, device=pk.device)
         design = dict(sscale=sscale, offset=offset, gmean=mean)
         if firth:
@@ -694,7 +908,7 @@ def glm_resid_scan(blocks, gws, gwms, feat, offset, firth=False, sscale=None):
         beta, se, _ll, conv, fail, unf, hinv = res
         dg = _diag(hinv)
         invalid = ((dg < 1e-20) | ~torch.isfinite(dg)).any(dim=1)
-        outs.append((momy, _mstats(momy, dc), _collin_screen_device(momy, dc),
+        outs.append((momy, _mstats(momy, dc, P), _collin_screen_device(momy, dc, P),
                      beta, se, conv, fail, unf, momy[:, 0, 0], invalid, hinv))
     return tuple(torch.stack(x) for x in zip(*outs))
 
@@ -702,21 +916,21 @@ def glm_resid_scan(blocks, gws, gwms, feat, offset, firth=False, sscale=None):
 def resid_irls_block(packed, gw, feat, offset, active=None, sscale=None):
     """Residualized Firth over one block (plink_tpu resid_irls_block with
     firth=True: the hybrid's Firth fallback under cc-residualize) for the
-    rows in `active`.  feat is the [c | y | mask] table (c[:, 0] the
-    intercept); the per-variant mean comes from one K2 pass over
-    [1 | y | mask].  Returns (beta [vb, 1], se, pll, conv, fail, unf, obs,
-    h2inv [vb, 1, 1])."""
+    rows in `active`.  gw f32 [vb, P, 3] (P <= 2); feat is the [c | y | mask]
+    table (c[:, 0] the intercept); the per-variant means come from one K2
+    pass over [1 | y | mask].  Returns (beta [vb, P], se, pll, conv, fail,
+    unf, obs, h2inv [vb, P, P])."""
     vb = packed.shape[0]
     dc = feat.shape[1] - 2
+    P = gw.shape[1]
     if active is None:
         active = torch.ones(vb, dtype=torch.bool, device=packed.device)
-    g = gw[:, 0, :].contiguous()
-    momy = glm_moments(packed, torch.stack([g, g], dim=1),
-                       feat[:, [0, dc, dc + 1]].contiguous(), sscale)
-    mean, _, _ = _resid_start(momy, 1)
+    momy = glm_moments(packed, _with_add(gw), feat[:, [0, dc, dc + 1]].contiguous(),
+                       sscale)
+    mean, _, _ = _resid_start(momy, 1, P)
     beta, se, pll, conv, fail, unf, h2inv = _firth_core(
-        packed, g, feat[:, dc:].contiguous(), active, sscale=sscale,
-        offset=offset, gmean=mean)
+        packed, gw.contiguous(), feat[:, dc:].contiguous(), active,
+        sscale=sscale, offset=offset, gmean=mean)
     return beta, se, pll, conv, fail, unf, momy[:, 0, 0], h2inv
 
 

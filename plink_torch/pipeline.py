@@ -30,7 +30,7 @@ _PORTED_FIELDS = {
     # --glm's chrX coding and its covariate / phenotype transforms
     "xchr_model", "xchr_model_set", "covar_variance_standardize",
     "variance_standardize", "quantile_normalize", "pheno_quantile_normalize",
-    "covar_quantile_normalize",
+    "covar_quantile_normalize", "condition", "condition_list",
     "output_chr", "seed", "silent", "threads", "memory", "argv",
     # sample and variant filters
     "keep", "remove", "keep_founders", "keep_nonfounders", "mind",

@@ -2,8 +2,9 @@
 small shapes: sample counts that leave a ragged last byte (the unaligned
 decode path) or a ragged tile, variant counts that are not a multiple of the
 64-variant block (or of K5's 256-row chunk), every covariate width the
-kernels are built for, inactive rows and masked-out variants, and matrix
-sizes up to the 48-column limit of chol_small.
+kernels are built for, inactive rows and masked-out variants, the designs
+with two genotype columns (K2 / K3) and with G x covariate columns (K15 /
+K16), and matrix sizes up to the 96-column limit of chol_small.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card, from the
 repository root (the repo's conftest imports jax, which that machine lacks):
@@ -232,7 +233,7 @@ def test_xm1_stats_kernel(dev, n, V):
     assert torch.equal(k, xm1_stats(pk, wt, mask))
 
 
-@pytest.mark.parametrize("d", [1, 2, 5, 13, 17, 30, 48])
+@pytest.mark.parametrize("d", [1, 2, 5, 13, 17, 30, 48, 49, 64, 96])
 def test_chol_small_kernel(dev, d):
     from plink_torch.ops.glm import chol_small, chol_small_plain
 
@@ -275,10 +276,13 @@ def test_sample_counts_kernel(dev, n, vb, dc):
             assert torch.equal(k, sample_counts(pk, m, het_hom))
 
 
+@pytest.mark.parametrize("swap", [False, True], ids=["alt", "a1_ref"])
 @pytest.mark.parametrize("n,vb,dc", SHAPES)
-def test_linear_sums_kernel(dev, n, vb, dc):
+def test_linear_sums_kernel(dev, n, vb, dc, swap):
     """K6 against its plain version run in f64, each entry normalised by a
-    Cauchy-Schwarz bound on its plane sum; two runs give identical bytes."""
+    Cauchy-Schwarz bound on its plane sum; two runs give identical bytes.
+    With `swap`, a seeded half of the variants have A1 = REF (their hom-REF
+    plane summed in place of hom-ALT)."""
     from plink_torch.ops.glm import linear_sums, linear_sums_plain
     from plink_torch.ops.planes import unpack_codes
 
@@ -290,10 +294,14 @@ def test_linear_sums_kernel(dev, n, vb, dc):
     ccfl = (c[:, :, None] * c[:, None, :]).reshape(-1, dc * dc)
     ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
            for a in (ccfl, c * y[:, None], y * y)]
-    k = linear_sums(pk, *(t.float() for t in ins))
-    again = linear_sums(pk, *(t.float() for t in ins))
-    r = linear_sums_plain(pk, *ins)
+    a1r = torch.from_numpy(np.random.default_rng(9).random(vb) < 0.5).to(dev) \
+        if swap else None
+    k = linear_sums(pk, *(t.float() for t in ins), a1r)
+    again = linear_sums(pk, *(t.float() for t in ins), a1r)
+    r = linear_sums_plain(pk, *ins, a1r)
     codes = unpack_codes(pk)
+    if swap:
+        codes = torch.where(a1r[:, None] & (codes % 2 == 0), 2 - codes, codes)
     for code, p_ in ((1, "h"), (2, "a"), (3, "m")):
         dg = torch.diagonal(r[p_ + "cc"].reshape(vb, dc, dc), dim1=1,
                             dim2=2).clamp(min=1e-30)
@@ -525,3 +533,170 @@ def test_ld_gram_pair_kernel(dev, n, ca, cb):
         assert got.shape == (3 * a.shape[0], 3 * b.shape[0])
         assert torch.equal(got, ld_gram_pair_plain(a, b, sm))
         assert torch.equal(got, ld_gram_pair(a, b, sm))
+
+
+# ---------------------------------------------------------------------------
+# several genotype columns: K2 / K3 with P = 2, K15 / K16
+# ---------------------------------------------------------------------------
+
+
+def _design(gw, dc, design):
+    """Plane weights [vb, P, 3] and covj of a test design over the dc
+    covariates: 'p2' = (ADD, DOMDEV) (K2 / K3 P = 2), 'interaction' = ADD and
+    ADD x each non-intercept covariate (K15 / K16 once dc > 1), 'p2_scaled'
+    = p2 with a per-sample multiplier (K15 / K16)."""
+    g = torch.from_numpy(gw)
+    dom = torch.zeros_like(g)
+    dom[:, 0] = 1.0
+    if design.startswith("p2"):
+        return torch.stack([g, dom], 1).contiguous(), (0, 0)
+    return torch.stack([g] * dc, 1).contiguous(), tuple(range(dc))
+
+
+JOINT = ["p2", "interaction", "p2_scaled"]
+
+
+def _expect_mode(before, kernel, design, dc):
+    """The mode a launch of `kernel` ('moments' / 'irls') went to."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.glm import P2_MAX_DC
+
+    wide = design != "p2" or dc > P2_MAX_DC
+    if design == "interaction" and dc == 1:
+        return  # a single column with no covariate factor: K2 / K3
+    name = f"glm_{kernel}_{'wide' if wide else 'p2'}"
+    assert _cuda.LAUNCHES[name] > before.get(name, 0), (name, _cuda.LAUNCHES)
+
+
+@pytest.mark.parametrize("design", JOINT)
+@pytest.mark.parametrize("n,vb,dc", SHAPES)
+def test_glm_moments_joint_kernel(dev, n, vb, dc, design):
+    """K2 with two model columns and K15 (G x covariate columns, scaled)
+    against the plain version; no atomics."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.glm import glm_moments, glm_moments_plain
+
+    packed, feat, gw = _inputs(n, vb, dc, 22)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    g3, covj = _design(gw, dc, design)
+    gwm = torch.cat([g3, g3[:, :1]], 1).contiguous().to(dev)
+    s = torch.from_numpy(_sscale(n, feat.shape[0], 23)).to(dev) \
+        if design == "p2_scaled" else None
+    before = dict(_cuda.LAUNCHES)
+    k = glm_moments(pk, gwm, f, s, covj + (0,))
+    _expect_mode(before, "moments", design, dc)
+    assert _mat_err(k, glm_moments_plain(pk, gwm, f, s, covj + (0,))) <= TOL
+    assert torch.equal(k, glm_moments(pk, gwm, f, s, covj + (0,)))
+
+
+@pytest.mark.parametrize("design", JOINT)
+@pytest.mark.parametrize("n,vb,dc", SHAPES)
+@pytest.mark.parametrize("mode", ["logistic", "firth2"])
+def test_glm_irls_pass_joint_kernel(dev, n, vb, dc, mode, design):
+    """K3 with two genotype columns and K16 (G x covariate columns, scaled)
+    against the plain version, inactive rows zero, two runs identical."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.glm import chol_small, glm_irls_pass, glm_irls_pass_plain
+
+    packed, feat, gw = _inputs(n, vb, dc, 24)
+    rng = np.random.default_rng(25)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    g3, covj = _design(gw, dc, design)
+    g3 = g3.to(dev)
+    d = dc + g3.shape[1]
+    s = torch.from_numpy(_sscale(n, feat.shape[0], 26)).to(dev) \
+        if design == "p2_scaled" else None
+    beta = torch.from_numpy(rng.normal(scale=0.2 / d ** 0.5, size=(vb, d))
+                            .astype(np.float32)).to(dev)
+    active = torch.from_numpy(rng.random(vb) < 0.8).to(dev)
+    design_kw = dict(sscale=s, covj=covj)
+    hinv = None
+    if mode == "firth2":
+        h, _, _ = glm_irls_pass(pk, g3, f, beta, torch.ones_like(active),
+                                **design_kw)
+        _, hinv, _ = chol_small(h, inverse=True)
+        # a variant with no hom-ALT call has DOMDEV = ADD: H is singular, and
+        # with few the hat value x^T Hinv x cancels terms of size cond(H), so
+        # two f32 evaluations agree to the rule only where cond(H) < 1e4
+        active &= torch.linalg.cond(h.double()) < 1e4
+    before = dict(_cuda.LAUNCHES)
+    k = glm_irls_pass(pk, g3, f, beta, active, hinv, **design_kw)
+    _expect_mode(before, "irls", design, dc)
+    p = glm_irls_pass_plain(pk, g3, f, beta, active, hinv, **design_kw)
+    _k3_compare(*k, *p, active, n)
+    again = glm_irls_pass(pk, g3, f, beta, active, hinv, **design_kw)
+    assert torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])
+
+
+@pytest.mark.parametrize("n,vb,dc", SHAPES)
+@pytest.mark.parametrize("mode", [0, 1], ids=["logistic", "firth2"])
+def test_glm_irls_wide_equals_k3_on_one_column(dev, n, vb, dc, mode):
+    """K16 on the one-column design K3 takes: the same sums to f32 rounding
+    (the same per-entry sample order and arithmetic; the f64 loglik is
+    added in another order)."""
+    from plink_torch.ops.glm import _splits, _wide, chol_small, glm_irls_pass
+
+    packed, feat, gw = _inputs(n, vb, dc, 27)
+    rng = np.random.default_rng(28)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    g3 = torch.from_numpy(gw)[:, None, :].contiguous().to(dev)
+    d = dc + 1
+    beta = torch.from_numpy(rng.normal(scale=0.3, size=(vb, d))
+                            .astype(np.float32)).to(dev)
+    active = torch.from_numpy(rng.random(vb) < 0.8).to(dev)
+    hinv = None
+    if mode == 1:
+        h, _, _ = glm_irls_pass(pk, g3, f, beta, torch.ones_like(active))
+        _, hinv, _ = chol_small(h, inverse=True)
+    km, kv, kl = glm_irls_pass(pk, g3, f, beta, active, hinv)
+    wm = torch.empty_like(km)
+    wv = torch.empty_like(kv)
+    wl = torch.empty_like(kl) if kl is not None else None
+    _wide(mode, pk, f, dc, g3, (0,), *_splits(f.shape[0]), beta=beta, hinv=hinv,
+          active=active, out_mat=wm, out_vec=wv, out_ll=wl)
+    assert _mat_err(wm[active], km[active]) <= 1e-6
+    scale = torch.sqrt(torch.diagonal(km, dim1=1, dim2=2).clamp(min=1e-30) * n)
+    assert float(((wv - kv).abs() / scale)[active].max()) <= 1e-6
+    if kl is not None:
+        assert float(((wl - kl).abs() / kl.abs().clamp(min=1.0))[active].max()) <= 1e-12
+
+
+@pytest.mark.parametrize("n,vb", [(203, 70), (1000, 64), (4099, 130), (517, 9)])
+@pytest.mark.parametrize("mode", ["logistic", "firth2"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain", "sscale"])
+def test_glm_irls_pass_resid_p2_kernel(dev, n, vb, mode, scaled):
+    """K3's residualized design with two columns (`genotypic
+    cc-residualize`) against its plain version, the means from K2's sums as
+    glm_resid_scan takes them."""
+    from plink_torch.ops.glm import (_resid_start, chol_small, glm_irls_pass,
+                                     glm_irls_pass_plain, glm_moments)
+
+    packed, feat, gw = _inputs(n, vb, 1, 29)
+    rng = np.random.default_rng(30)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    g3, _ = _design(gw, 1, "p2")
+    g3 = g3.to(dev)
+    s = torch.from_numpy(_sscale(n, feat.shape[0], 31)).to(dev) if scaled else None
+    off = np.zeros(feat.shape[0], np.float32)
+    off[:n] = rng.normal(scale=0.5, size=n)
+    off = torch.from_numpy(off).to(dev)
+    mean, _, _ = _resid_start(glm_moments(pk, torch.cat([g3, g3[:, :1]], 1)
+                                          .contiguous(), f, s), 1, 2)
+    fr = f[:, 1:].contiguous()  # [y | mask]
+    beta = torch.from_numpy(rng.normal(scale=0.3, size=(vb, 2))
+                            .astype(np.float32)).to(dev)
+    active = torch.from_numpy(rng.random(vb) < 0.8).to(dev)
+    design = dict(sscale=s, offset=off, gmean=mean)
+    hinv = None
+    if mode == "firth2":
+        h, _, _ = glm_irls_pass(pk, g3, fr, beta, torch.ones_like(active), **design)
+        _, hinv, _ = chol_small(h, inverse=True)
+        active &= torch.linalg.cond(h.double()) < 1e4  # as in the joint test
+    k = glm_irls_pass(pk, g3, fr, beta, active, hinv, **design)
+    p = glm_irls_pass_plain(pk, g3, fr, beta, active, hinv, **design)
+    assert k[0].shape == (vb, 2, 2)
+    _k3_compare(*k, *p, active, n)

@@ -25,7 +25,8 @@ def _cli(args, cwd, device="cpu", extra_env=None):
 
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
-    """A 40-sample x 24-variant panel with a SEX + 1 covariate file and a
+    """A 40-sample x 24-variant panel with a SEX + 1 covariate file, a
+    48-covariate file (`interaction` then has d = 98 > 96) and a
     quantitative phenotype file."""
     from plink_torch.bench_gen import gen_panel, make_cov
 
@@ -38,6 +39,11 @@ def tiny(tmp_path_factory):
         f.write("#IID\tQT1\n")
         for i in range(40):
             f.write(f"per{i}\t{rng.normal():.4f}\n")
+    with open(prefix + ".wide.cov", "w") as f:
+        f.write("#IID\t" + "\t".join(f"W{j}" for j in range(48)) + "\n")
+        for i in range(40):
+            f.write(f"per{i}\t" + "\t".join(f"{x:.4f}" for x in rng.normal(size=48))
+                    + "\n")
     return prefix
 
 
@@ -69,12 +75,13 @@ def test_bad_device_name_refused(tiny, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("args", [
     ["--blocks", "no-pheno-req"],
     ["--freq", "cols=+machr2"],
-    ["--glm", "interaction", "--covar", "{p}.cov"],
-    ["--glm", "cc-residualize", "hide-covar", "genotypic", "--covar",
-     "{p}.cov"],
+    # the logistic design 1 + 48 + 1 + 48 is wider than the CUDA kernels take
+    ["--glm", "interaction", "--covar", "{p}.wide.cov"],
+    ["--glm", "cc-residualize", "hide-covar", "genotypic", "firth", "aperm",
+     "--covar", "{p}.cov"],
     ["--glm", "--covar", "{p}.cov", "--maf", "0.01", "--af-pseudocount", "1"],
-    ["--glm", "hide-covar", "qt-residualize", "dominant", "--covar", "{p}.cov",
-     "--pheno", "{p}.qt"],
+    ["--glm", "hide-covar", "qt-residualize", "dominant", "mperm=10",
+     "--covar", "{p}.cov", "--pheno", "{p}.qt"],
 ], ids=["blocks", "freq", "interaction", "cc-residualize", "maf-filter",
         "quantitative"])
 def test_unported_flag_says_so(tiny, tmp_path, args, monkeypatch, capsys):

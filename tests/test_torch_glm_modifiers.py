@@ -115,13 +115,16 @@ ERRORS = {
     "firth_residualize_no_firth": ["firth-residualize", "no-firth",
                                    "hide-covar"],
 }
-# what later slices port: plink_torch says so (rc 2)
+# what later slices port: plink_torch says so (rc 2); the genotype models,
+# interaction and --condition run since the joint-models slice, so their
+# cases carry what is still unported (permutation, local covariates)
 LATER = {
-    "genotypic": ["--glm", "genotypic", "hide-covar"],
-    "interaction": ["--glm", "interaction"],
+    "genotypic": ["--glm", "genotypic", "firth", "aperm", "hide-covar"],
+    "interaction": ["--glm", "interaction", "local-covar=gp.cov"],
     "aperm": ["--glm", "firth", "aperm", "hide-covar"],
     "mperm": ["--glm", "firth", "mperm=10", "hide-covar"],
-    "condition": ["--glm", "hide-covar", "--condition", "snp3"],
+    "condition": ["--glm", "firth", "mperm=10", "hide-covar", "--condition",
+                  "snp3"],
 }
 
 

@@ -124,6 +124,35 @@ def test_linear_sums_plain_matches_jax(geno_factory):
                                    rtol=1e-5, atol=1e-4, err_msg=key)
 
 
+def test_linear_sums_a1_ref_swaps_the_hom_planes(geno_factory):
+    """K6's plain version with a1_ref: a flagged variant's sums are those of
+    its codes with hom-REF and hom-ALT swapped, bit for bit; the others
+    are untouched."""
+    from plink_torch.ops.glm import linear_sums
+    from plink_tpu.ops.pairwise import _pack_np
+
+    rng = np.random.default_rng(10)
+    codes = geno_factory(V, N, missing_rate=0.05)
+    a1r = rng.random(V) < 0.5
+    swapped = np.where(a1r[:, None] & (codes % 2 == 0), 2 - codes, codes)
+    npad = -(-N // 4) * 4
+    dc = 3
+    c = np.zeros((npad, dc))
+    c[:N] = np.column_stack([np.ones(N), rng.normal(size=(N, dc - 1))])
+    y = np.zeros(npad)
+    y[:N] = rng.normal(size=N)
+    ins = [torch.from_numpy(a.astype(np.float32)) for a in (
+        (c[:, :, None] * c[:, None, :]).reshape(npad, dc * dc), c * y[:, None],
+        y * y)]
+    got = linear_sums(torch.from_numpy(_pack_np(codes, npad)), *ins,
+                      torch.from_numpy(a1r))
+    want = linear_sums(torch.from_numpy(_pack_np(swapped.astype(np.uint8), npad)),
+                       *ins)
+    assert a1r.any() and not a1r.all()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
 def test_qc_wrappers_refuse_other_devices():
     """K5 and K6 run their plain versions only for CPU tensors: on any
     other device they launch their kernel or raise, never fall back."""
