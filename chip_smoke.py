@@ -103,6 +103,29 @@ Slice 7 (the --glm joint models) adds, in the order they run:
      whose floats alone differ held to numpy f64 at one of the stops an
      f32 fit can take under plink2's rules).
 
+Slice 8 (the dosage --glm, --dummy, widths past 96) adds, in the order they
+run:
+  3d. the port's own `--dummy 500000 512 0.02 dosage-freq=0.7 --seed 42`
+     writes the dosage panel (SEX + 10 PCs .cov, seed 43; QT1, seed 44; the
+     generator's time printed apart); K17 (dosage moments) and K18
+     (logistic at the OLS start, firth2 at beta = 0) on its first 512
+     variants against their plain versions in f32 (every row) and f64
+     (JOINT_F64_ROWS rows); K15 / K16 at d = 128 (`interaction` over 63
+     covariates, each variant's tiles split over two CTAs) on 8 variants of
+     phase 4's panel and K4 at d = 128 and 250 (the device-memory
+     workspace), against their plain versions;
+  4d. `--glm hide-covar --covar` (logistic-hybrid) and the linear `--glm
+     hide-covar` on QT1 over the 500,000 x 512 dosage panel: K17, K18 and
+     K4 must have launched (K17 for the linear), every one of their
+     launches is kept and run again against its plain version, 64 rows of
+     each report against numpy f64 fits of the dosage design; the logistic
+     path traced;
+  17d. the dosage --glm on a 4,500 x 600 dosage panel, CUDA against CPU
+     on 200 of its variants (hybrid, firth with K18's firth2, no-firth,
+     qt-residualize, and the host route's genotypic and interaction), and
+     `interaction` over 48 covariates (d = 98) on 64 variants of the parity
+     panel; two card runs byte-identical.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
 without the plink_torch package beside this script.
@@ -164,6 +187,19 @@ XM1_LINEAR_KERNELS = ("linear_sums",)
 N_CHECK_ROWS = 64  # report rows of each slice-6/7 path checked against numpy f64
 JOINT_VARIANTS = 2_048  # variants of the joint-model paths' panel (one block)
 JOINT_F64_ROWS = 256  # rows of each joint-model kernel check also held to f64
+# the dosage paths (slice 8): the port's own --dummy writes a 500,000-sample
+# panel with dosage tracks on 70% of the calls; variants cut 16,384 -> 512,
+# one block of the path (the generator and the host's per-variant dosage
+# decode set the time: at 1,024 variants the script ran past 1,000 s); the
+# kernel checks take that block
+DOSAGE_VARIANTS = 512
+DOSAGE_DUMMY = ["--dummy", str(N_SAMPLES), str(DOSAGE_VARIANTS), "0.02",
+                "dosage-freq=0.7", "--seed", "42"]
+DOSAGE_BLOCK = 512  # variants a block of the dosage path at 500,000 samples
+DOSAGE_KERNELS = ("geno_counts", "glm_dense_moments", "glm_dense_irls",
+                  "chol_small")
+DOSAGE_PARITY = (4_500, 600, 7)  # samples (>= 4,096: device rows), variants, seed
+WIDE128_ROWS = 8  # variants of the d = 128 K15 / K16 checks
 QC_KERNELS = ("geno_counts", "sample_counts", "linear_sums")
 # the relationship cells: bench.py's king_50k / grm_50k panel (p50000x32768,
 # seed 42, 2% missing calls; bench.py:455-463,593-596), full width
@@ -3254,6 +3290,653 @@ def run_parity(tmp):
         os.environ.pop("PLINK_TORCH_DEVICE", None)
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the dosage --glm (K17 / K18), --dummy, and K15 / K16 / K4 past
+# d = 96
+# ---------------------------------------------------------------------------
+
+
+def dosage_panel(tmp):
+    """The dosage paths' panel, written by the port's own --dummy
+    (DOSAGE_DUMMY: 500,000 x DOSAGE_VARIANTS, 2% missing calls, 70% of the
+    calls with a dosage), its SEX + 10 PCs .cov (make_cov, seed 43) and
+    <prefix>.qt with a Gaussian QT1 (numpy seed 44).  The generator loops
+    over variants on the host; its time is printed apart (it is not the
+    path's)."""
+    import numpy as np
+
+    from plink_torch import cli
+    from plink_torch.bench_gen import make_cov
+
+    dprefix = os.path.join(tmp, "dpanel")
+    t0 = time.perf_counter()
+    os.environ["PLINK_TORCH_DEVICE"] = "cpu"  # the generator is host-only
+    try:
+        assert cli.main(DOSAGE_DUMMY + ["--out", dprefix, "--silent"]) == 0
+    finally:
+        os.environ.pop("PLINK_TORCH_DEVICE")
+    make_cov(dprefix, 43)
+    qt = np.random.default_rng(44).normal(size=N_SAMPLES)
+    with open(dprefix + ".qt", "w") as f:
+        f.write("#IID\tQT1\n")
+        f.writelines(f"per{i}\t{v:.6f}\n" for i, v in enumerate(qt))
+    log(f"dosage panel (plink_torch {' '.join(DOSAGE_DUMMY)}): "
+        f"{time.perf_counter() - t0:.1f}s (the generator, not a path)")
+    return dprefix
+
+
+def dosage_inputs(torch, dprefix, dev, n_variants):
+    """The dosage design of the panel's first n_variants variants as the
+    dosage path builds it: uint16 A1 dosages (A1 = ALT) [n_variants, npad]
+    and the table [1 | SEX | PC1..PC10 | PHENO1 | mask] f32 [npad, 14]."""
+    import numpy as np
+
+    from plink_torch.commands.glm_dosage import a1_dosages
+    from plink_torch.dataset import load_dataset
+
+    ds = load_dataset(dprefix, torch.device("cpu"))
+    n = ds.raw_sample_ct
+    npad = -(-n // 128) * 128
+    inc = np.arange(n)
+    U = a1_dosages(ds, range(n_variants), inc, np.ones(n_variants, bool))
+    dos = torch.full((n_variants, npad), 65535, dtype=torch.uint16)
+    dos[:, :n] = torch.from_numpy(U)
+    cov = np.loadtxt(dprefix + ".cov", skiprows=1, usecols=range(1, 12))
+    feat = np.zeros((npad, 14), np.float32)
+    feat[:n, 0] = 1.0
+    feat[:n, 1:12] = cov
+    feat[:n, 12] = ds.si.phenos["PHENO1"].data
+    feat[:n, 13] = 1.0
+    return dos.to(dev), torch.from_numpy(feat).to(dev)
+
+
+def dense_errs(torch, G, dos, feat, kind, out, args, sub):
+    """A K17 / K18 result `out` on (dos, feat, *args) against the plain
+    version in f32 (every row; chunked) and in f64 (rows `sub`), each entry
+    normalised by its Cauchy-Schwarz bound: (err vs plain, err vs f64,
+    largest absolute difference)."""
+    dc = feat.shape[1] - 2
+    if kind == "moments":
+        p = chunked(torch, lambda sl: G.glm_dense_moments_plain(dos[sl], feat),
+                    dos.shape[0], 128)
+        r = G.glm_dense_moments_plain(dos[sub], feat.double())
+        return (norm_err(torch, out, p, mat_scale(torch, p.double())),
+                norm_err(torch, out[sub], r, mat_scale(torch, r)),
+                float((out - p).abs().max()))
+    beta, active, hinv = args
+    km, kv, kl = out
+
+    def plain(sl, dt=torch.float32):
+        return G.glm_dense_irls_plain(dos[sl], feat.to(dt), beta[sl].to(dt),
+                                      active[sl],
+                                      None if hinv is None else hinv[sl].to(dt))
+
+    pm, pv, pl = chunked(torch, plain, dos.shape[0], 128)
+    rm, rv, _ = plain(sub, torch.float64)
+    # X^T r against sqrt(sum valid x_j^2 * obs) (|r| <= 1 + h)
+    mom = G.glm_dense_moments_plain(dos, feat)
+    idx = list(range(dc)) + [dc + 1]
+    vscale = torch.sqrt(torch.diagonal(mom[:, idx][:, :, idx], dim1=1, dim2=2)
+                        .clamp(min=1e-30) * mom[:, :1, 0])
+    assert not km[~active].any() and not kv[~active].any()
+    # rows with samples; a row whose beta is not finite (a fit that failed)
+    # gives NaN on both sides
+    on = active & (mom[:, 0, 0] > 0)
+    fin = torch.isfinite(pm).flatten(1).all(1) & torch.isfinite(pv).all(1)
+    assert torch.equal(fin[on], (torch.isfinite(km).flatten(1).all(1)
+                                 & torch.isfinite(kv).all(1))[on])
+    on &= fin
+    son = on[sub].clone()
+    if hinv is not None:  # the hat value cancels terms of size cond(H0)
+        son &= torch.linalg.cond(hinv[sub].double()) < 1e4
+    em = norm_err(torch, km[on], pm[on], mat_scale(torch, pm[on].double()))
+    ev = norm_err(torch, kv[on], pv[on], vscale[on])
+    emr = norm_err(torch, km[sub][son], rm[son], mat_scale(torch, rm[son]))
+    evr = norm_err(torch, kv[sub][son], rv[son], vscale[sub][son])
+    if kl is not None:
+        el = float(((kl - pl).abs() / pl.abs().clamp(min=1.0))[on].max())
+        assert el <= TOL_LOGLIK, el
+    return (max(em, ev), max(emr, evr),
+            float(max((km - pm)[on].abs().max(), (kv - pv)[on].abs().max())))
+
+
+def check_dense_kernels(torch, dev, dprefix):
+    """Phase 3d: K17 and K18 (logistic at the OLS start, firth2 at beta = 0)
+    on the dosage panel's first DOSAGE_BLOCK variants x 500,000 samples,
+    SEX + 10 PCs (dc = 12), against their plain versions in f32 (every row)
+    and f64 (JOINT_F64_ROWS rows), two runs identical, timed beside their
+    bound and one library call (the decoded valid plane and dosage block by
+    the per-sample table)."""
+    from plink_torch.ops import glm as G
+
+    vb = DOSAGE_BLOCK
+    dos, feat = dosage_inputs(torch, dprefix, dev, vb)
+    dc = feat.shape[1] - 2
+    npad = feat.shape[0]
+    sub = slice(0, JOINT_F64_ROWS)
+    valid, g = G._dense_cols(dos, feat[:, -1])
+    n_valid = float(valid.sum())
+    rows = []
+
+    k = G.glm_dense_moments(dos, feat)
+    (e, er, mx), pms = timed(torch, lambda: dense_errs(torch, G, dos, feat,
+                                                       "moments", k, (), sub))
+    ints = [0, dc]  # obs and the case counts: integers, exact both sides
+    p = G.glm_dense_moments_plain(dos[:64], feat)
+    assert torch.equal(k[:64][:, ints][:, :, ints], p[:, ints][:, :, ints])
+    assert e <= TOL_VS_PLAIN and er <= TOL_VS_F64, ("K17", e, er)
+    assert torch.equal(k, G.glm_dense_moments(dos, feat)), "K17 runs differ"
+    ms = time_ms(torch, lambda: G.glm_dense_moments(dos, feat), 5)
+    D = dc + 2
+    bound = _bound(n_valid * D * (D + 1), dos.numel() * 2
+                   + (feat.numel() + k.numel()) * 4)
+    t = feat[:, : dc + 1]
+    ccfl = (t[:, :, None] * t[:, None, :]).reshape(npad, -1)
+    vg = torch.cat([valid, g])
+    libms = time_ms(torch, lambda: torch.matmul(vg, ccfl), 3)
+    log(f"K17 glm_dense_moments [{vb}x{npad}, D={D}]: norm err vs plain {e:.2e}, "
+        f"vs f64 ({JOINT_F64_ROWS} rows) {er:.2e}, counts exact, two runs "
+        f"identical; {ms:.3f} ms, plain {pms:.1f} ms (with the f64 rows), bound "
+        f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), library "
+        f"{libms:.3f} ms")
+    rows.append(dict(name="glm_dense_moments", source="plink_torch/csrc/glm_dense.cu",
+                     replaces="plink_tpu/ops/glm.py:689", max_abs_err=mx,
+                     max_norm_err=e, tol=TOL_VS_PLAIN, max_norm_err_f64=er,
+                     tol_f64=TOL_VS_F64, ms=ms, plain_ms=pms, **bound,
+                     library_ms=libms))
+
+    h0, rhs0 = G._ols_start(k, dc, 1)
+    beta0, _, _ = G.chol_small(h0, rhs=rhs0)
+    active = torch.isfinite(beta0).all(dim=1)
+    zero = torch.zeros_like(beta0)
+    Hz, _, _ = G.glm_dense_irls(dos, feat, zero, active)
+    _, hz_inv, _ = G.chol_small(Hz, inverse=True)
+    active &= torch.isfinite(hz_inv).flatten(1).all(dim=1)
+    assert float(active.float().mean()) > 0.9, int(active.sum())
+    out = {}
+    tc = feat[:, :dc]
+    cc = (tc[:, :, None] * tc[:, None, :]).reshape(npad, -1)
+    libi = time_ms(torch, lambda: torch.matmul(vg, cc), 3)
+    for mode, beta, hinv in (("logistic", beta0, None), ("firth2", zero, hz_inv)):
+        res = G.glm_dense_irls(dos, feat, beta, active, hinv)
+        (e, er, mx), pms = timed(torch, lambda: dense_errs(
+            torch, G, dos, feat, "irls", res, (beta, active, hinv), sub))
+        assert e <= TOL_VS_PLAIN and er <= TOL_VS_F64, ("K18", mode, e, er)
+        again = G.glm_dense_irls(dos, feat, beta, active, hinv)
+        assert torch.equal(res[0], again[0]) and torch.equal(res[1], again[1])
+        ms = time_ms(torch, lambda: G.glm_dense_irls(dos, feat, beta, active,
+                                                     hinv), 3)
+        d = dc + 1
+        ntri = d * (d + 1) // 2
+        ops = n_valid * (2 * ntri + 4 * d + 12 + (2 * ntri if hinv is not None else 0))
+        nbytes = dos.numel() * 2 + (feat.numel() + vb * (d * d + 2 * d + 5)
+                                    + (vb * d * d if hinv is not None else 0)) * 4
+        bound = _bound(ops, nbytes)
+        log(f"K18 glm_dense_irls {mode} [{vb}x{npad}, d={d}, {int(active.sum())} "
+            f"rows active]: norm err vs plain {e:.2e}, vs f64 {er:.2e}, two runs "
+            f"identical; {ms:.3f} ms, plain {pms:.1f} ms (with the f64 rows), "
+            f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), library "
+            f"{libi:.3f} ms")
+        out[mode] = dict(max_abs_err=mx, max_norm_err=e, max_norm_err_f64=er,
+                         ms=ms, plain_ms=pms, **bound)
+    la, lf = out["logistic"], out["firth2"]
+    rows.append(dict(name="glm_dense_irls", source="plink_torch/csrc/glm_dense.cu",
+                     replaces="plink_tpu/ops/glm.py:655", **la, tol=TOL_VS_PLAIN,
+                     tol_f64=TOL_VS_F64, firth2_ms=lf["ms"],
+                     firth2_plain_ms=lf["plain_ms"], firth2_bound_ms=lf["bound_ms"],
+                     firth2_max_norm_err=lf["max_norm_err"], library_ms=libi))
+    return rows
+
+
+def check_wide128(torch, dev, prefix):
+    """Phase 3d, the widths past 96: K15 / K16 (logistic and firth2) on the
+    `interaction` design over 63 seeded Gaussian covariates (dc = 64, d =
+    128: each variant's tile list split over two CTAs) for the main panel's
+    first WIDE128_ROWS variants x 500,000 samples, and K4 at d = 128 and
+    250 (the device-memory workspace) on seeded SPD matrices, against their
+    plain versions.  Returns {row name: fields to add}."""
+    import numpy as np
+
+    from plink_torch.ops import glm as G
+
+    packed_all, feat12, _ = main_path_inputs(torch, prefix, dev)
+    vb = WIDE128_ROWS
+    pk = packed_all[:vb].contiguous()
+    npad = feat12.shape[0]
+    n = N_SAMPLES
+    rng = np.random.default_rng(64)
+    cov = np.zeros((npad, 63), np.float32)
+    cov[:n] = rng.normal(size=(n, 63))
+    feat = torch.cat([feat12[:, :1], torch.from_numpy(cov).to(dev),
+                      feat12[:, 12:]], 1).contiguous()  # [1 | 63 | y | mask]
+    dc = 64
+    add = torch.zeros((vb, 3), dtype=torch.float32, device=dev)
+    add[:, 0], add[:, 1] = 1.0, 2.0
+    gw3 = torch.stack([add] * dc, 1).contiguous()
+    covj = tuple(range(dc))
+    gwm = torch.cat([gw3, add[:, None]], 1).contiguous()
+    out = {}
+    k = G.glm_moments(pk, gwm, feat, None, covj + (0,))
+    p, pms = timed(torch, lambda: G.glm_moments_plain(pk, gwm, feat, None,
+                                                      covj + (0,)))
+    e = norm_err(torch, k, p, mat_scale(torch, p.double()))
+    assert e <= TOL_VS_PLAIN and torch.equal(
+        k, G.glm_moments(pk, gwm, feat, None, covj + (0,))), ("K15 d=128", e)
+    ms = time_ms(torch, lambda: G.glm_moments(pk, gwm, feat, None, covj + (0,)), 3)
+    n_valid = float((unpack_codes(pk) != 3).sum())
+    D = k.shape[1]
+    bound = _bound(n_valid * D * (D + 1), pk.numel() + (feat.numel() + k.numel()) * 4)
+    log(f"K15 moments d=128 [{vb}x{npad}, D={D}]: norm err vs plain {e:.2e}, "
+        f"two runs identical; {ms:.3f} ms, plain {pms:.1f} ms, bound "
+        f"{bound['bound_ms']:.3f} ms")
+    out["glm_moments_wide"] = dict(d128_ms=ms, d128_plain_ms=pms,
+                                   d128_bound_ms=bound["bound_ms"],
+                                   d128_max_norm_err=e)
+    h0, rhs0 = G._ols_start(k, dc, dc)
+    beta0, _, _ = G.chol_small(h0, rhs=rhs0)
+    act = torch.ones(vb, dtype=torch.bool, device=dev)
+    zero = torch.zeros_like(beta0)
+    Hz, _, _ = G.glm_irls_pass(pk, gw3, feat, zero, act, covj=covj)
+    _, hz_inv, _ = G.chol_small(Hz, inverse=True)
+    vscale = torch.sqrt(torch.diagonal(h0, dim1=1, dim2=2).clamp(min=1e-30)
+                        * k[:, :1, 0])
+    fields = {}
+    for mode, beta, hinv in (("logistic", beta0, None), ("firth2", zero, hz_inv)):
+        km, kv, kl = G.glm_irls_pass(pk, gw3, feat, beta, act, hinv, covj=covj)
+        (pm, pv, pl), pms = timed(torch, lambda: G.glm_irls_pass_plain(
+            pk, gw3, feat, beta, act, hinv, covj=covj))
+        em = norm_err(torch, km, pm, mat_scale(torch, pm.double()))
+        ev = norm_err(torch, kv, pv, vscale)
+        el = 0.0 if kl is None else float(((kl - pl).abs() / pl.abs()).max())
+        assert max(em, ev) <= TOL_VS_PLAIN and el <= TOL_LOGLIK, (mode, em, ev, el)
+        again = G.glm_irls_pass(pk, gw3, feat, beta, act, hinv, covj=covj)
+        assert torch.equal(km, again[0]) and torch.equal(kv, again[1]), mode
+        ms = time_ms(torch, lambda: G.glm_irls_pass(pk, gw3, feat, beta, act, hinv,
+                                                    covj=covj), 3)
+        d = 128
+        ntri = d * (d + 1) // 2
+        ops = n_valid * (2 * ntri + 4 * d + 12 + (2 * ntri if hinv is not None else 0))
+        bound = _bound(ops, pk.numel() + (feat.numel() + vb * (2 * d * d + 2 * d + 5))
+                       * 4)
+        log(f"K16 {mode} d=128 [{vb}x{npad}]: norm err vs plain H {em:.2e} vec "
+            f"{ev:.2e}, loglik rel {el:.2e}, two runs identical; {ms:.3f} ms, "
+            f"plain {pms:.1f} ms, bound {bound['bound_ms']:.3f} ms")
+        pre = "d128_" if mode == "logistic" else "d128_firth2_"
+        fields.update({pre + "ms": ms, pre + "plain_ms": pms,
+                       pre + "bound_ms": bound["bound_ms"]})
+    out["glm_irls_wide"] = fields
+    for d, nm in ((128, 2048), (250, 256)):
+        a = torch.from_numpy(np.random.default_rng(d).normal(size=(nm, d, d))).to(dev)
+        h = (a @ a.transpose(1, 2) / d + torch.eye(d, device=dev,
+                                                    dtype=torch.float64)).float()
+        rhs = h[:, :, 0].contiguous()
+        kx, ki, kd = G.chol_small(h, rhs=rhs, inverse=True, logdet=True)
+        (px, pi, pdet), pms = timed(torch, lambda: G.chol_small_plain(h, rhs, True,
+                                                                      True))
+        ex = float(((kx - px).abs().amax(1) / px.abs().amax(1)).max())
+        ei = float(((ki - pi).abs().amax((1, 2)) / pi.abs().amax((1, 2))).max())
+        ed = float(((kd - pdet).abs() / pdet.abs().clamp(min=1.0)).max())
+        assert max(ex, ei, ed) <= TOL_CHOL, (d, ex, ei, ed)
+        ms = time_ms(torch, lambda: G.chol_small(h, rhs=rhs, inverse=True,
+                                                 logdet=True), 3)
+        bound = _bound(nm * (d ** 3 / 3 + 2 * d * d + d ** 3),
+                       nm * (2 * d * d + 2 * d + 1) * 4)
+        log(f"K4 chol_small [{nm},{d},{d}]{' (device-memory workspace)' if d > 240 else ''}"
+            f": rel err solve {ex:.2e} inverse {ei:.2e} logdet {ed:.2e}; "
+            f"{ms:.4f} ms, plain {pms:.1f} ms, bound {bound['bound_ms']:.4f} ms")
+        out.setdefault("chol_small_wide", {}).update(
+            {f"d{d}_ms": ms, f"d{d}_plain_ms": pms, f"d{d}_bound_ms": bound["bound_ms"]})
+    return out
+
+
+@contextlib.contextmanager
+def keeping(torch, module, names):
+    """Wrap the kernel wrappers `names` where `module` looks them up,
+    keeping a copy of every call's arguments (a large tensor that several
+    calls share unchanged is copied once).  Yields {name: [(args, kwargs)]}.
+    Unlike `spying`, it copies: the dosage path refills one device buffer
+    for every block."""
+    real = {n: getattr(module, n) for n in names}
+    calls = {n: [] for n in names}
+    big = {}
+
+    def keep(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if t.numel() * t.element_size() < 1 << 26:
+            return t.clone()
+        key = (t.data_ptr(), t._version, tuple(t.shape), t.dtype)
+        if key not in big:
+            big[key] = t.clone()
+        return big[key]
+
+    def wrap(n):
+        def spy(*args, **kw):
+            calls[n].append(([keep(a) for a in args],
+                             {k: keep(v) for k, v in kw.items()}))
+            return real[n](*args, **kw)
+        return spy
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(module, n, real[n])
+
+
+def check_dense_calls(torch, calls, label):
+    """Every K17 / K18 / K4 launch a dosage path made, launched again on
+    its inputs: K17 / K18 against the plain version in f32 (every row) and
+    f64 (JOINT_F64_ROWS rows), K4 against its plain version on the rows an
+    f32 factor resolves (cond < 1e4).  Returns a note."""
+    from plink_torch.ops import glm as G
+
+    sub = slice(0, JOINT_F64_ROWS)
+    worst = {"K17": 0.0, "K18": 0.0, "K4": 0.0}
+    for args, kw in calls["glm_dense_moments"]:
+        e, er, _ = dense_errs(torch, G, *args, "moments",
+                              G.glm_dense_moments(*args), (), sub)
+        assert e <= TOL_VS_PLAIN and er <= TOL_VS_F64, (label, "K17", e, er)
+        worst["K17"] = max(worst["K17"], e, er)
+    for args, kw in calls["glm_dense_irls"]:
+        dos, feat, beta, active = args[:4]
+        hinv = kw.get("hinv", args[4] if len(args) > 4 else None)
+        res = G.glm_dense_irls(dos, feat, beta, active, hinv)
+        e, er, _ = dense_errs(torch, G, dos, feat, "irls", res,
+                              (beta, active, hinv), sub)
+        assert e <= TOL_VS_PLAIN and er <= TOL_VS_F64, (label, "K18", e, er)
+        worst["K18"] = max(worst["K18"], e, er)
+    for args, kw in calls["chol_small"]:
+        h = args[0]
+        rhs = kw.get("rhs", args[1] if len(args) > 1 else None)
+        inv, ld = kw.get("inverse", False), kw.get("logdet", False)
+        k = G.chol_small(h, rhs, inv, ld)
+        p = G.chol_small_plain(h, rhs, inv, ld)
+        fh = torch.isfinite(h).flatten(1).all(1)  # a failed fit's H is NaN
+        eye = torch.eye(h.shape[1], dtype=torch.float64, device=h.device)
+        good = fh & (torch.linalg.cond(torch.where(fh[:, None, None], h.double(),
+                                                   eye)) < 1e4)
+        for a, b in zip(k, p):
+            if a is None or not good.any():
+                continue
+            a, b = a[good].flatten(1), b[good].flatten(1)
+            e = float(((a - b).abs().amax(1) / b.abs().amax(1).clamp(min=1e-30)).max())
+            assert e <= TOL_CHOL, (label, "K4", e)
+            worst["K4"] = max(worst["K4"], e)
+    n = {k: len(v) for k, v in calls.items()}
+    return (f"{label}: every launch held to its plain version (K17 {n['glm_dense_moments']}"
+            f", K18 {n['glm_dense_irls']}, K4 {n['chol_small']} calls; worst norm "
+            f"err {worst['K17']:.2e} / {worst['K18']:.2e}, K4 rel {worst['K4']:.2e})")
+
+
+def dosage_fits(ds, C, r, col, y, firth):
+    """numpy f64 fits of a dosage report row's variant over [C | A1 dosage]
+    and its valid samples: ([{"ADD": (OR or BETA, SE, Z or T, P)}] at every
+    stop an f32 fit can take (f64_logit, slack 10; least squares for a
+    linear row), OBS_CT, A1 dosage sum)."""
+    import numpy as np
+    from scipy.special import ndtr, stdtr
+
+    from plink_torch.testing import f64_logit
+
+    g = ds.dosage_row(int(r[col["ID"]][3:]))  # ID snp<v>
+    if r[col["A1"]] != r[col["ALT"]]:
+        g = 2.0 - g
+    keep = np.isfinite(g)
+    nobs = int(keep.sum())
+    X = np.column_stack([C[keep], g[keep]])
+    if "BETA" in col:
+        xtx_inv = np.linalg.inv(X.T @ X)
+        b = xtx_inv @ (X.T @ y[keep])
+        res = y[keep] - X @ b
+        se = np.sqrt(res @ res / (nobs - X.shape[1]) * np.diag(xtx_inv))
+        t = b[-1] / se[-1]
+        wants = [{"ADD": (b[-1], se[-1], t, 2.0 * stdtr(nobs - X.shape[1], -abs(t)))}]
+    else:
+        wants = [{"ADD": (math.exp(b[-1]), se[-1], b[-1] / se[-1],
+                          2.0 * ndtr(-abs(b[-1] / se[-1])))}
+                 for b, se, _ in f64_logit(X, y[keep], firth=firth, slack=10.0)]
+    return wants, nobs, float(g[keep].sum())
+
+
+def dosage_design(dprefix):
+    """(the panel's Dataset on the CPU, [1 | SEX | PC1..PC10] f64)."""
+    import numpy as np
+    import torch
+
+    from plink_torch.dataset import load_dataset
+
+    cov = np.loadtxt(dprefix + ".cov", skiprows=1, usecols=range(1, 12))
+    return (load_dataset(dprefix, torch.device("cpu")),
+            np.column_stack([np.ones(len(cov)), cov]))
+
+
+def check_dosage_rows(dprefix, label, path, y, n_rows):
+    """n_rows rows of a dosage report (FIRTH?=Y rows first, then rows spread
+    over it) against numpy f64 fits of [1 | SEX | PC1..PC10 | A1 dosage]
+    over the variant's valid samples (dosage_fits): OBS_CT and A1_FREQ
+    exact, the floats by hold_to_f64's rule."""
+    from plink_torch.utils.fmt import g6
+
+    ds, C = dosage_design(dprefix)
+    hdr, rows = read_report(path)
+    col = {c: hdr.index(c) for c in hdr}
+    ok = [r for r in rows if r[col["ERRCODE"]] == "."]
+    fi = col.get("FIRTH?")
+    pick = [r for r in ok if fi is not None and r[fi] == "Y"][: n_rows // 2]
+    rest = [r for r in ok if r not in pick]
+    pick += rest[:: max(1, len(rest) // max(1, n_rows - len(pick)))][: n_rows - len(pick)]
+    worst = 0.0
+    for r in pick:
+        wants, nobs, gsum = dosage_fits(ds, C, r, col, y,
+                                        fi is not None and r[fi] == "Y")
+        assert r[col["A1_FREQ"]] == g6(gsum / (2 * nobs)), (label, r)
+        worst = max(worst, hold_to_f64(label, [r], col, wants, nobs))
+    firth_y = sum(1 for r in pick if fi is not None and r[fi] == "Y")
+    log(f"{label}: {len(pick)} rows ({firth_y} FIRTH?=Y) = numpy f64 fits of the "
+        f"dosage design: OBS_CT and A1_FREQ exact, floats within {worst:.3f} of "
+        f"their tolerance; {len(rows) - len(ok)} rows with an ERRCODE skipped")
+
+
+def dosage_argvs(dprefix):
+    """The dosage paths: label -> (argv, report extension, kernels that
+    must launch)."""
+    base = ["--pfile", dprefix, "--covar", dprefix + ".cov"]
+    return {
+        "dosage_logistic": (base + ["--glm", "hide-covar"],
+                            "PHENO1.glm.logistic.hybrid", DOSAGE_KERNELS),
+        "dosage_linear": (base + ["--pheno", dprefix + ".qt", "--glm", "hide-covar"],
+                          "QT1.glm.linear", ("glm_dense_moments",)),
+    }
+
+
+def run_dosage_paths(torch, dprefix, tmp, card):
+    """Phase 4d: `--glm hide-covar --covar` (logistic-hybrid on PHENO1) and
+    the linear `--glm hide-covar` on QT1 over the 500,000 x
+    DOSAGE_VARIANTS dosage panel: their kernels must have launched, every
+    K17 / K18 / K4 launch is kept and held to its plain version, 64 rows of
+    each report against numpy f64 fits; the logistic path is traced.
+    Returns {label: launches}."""
+    import numpy as np
+
+    from plink_torch.ops import glm as G
+
+    y = np.loadtxt(dprefix + ".psam", skiprows=1, usecols=2, dtype=str)
+    ys = {"dosage_logistic": (y == "2").astype(float),
+          "dosage_linear": np.loadtxt(dprefix + ".qt", skiprows=1, usecols=1)}
+    found = {}
+    for label, (argv, ext, expect) in dosage_argvs(dprefix).items():
+        out = os.path.join(tmp, label)
+        with keeping(torch, G, ("glm_dense_moments", "glm_dense_irls",
+                                "chol_small")) as calls:
+            wall, launches = drive(torch, argv + ["--out", out, "--silent"], out)
+        assert all(launches[k] > 0 for k in expect), (label, launches)
+        found[label] = launches
+        hdr, rows = read_report(f"{out}.{ext}")
+        assert len(rows) == DOSAGE_VARIANTS, len(rows)
+        errs = {}
+        for r in rows:
+            errs[r[hdr.index("ERRCODE")]] = errs.get(r[hdr.index("ERRCODE")], 0) + 1
+        firth_y = sum(r[hdr.index("FIRTH?")] == "Y" for r in rows) \
+            if "FIRTH?" in hdr else 0
+        log(f"{label} path: {N_SAMPLES} samples x {DOSAGE_VARIANTS} variants: "
+            f"{wall:.2f}s wall, {DOSAGE_VARIANTS / wall:.0f} variants/s on {card}; "
+            f"ERRCODE {errs}, FIRTH?=Y {firth_y}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        t0 = time.perf_counter()
+        log("  " + check_dense_calls(torch, calls, label)
+            + f" ({time.perf_counter() - t0:.1f}s)")
+        del calls
+        torch.cuda.empty_cache()
+        check_dosage_rows(dprefix, f"{label} rows", f"{out}.{ext}", ys[label],
+                          N_CHECK_ROWS)
+    trace_path(torch, dosage_argvs(dprefix)["dosage_logistic"][0]
+               + ["--out", os.path.join(tmp, "dosage_traced"), "--silent"],
+               "dosage logistic")
+    return found
+
+
+def run_dosage_parity(tmp):
+    """Phase 17d: the dosage --glm on the first 200 variants of a
+    DOSAGE_PARITY dosage panel (n >= 4,096: the device rows are reported),
+    CUDA against CPU by compare_reports (BETA against its SE): hybrid, firth
+    (K18's firth2 must launch), no-firth, qt-residualize and the host
+    route's genotypic and interaction, each writing the logistic and the
+    linear report; then `interaction` over 48 covariates (d = 98) on the
+    hard-call parity panel's first 64 variants (the panel generator is
+    counter-based: a 64-variant panel of its seed; the port scans every
+    variant of a fileset, so an --extract of the whole panel would cost the
+    d = 98 CPU reference ~1,200 variants' plain fits).  Two card runs of
+    each give the same bytes."""
+    import numpy as np
+
+    from plink_torch import cli
+    from plink_torch.bench_gen import make_cov
+
+    n, m, seed = DOSAGE_PARITY
+    prefix = os.path.join(tmp, "dsmall")
+    os.environ["PLINK_TORCH_DEVICE"] = "cpu"
+    try:
+        assert cli.main(["--dummy", str(n), str(m), "0.02", "dosage-freq=0.7",
+                         "--seed", str(seed), "--out", prefix, "--silent"]) == 0
+    finally:
+        os.environ.pop("PLINK_TORCH_DEVICE")
+    make_cov(prefix, seed + 1)
+    qt = np.random.default_rng(seed + 2).normal(size=n)
+    with open(prefix + ".qt", "w") as f:
+        f.write("#IID\tQT1\n")
+        f.writelines(f"per{i}\t{v:.6f}\n" for i, v in enumerate(qt))
+    write_both(prefix, prefix + ".both")
+    small = os.path.join(tmp, "small64")
+    make_panel(small, SMALL[0], 64, SMALL[2])
+    write_both(small, small + ".both")
+    rng = np.random.default_rng(65)
+    with open(small + ".psam") as f:
+        ids = [ln.split("\t", 1)[0] for ln in f][1:]
+    with open(small + ".wide48.cov", "w") as f:
+        f.write("#IID\t" + "\t".join(f"W{j}" for j in range(48)) + "\n")
+        for i in ids:
+            f.write(i + "\t" + "\t".join(f"{x:.5f}" for x in rng.normal(size=48))
+                    + "\n")
+    # the dosage cases take 200 of the panel's variants, for the script's
+    # time (the host route fits every variant in f64 on both sides)
+    with open(prefix + ".ext200", "w") as f:
+        f.writelines(f"snp{v}\n" for v in range(200))
+    ds, C = dosage_design(prefix)
+    both = {p: np.loadtxt(p + ".both", skiprows=1, usecols=(1, 2))
+            for p in (prefix, small)}
+    C48 = np.loadtxt(small + ".wide48.cov", skiprows=1, usecols=range(1, 49))
+    held = []
+
+    def refit_of(label, ext):
+        """A variant whose CUDA floats alone differ from the CPU run's is held
+        to numpy f64 at one of the stops an f32 fit can take: the additive
+        dosage design (dosage_fits), or the hard-call interaction design
+        over the 48 covariates (f64_variant)."""
+        yb = both[small if label == "interaction_d98" else prefix]
+        y = yb[:, 1] if "QT1" in ext else (yb[:, 0] == 2).astype(float)
+
+        def refit(rows, col):
+            fi = col.get("FIRTH?")
+            firth = ext.endswith("glm.firth") or (fi is not None and rows[0][fi] == "Y")
+            if label == "interaction_d98":
+                wants, nobs = f64_variant(small, rows, col, {"interaction"}, C48,
+                                          [f"W{j}" for j in range(48)],
+                                          np.ones(len(y), bool), y, firth)
+            else:
+                assert label not in ("genotypic", "interaction"), (label, rows)
+                wants, nobs, _ = dosage_fits(ds, C, rows[0], col, y, firth)
+            hold_to_f64(f"parity dosage {label} {rows[0][col['ID']]}", rows, col,
+                        wants, nobs)
+            held.append(rows[0][col["ID"]])
+
+        return refit
+
+    logi, lin = "PHENO1.glm.logistic.hybrid", "QT1.glm.linear"
+    base = ["--pfile", prefix, "--pheno", prefix + ".both", "--covar", prefix + ".cov",
+            "--extract", prefix + ".ext200"]
+    cases = (
+        ("hybrid", base + ["--glm", "hide-covar"], [logi, lin], ()),
+        ("firth", base + ["--glm", "firth", "hide-covar"], ["PHENO1.glm.firth", lin],
+         ("glm_dense_firth",)),
+        ("no_firth", base + ["--glm", "no-firth"], ["PHENO1.glm.logistic", lin], ()),
+        ("qt_residualize", base + ["--glm", "qt-residualize", "hide-covar"],
+         [logi, lin], ()),
+        ("genotypic", base + ["--glm", "genotypic", "hide-covar"], [logi, lin], ()),
+        ("interaction", base + ["--glm", "interaction"], [logi, lin], ()),
+        ("interaction_d98", ["--pfile", small, "--pheno", small + ".both", "--covar",
+                             small + ".wide48.cov", "--glm", "interaction",
+                             "hide-covar"],
+         [logi, lin], ("glm_moments_wide", "glm_irls_wide", "chol_small_wide")),
+    )
+    # 64-variant blocks: four blocks of the dosage panel's 200 variants (the
+    # last one partial), and one of the d = 98 case's 64 (a block of the
+    # default 2,048 rows would make its CPU reference 32 times longer)
+    os.environ["PLINK_TORCH_VB"] = "64"
+    try:
+        for label, args, exts, must in cases:
+            run_dosage_parity_case(tmp, label, args, exts, must, refit_of, held)
+    finally:
+        os.environ.pop("PLINK_TORCH_VB")
+
+
+def run_dosage_parity_case(tmp, label, args, exts, must, refit_of, held):
+    """One case of phase 17d: two card runs and a CPU run of `args`, the
+    kernels `must` launched, the reports `exts` compared."""
+    from plink_torch import cli
+    from plink_torch.ops import _cuda
+
+    outs, secs, launches = {}, {}, {}
+    for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"), ("cuda2", "cuda")):
+        os.environ["PLINK_TORCH_DEVICE"] = devname
+        outs[tag] = os.path.join(tmp, f"dosage_{tag}_{label}")
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(args + ["--out", outs[tag], "--silent"])
+        finally:
+            os.environ.pop("PLINK_TORCH_DEVICE")
+        assert rc == 0, (label, tag, rc)
+        secs[tag] = time.perf_counter() - t0
+        launches[tag] = dict(_cuda.LAUNCHES)
+    assert all(launches["cuda1"][k] > 0 for k in must), (label, launches["cuda1"])
+    held.clear()
+    worst = max(compare_reports(f"{outs['cuda1']}.{e}", f"{outs['cpu']}.{e}",
+                                beta_by_se=True, refit=refit_of(label, e))
+                for e in exts)
+    for e in exts:
+        assert filecmp.cmp(f"{outs['cuda1']}.{e}", f"{outs['cuda2']}.{e}",
+                           shallow=False), ("two CUDA runs differ", label, e)
+    log(f"parity dosage {label}: CUDA = CPU ({' '.join(exts)}; floats within "
+        f"{worst:.2f} of their tolerance; {len(held)} variants whose floats "
+        f"differ held to numpy f64 instead {held}), two CUDA runs "
+        f"byte-identical; "
+        f"launches {({k: v for k, v in launches['cuda1'].items() if v})}; "
+        f"CUDA {secs['cuda1']:.1f}s, CPU {secs['cpu']:.1f}s")
+
+
 def joint_panel(tmp):
     """The joint-model paths' panel: 500,000 x JOINT_VARIANTS, made as the
     main panel (seed 42, its covariates and QT1)."""
@@ -3303,6 +3986,15 @@ def main(argv=None):
         rows += check_joint_kernels(torch, dev, prefix)
         torch.cuda.empty_cache()
         phase_secs["joint-model kernels"] = time.perf_counter() - t0
+        t0 = stamp("dosage kernels and widths past 96")
+        dprefix = dosage_panel(tmp)
+        rows += check_dense_kernels(torch, dev, dprefix)
+        torch.cuda.empty_cache()
+        wide128 = check_wide128(torch, dev, prefix)
+        for r in rows:
+            r.update(wide128.get(r["name"], {}))
+        torch.cuda.empty_cache()
+        phase_secs["dosage kernels"] = time.perf_counter() - t0
         t0 = stamp("--glm modifier kernel modes")
         rows += check_modifier_kernels(torch, dev, prefix)
         torch.cuda.empty_cache()
@@ -3331,6 +4023,9 @@ def main(argv=None):
         paths.update(run_joint_paths(torch, joint_panel(tmp), tmp, card,
                                      JOINT_VARIANTS))
         phase_secs["joint-model paths"] = time.perf_counter() - t0
+        t0 = stamp("dosage paths")
+        paths.update(run_dosage_paths(torch, dprefix, tmp, card))
+        phase_secs["dosage paths"] = time.perf_counter() - t0
         stamp("pair kernels")
         from plink_torch.bench_gen import gen_panel
 
@@ -3397,9 +4092,12 @@ def main(argv=None):
         t0 = stamp("joint-model parity")
         run_joint_parity(tmp, os.path.join(tmp, "small"), *SMALL[:2])
         phase_secs["joint-model parity"] = time.perf_counter() - t0
+        t0 = stamp("dosage parity")
+        run_dosage_parity(tmp)
+        phase_secs["dosage parity"] = time.perf_counter() - t0
         stamp("done")
-        log("slice-6/7 phases: " + ", ".join(f"{k} {v:.1f}s"
-                                             for k, v in phase_secs.items()))
+        log("slice-6/7/8 phases: " + ", ".join(f"{k} {v:.1f}s"
+                                               for k, v in phase_secs.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lib_names = {"glm_irls_pass": "glm_irls"}
@@ -3409,6 +4107,8 @@ def main(argv=None):
                    for p, ln in paths.items()}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
+        if r["name"] == "glm_dense_irls":  # K18's firth2 mode on the paths
+            r["firth2_launches"] = sum(ln["glm_dense_firth"] for ln in paths.values())
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ Sex-chromosome conventions (matching the reference):
 - chrX: females contribute 2 alleles, males 1 (het male X = "hethap",
   treated as missing); chrY: only males, haploid; MT: haploid for all.
 
-Not yet ported (each raises NotPortedError): dosage tracks and the --freq
-machr2/minimac3r2 columns.
+Dosage tracks enter only the --glm A1 choice (`alt_allele_freqs(...,
+dosage=True)`).  Not yet ported (each raises NotPortedError): dosage tracks
+in the reports and filters, and the --freq machr2/minimac3r2 columns.
 """
 
 from __future__ import annotations
@@ -81,13 +82,40 @@ def _refuse_dosage(ds: Dataset) -> None:
         raise NotPortedError("dosage tracks are not yet ported to plink_torch")
 
 
-def alt_allele_freqs(ds: Dataset, founders_only: bool = True) -> np.ndarray:
+def alt_allele_freqs(ds: Dataset, founders_only: bool = True,
+                     dosage: bool = False) -> np.ndarray:
     """ALT allele frequencies (founders by default, the reference's
-    MAF-filter convention); hardcalls only."""
-    _refuse_dosage(ds)
+    MAF-filter convention).  With `dosage` (the --glm A1 choice), variants
+    carrying a dosage track take their frequency from the dosages, as
+    plink_tpu's alt_allele_freqs does; the other callers (filters, KING,
+    GRM, PCA, LD) refuse a dosage fileset until their slice is ported."""
+    if not dosage:
+        _refuse_dosage(ds)
     alt, obs = allele_counts_and_obs(ds, founders_only)
+    if ds.has_dosage:
+        for v, (a_, o_) in dosage_counts_and_obs(ds, founders_only).items():
+            alt[v], obs[v] = a_, o_
     with np.errstate(invalid="ignore", divide="ignore"):
         return np.where(obs > 0, alt / obs, np.nan)
+
+
+def dosage_counts_and_obs(ds: Dataset, founders_only: bool):
+    """Dosage-aware (alt_dosage_sum, obs_allele_ct) for variants carrying a
+    dosage track (plink_tpu dosage_counts_and_obs; LoadAlleleAndGenoCounts
+    dosage branch: a sample counts as observed when it has a dosage entry or
+    a nonmissing hardcall).  Autosomal accounting only; returns {v: (alt,
+    obs)}."""
+    smask = ds.sample_mask & (ds.founder_mask if founders_only else True)
+    vr = ds.reader.header.vrtypes
+    out = {}
+    for v in np.flatnonzero(ds.variant_mask & ((vr & 0x60) != 0)):
+        u = ds.dosage_u16_row(int(v))[smask]
+        miss = int(np.count_nonzero(u == 65535))
+        # an integer sum of the 1/16384 units: the f64 sum of the dosages,
+        # exactly (every partial sum of these dyadics is exact)
+        alt = (int(u.sum(dtype=np.int64)) - 65535 * miss) / 16384.0
+        out[int(v)] = (alt, 2.0 * (u.size - miss))
+    return out
 
 
 def _provref_strs(ds: Dataset):

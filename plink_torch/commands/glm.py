@@ -19,18 +19,18 @@ The device passes are ops/glm.py: kernels K2-K4 (logistic; K3's
 residualized design for cc-/firth-residualize, K2/K3's scaled design and
 K14 for --xchr-model 1; K2/K3 with two genotype columns for genotypic and
 hethom; K15/K16 for `interaction`, whose G x covariate columns carry a
-covariate factor, and for any design too wide for K2/K3) and K6 (the
-linear plane sums, solved per variant in f64 on the host for every model
-and interaction design; run twice more with s- and s^2-scaled tables under
---xchr-model 1); the A1 choice counts with K1.  Rows the f32 device fit
-cannot resolve to reference precision are refitted per variant in f64 on
-the host, as in plink_tpu; on panels of at most 65,536 samples every row
-of a joint (GENO_2DF) model is.  --condition / --condition-list add the
+covariate factor, and for any design too wide for K2/K3, at any width) and
+K6 (the linear plane sums, solved per variant in f64 on the host for every
+model and interaction design; run twice more with s- and s^2-scaled tables
+under --xchr-model 1); the A1 choice counts with K1.  A fileset with
+dosage tracks takes glm_dosage.py's route (K17 / K18 / K4).  Rows the f32
+device fit cannot resolve to reference precision are refitted per variant
+in f64 on the host, as in plink_tpu; on panels of at most 65,536 samples
+every row of a joint (GENO_2DF) model is.  --condition / --condition-list add the
 named variants' A1 dosages as leading covariates.
 
-Not yet ported (each raises NotPortedError): dosage, permutation (aperm,
-mperm=, permute-qt-residuals), local covariates, and logistic designs
-wider than d = 96 (the CUDA kernels' limit).
+Not yet ported (each raises NotPortedError): permutation (aperm, mperm=,
+permute-qt-residuals) and local covariates.
 """
 
 from __future__ import annotations
@@ -223,9 +223,6 @@ _GLM_PORTED_MODS = _GLM_MODEL_MODS | {
 }
 # the rest of what plink_tpu's --glm accepts: later slices of the port
 _GLM_LATER_MODS = {"aperm", "permute-qt-residuals"}
-# widest logistic design (covariates incl. intercept + genotype columns)
-# the CUDA kernels take (ops/glm.py WIDE_MAX_D)
-_MAX_LOGISTIC_D = 96
 _GLM_LATER_PREFIXES = ("mperm=", "local-covar=", "local-psam=", "local-pvar=")
 _GLM_KNOWN_UNSUPPORTED_MODS = {
     "zs", "local-omit-last", "local-haps", "local-cats",
@@ -575,16 +572,15 @@ def run_glm(ds: Dataset, cfg, log: RunLogger) -> None:
     always_firth = "firth" in mods
     no_firth = "no-firth" in mods
 
-    if ds.has_dosage:
-        raise NotPortedError("--glm on dosage data is not yet ported to "
-                             "plink_torch.")
     mark = _phase_timer(log)
     cov_names, cov_data, cov_nonmiss = _load_covars(ds, cfg, log)
     phenos = _load_phenos(ds, cfg, log)
     mark("covariates+phenotypes")
 
-    # A1 selection (minor allele unless omit-ref)
-    freqs = alt_allele_freqs(ds, founders_only=not cfg.nonfounders)
+    # A1 selection (minor allele unless omit-ref; from the dosages where a
+    # variant has them)
+    freqs = alt_allele_freqs(ds, founders_only=not cfg.nonfounders,
+                             dosage=True)
     a1_is_alt = np.ones(ds.raw_variant_ct, bool) if omit_ref else ~(freqs > 0.5)
     mark("A1 counts")
     if cfg.condition or cfg.condition_list:
@@ -647,6 +643,18 @@ def run_glm(ds: Dataset, cfg, log: RunLogger) -> None:
             qt_resid = "qt-residualize" in mods
             fit = partial(_glm_linear, ds, cfg, log, name,
                           a1_is_alt=a1_is_alt, hide_covar=hide_covar)
+        if ds.has_dosage:
+            # plink_tpu's dosage route: no ploidy groups, qt-residualize
+            # before the pheno-ids file (glm_dosage.py)
+            from .glm_dosage import glm_dosage
+
+            if qt_resid:
+                ydata, p_names, p_data = _qt_residualize(ydata, smask, p_data)
+            if "pheno-ids" in mods:
+                _write_pheno_ids(ds, cfg, log, name, rsuffix, smask, None)
+            glm_dosage(ds, cfg, log, name, ydata, smask, p_names, p_data,
+                       a1_is_alt, hide_covar, kind, always_firth, no_firth)
+            continue
         report = f"{cfg.out}.{name}.{rsuffix}"
         # fit(phenotype, sample mask, covariate names, covariate data,
         #     **pass options)
@@ -1428,10 +1436,6 @@ def _glm_logistic(
     P = len(kern_preds)
     covj = tuple(sp[3] for sp in kern_preds)
     d = dc + P
-    if d > _MAX_LOGISTIC_D:
-        raise NotPortedError(
-            f"--glm: a logistic design of width d = {d} is not yet ported to "
-            f"plink_torch (its CUDA kernels take d <= {_MAX_LOGISTIC_D}).")
     c = np.concatenate([np.ones((n, 1)), cov_data[inc]], axis=1)
     vb = _auto_vb(-(-n // 4) * 4)
     mark = _phase_timer(log)

@@ -14,12 +14,15 @@
 // few microseconds it runs.  Design, d <= 48: one thread per matrix, the
 // factor and its inverse in per-thread (local) arrays sized by a
 // compile-time bound on d, no shared memory and no synchronisation.
-// 48 < d <= 96 (the wide --glm interaction designs): one 128-thread block
-// per matrix with the packed factor and its inverse in shared memory (2 x
-// 18.6 KB at d = 96); each column of the factor is one pivot and a
-// parallel update of the rows below it, each column of L^-1 one thread, each
-// entry of the inverse one thread, the triangular solves one thread, every
-// sum in the one-thread kernel's order.  Wider designs are refused.
+// d > 48 (the wide --glm designs): one 128-thread block per matrix with the
+// packed factor L, its inverse and the solve's vector in dynamic shared
+// memory (2 x 18.6 KB at d = 96; two f32 triangles fit the 227 KB up to d =
+// 236); each column of the factor is one pivot and a parallel update of the
+// rows below it, each column of L^-1 one thread, each entry of the inverse
+// one thread, the triangular solves one thread, every sum in the one-thread
+// kernel's order.  Above the shared-memory limit the same block keeps them
+// in a device-memory workspace the caller provides (one slice a matrix), so
+// no width is refused.
 #include "common.cuh"
 
 namespace {
@@ -111,20 +114,27 @@ __global__ void chol_small_kernel(const float* __restrict__ h, int vb, int d,
   }
 }
 
-constexpr int kCholWideMax = 96;
 constexpr int kCholWideThreads = 128;
+constexpr size_t kCholSmemMax = 227 * 1024 - 64;  // less the static ok flag
+
+// floats of one matrix's L, L^-1 and solve vector
+__host__ __device__ inline int64_t chol_wide_floats(int d) {
+  return static_cast<int64_t>(d) * (d + 1) + d;
+}
 
 __global__ void __launch_bounds__(kCholWideThreads)
 chol_wide_kernel(const float* __restrict__ h, int d,
                  const float* __restrict__ rhs, float* __restrict__ x,
-                 float* __restrict__ inv, float* __restrict__ logdet) {
-  constexpr int T = kCholWideMax * (kCholWideMax + 1) / 2;
-  __shared__ float L[T];  // lower triangle, row-major: (i, j) at i(i+1)/2 + j
-  __shared__ float M[T];  // L^-1, same layout
-  __shared__ float y[kCholWideMax];
+                 float* __restrict__ inv, float* __restrict__ logdet,
+                 float* __restrict__ ws) {
+  extern __shared__ float dsm[];
   __shared__ int ok_s;
   const int v = blockIdx.x;
   const int tid = threadIdx.x;
+  // shared memory, or the matrix's slice of the workspace
+  float* L = ws ? ws + static_cast<int64_t>(v) * chol_wide_floats(d) : dsm;
+  float* M = L + d * (d + 1) / 2;  // L^-1; both row-major lower triangles
+  float* y = M + d * (d + 1) / 2;
   const float* a = h + static_cast<int64_t>(v) * d * d;
   if (tid == 0) ok_s = 1;
   __syncthreads();
@@ -217,11 +227,15 @@ cudaError_t launch_chol(const float* h, int vb, int d, const float* rhs,
 
 }  // namespace
 
-// h [vb, d, d] f32 (d <= 96).  Each output is written when its pointer is
-// not null: x [vb, d] = h^-1 rhs (rhs [vb, d]), inv [vb, d, d], logdet [vb].
+// h [vb, d, d] f32.  Each output is written when its pointer is not null:
+// x [vb, d] = h^-1 rhs (rhs [vb, d]), inv [vb, d, d], logdet [vb].  ws: f32
+// [vb, d(d+1) + d] scratch where one matrix's d(d+1) + d floats exceed
+// kCholSmemMax bytes (d > 240), else null.
+
 PT_EXPORT int pt_chol_small(const void* h, int vb, int d, const void* rhs,
-                            void* x, void* inv, void* logdet, void* stream) {
-  if (d < 1 || d > kCholWideMax || (x && !rhs)) return cudaErrorInvalidValue;
+                            void* x, void* inv, void* logdet, void* ws,
+                            void* stream) {
+  if (d < 1 || (x && !rhs)) return cudaErrorInvalidValue;
   const float* hp = static_cast<const float*>(h);
   const float* rp = static_cast<const float*>(rhs);
   float* xp = static_cast<float*>(x);
@@ -230,6 +244,16 @@ PT_EXPORT int pt_chol_small(const void* h, int vb, int d, const void* rhs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 16) return launch_chol<16>(hp, vb, d, rp, xp, ip, lp, s);
   if (d <= 48) return launch_chol<48>(hp, vb, d, rp, xp, ip, lp, s);
-  chol_wide_kernel<<<vb, kCholWideThreads, 0, s>>>(hp, d, rp, xp, ip, lp);
+  float* wp = static_cast<float*>(ws);
+  const size_t smem = wp ? 0 : sizeof(float) * chol_wide_floats(d);
+  if (smem > kCholSmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        chol_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  chol_wide_kernel<<<vb, kCholWideThreads, smem, s>>>(hp, d, rp, xp, ip, lp,
+                                                       wp);
   return cudaGetLastError();
 }

@@ -37,6 +37,13 @@ __device__ __forceinline__ uint32_t load_codes16(const uint8_t* row, int64_t nb,
   return w;
 }
 
+// Sample s's uint16 A1 dosage from a variant's dosage row (the column
+// source of the dense mode of K2 / K3, i.e. K17 / K18 in glm_dense.cu, and
+// of K15 / K16: g = u / 16384, 65535 = missing).
+__device__ __forceinline__ uint32_t load_dosage(const uint8_t* row, int64_t s) {
+  return __ldg(reinterpret_cast<const uint16_t*>(row) + s);
+}
+
 // Second pass of the split-sample kernels: out[v, j, k] (full symmetric,
 // from the packed upper triangle), vec[v, j] and ll[v] from per-split
 // partials laid out [split][entry][variant].  One thread per (entry,

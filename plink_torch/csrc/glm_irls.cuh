@@ -62,6 +62,11 @@
 // FMA throughout (no tensor cores, no TF32), f64 for the loglik sum and the
 // across-split sums.  A block whose variants are all inactive skips its
 // sample loop (late IRLS iterations).
+//
+// Dense mode (template flag DENSE, K18 in glm_dense.cu): the one genotype
+// column is the variant's A1 dosage, as in glm_moments.cuh's dense mode;
+// its false branch is the code above, so the plane instantiations compile
+// as before.
 #pragma once
 
 #include "common.cuh"
@@ -85,7 +90,7 @@ __device__ __forceinline__ void logistic_terms(float eta, float& p, float& q,
   q = (eta >= 0.f) ? small : big;
 }
 
-template <int NC, int P, int MODE, int FLAGS>
+template <int NC, int P, int MODE, int FLAGS, bool DENSE = false>
 __global__ void __launch_bounds__(kTileVariants)
 irls_pass_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
                  const float* __restrict__ feat, int64_t npad, int64_t split_len,
@@ -121,7 +126,9 @@ irls_pass_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     w0[p] = w1[p] = w2[p] = gm[p] = 0.f;
-    if (on) {
+    if (DENSE) {
+      w0[p] = 1.f;  // g enters as the het plane
+    } else if (on) {
       w0[p] = gw[(static_cast<int64_t>(v) * P + p) * 3 + 0];
       w1[p] = gw[(static_cast<int64_t>(v) * P + p) * 3 + 1];
       w2[p] = gw[(static_cast<int64_t>(v) * P + p) * 3 + 2];
@@ -160,14 +167,17 @@ irls_pass_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
     __syncthreads();
     if (!on) continue;
     for (int j0 = 0; j0 < tn; j0 += 16) {
-      const uint32_t codes = load_codes16(row, nb_bytes, t0 + j0, aligned);
+      const uint32_t codes =
+          DENSE ? 0u : load_codes16(row, nb_bytes, t0 + j0, aligned);
       const int kn = min(16, tn - j0);
       for (int k = 0; k < kn; ++k) {
         const int code = (codes >> (2 * k)) & 3;
         const float* f = sfeat + (j0 + k) * F;
-        const float valid = (code == 3) ? 0.f : f[NC + 1];
+        const uint32_t u = DENSE ? load_dosage(row, t0 + j0 + k) : 0u;
+        const float valid = (DENSE ? u == 0xFFFFu : code == 3) ? 0.f : f[NC + 1];
         if (valid == 0.f) continue;  // contributes exactly 0 to every sum
-        const float hpl = (code == 1) ? valid : 0.f;
+        const float hpl = DENSE ? static_cast<float>(u) * (1.f / 16384.f) * valid
+                                : (code == 1) ? valid : 0.f;
         const float apl = (code == 2) ? valid : 0.f;
         float x[D];
 #pragma unroll
@@ -228,7 +238,7 @@ irls_pass_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
   }
 }
 
-template <int NC, int P, int MODE, int FLAGS>
+template <int NC, int P, int MODE, int FLAGS, bool DENSE>
 cudaError_t launch_irls_mode(const dim3 grid, size_t smem, const uint8_t* packed,
                              int64_t nb_bytes, int vb, const float* feat,
                              int64_t npad, int64_t split_len, const float* gw,
@@ -237,16 +247,16 @@ cudaError_t launch_irls_mode(const dim3 grid, size_t smem, const uint8_t* packed
                              const float* offset, const float* gmean,
                              float* part, double* part_ll, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      irls_pass_kernel<NC, P, MODE, FLAGS>,
+      irls_pass_kernel<NC, P, MODE, FLAGS, DENSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  irls_pass_kernel<NC, P, MODE, FLAGS><<<grid, kTileVariants, smem, stream>>>(
+  irls_pass_kernel<NC, P, MODE, FLAGS, DENSE><<<grid, kTileVariants, smem, stream>>>(
       packed, nb_bytes, vb, feat, npad, split_len, gw, beta, hinv, active,
       sscale, offset, gmean, part, part_ll);
   return cudaGetLastError();
 }
 
-template <int NC, int FLAGS, int P = 1>
+template <int NC, int FLAGS, int P = 1, bool DENSE = false>
 cudaError_t launch_irls(const uint8_t* packed, int64_t nb_bytes, int vb,
                         const float* feat, int64_t npad, int mode,
                         int64_t split_len, int splits, const float* gw,
@@ -263,11 +273,11 @@ cudaError_t launch_irls(const uint8_t* packed, int64_t nb_bytes, int vb,
   const dim3 grid((vb + kTileVariants - 1) / kTileVariants, splits);
   const cudaError_t err =
       mode == 0
-          ? launch_irls_mode<NC, P, 0, FLAGS>(grid, smem, packed, nb_bytes, vb,
+          ? launch_irls_mode<NC, P, 0, FLAGS, DENSE>(grid, smem, packed, nb_bytes, vb,
                                            feat, npad, split_len, gw, beta,
                                            hinv, active, sscale, offset, gmean,
                                            part, part_ll, stream)
-          : launch_irls_mode<NC, P, 1, FLAGS>(grid, smem, packed, nb_bytes, vb,
+          : launch_irls_mode<NC, P, 1, FLAGS, DENSE>(grid, smem, packed, nb_bytes, vb,
                                            feat, npad, split_len, gw, beta,
                                            hinv, active, sscale, offset, gmean,
                                            part, part_ll, stream);

@@ -32,13 +32,20 @@
 // (plink_tpu `_plane_cols` :313-314, sscale; 0.5 for males on chrX), read
 // from a second shared-memory tile.  A template flag, so the unscaled
 // instantiations of the main path compile as before.
+//
+// Dense mode (DENSE, K17 in glm_dense.cu): the one predictor column is the
+// variant's A1 dosage g = u / 16384 read from a uint16 row (`packed` is then
+// the dosage array and `nb_bytes` its row stride; 65535 = missing) in place
+// of the 2-bit decode: g enters as the het plane with weights (1, 0, 0).  A
+// template flag whose false branch is the code above, so the plane
+// instantiations compile as before.
 #pragma once
 
 #include "common.cuh"
 
 namespace {
 
-template <int DC, int NP, bool SCALE>
+template <int DC, int NP, bool SCALE, bool DENSE = false>
 __global__ void __launch_bounds__(kTileVariants)
 moments_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
                const float* __restrict__ feat, int64_t npad, int64_t split_len,
@@ -61,7 +68,8 @@ moments_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
   float w[3 * NP];
 #pragma unroll
   for (int i = 0; i < 3 * NP; ++i)
-    w[i] = on ? gwm[static_cast<int64_t>(v) * (3 * NP) + i] : 0.f;
+    w[i] = DENSE ? (i == 0 ? 1.f : 0.f)
+                 : on ? gwm[static_cast<int64_t>(v) * (3 * NP) + i] : 0.f;
   float acc[NTRI];
 #pragma unroll
   for (int e = 0; e < NTRI; ++e) acc[e] = 0.f;
@@ -78,14 +86,17 @@ moments_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
     __syncthreads();
     if (!on) continue;
     for (int j0 = 0; j0 < tn; j0 += 16) {
-      const uint32_t codes = load_codes16(row, nb_bytes, t0 + j0, aligned);
+      const uint32_t codes =
+          DENSE ? 0u : load_codes16(row, nb_bytes, t0 + j0, aligned);
       const int kn = min(16, tn - j0);
       for (int k = 0; k < kn; ++k) {
         const int code = (codes >> (2 * k)) & 3;
         const float* f = sfeat + (j0 + k) * F;
-        const float valid = (code == 3) ? 0.f : f[NC];
+        const uint32_t u = DENSE ? load_dosage(row, t0 + j0 + k) : 0u;
+        const float valid = (DENSE ? u == 0xFFFFu : code == 3) ? 0.f : f[NC];
         if (valid == 0.f) continue;
-        const float hpl = (code == 1) ? valid : 0.f;
+        const float hpl = DENSE ? static_cast<float>(u) * (1.f / 16384.f) * valid
+                                : (code == 1) ? valid : 0.f;
         const float apl = (code == 2) ? valid : 0.f;
         float x[D];
 #pragma unroll
@@ -116,7 +127,7 @@ moments_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes, int vb,
 
 // SCALED = false leaves the scaled kernel out of the build (a non-null
 // sscale is then refused).
-template <int DC, int NP = 2, bool SCALED = true>
+template <int DC, int NP = 2, bool SCALED = true, bool DENSE = false>
 cudaError_t launch_moments(const uint8_t* packed, int64_t nb_bytes, int vb,
                            const float* feat, int64_t npad, int64_t split_len,
                            int splits, const float* gwm, const float* sscale,
@@ -127,10 +138,10 @@ cudaError_t launch_moments(const uint8_t* packed, int64_t nb_bytes, int vb,
   if (sscale) {
     if constexpr (!SCALED) return cudaErrorInvalidValue;
     else
-      moments_kernel<DC, NP, true><<<grid, kTileVariants, smem, stream>>>(
+      moments_kernel<DC, NP, true, DENSE><<<grid, kTileVariants, smem, stream>>>(
           packed, nb_bytes, vb, feat, npad, split_len, gwm, sscale, part);
   } else
-    moments_kernel<DC, NP, false><<<grid, kTileVariants, smem, stream>>>(
+    moments_kernel<DC, NP, false, DENSE><<<grid, kTileVariants, smem, stream>>>(
         packed, nb_bytes, vb, feat, npad, split_len, gwm, nullptr, part);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

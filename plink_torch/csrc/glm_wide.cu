@@ -46,6 +46,23 @@
 // VG d(d+1)/2 floats (firth2), the log-likelihood slots 256 doubles; 57 KB
 // at d = 36, VG = 8, firth2, and ~125 KB at d = 96, VG = 1: above 48 KB the
 // launch raises the kernel's dynamic shared-memory limit.
+//
+// Any width.  One CTA holds at most 256 x kWideItems = 512 tiles, so a
+// variant whose triangle has more (moments D > 124, IRLS d > 120) has its
+// tile list split over a third grid axis: each CTA of the axis redoes phase
+// A for its sample tile (O(d) a pair, against phase B's O(d^2)) and sums
+// its own 512 tiles, so every entry keeps its sample order and the splits
+// their f64 order (two runs give the same bytes).  Where VG = 1 and T = 256
+// no longer fit in 227 KB (the staged rows grow with d, Hinv0 with d^2),
+// the one-variant kernel (VG = 0 below) takes a smaller sample tile T =
+// 128, 64, ... 4 chosen from d, and, should even T = 4 not hold Hinv0 too,
+// reads Hinv0 from device memory; no width is refused.
+//
+// Dense mode (the dosage --glm with more than 16 covariate columns, K17 /
+// K18's wide counterpart): with `dos` given, phase A reads the variant's
+// uint16 A1 dosage u (65535 missing; glm_dense.cu) instead of a 2-bit code
+// and takes g = u / 16384 as the het plane of a single predictor whose
+// plane weights the caller sets to (1, 0, 0).
 #include "glm_irls.cuh"
 
 namespace {
@@ -70,6 +87,9 @@ struct WideArgs {
   const float* sscale;
   float* part;
   double* part_ll;
+  const uint16_t* dos;  // dense mode: A1 dosages [vb, npad], else null
+  int tile;             // VG = 0: samples per tile
+  int hsm;              // VG = 0, firth2: Hinv0 staged in shared memory
 };
 
 __host__ __device__ constexpr int wide_tiles(int D) { return (D + 3) / 4; }
@@ -80,21 +100,26 @@ __host__ __device__ inline int wide_items(int D, int mode) {
   return nt * (nt + 1) / 2 + (mode == 2 ? 0 : nt);
 }
 
-__host__ inline size_t wide_smem(int VG, int mode, int nc, int np) {
-  const int T = kWideThreads / VG;
+// VG variants a CTA (0: one variant in tiles of `tile` samples)
+__host__ inline size_t wide_smem(int VG, int mode, int nc, int np,
+                                 int tile = 0, bool hsm = true) {
+  const int NV = VG > 0 ? VG : 1;
+  const int T = VG > 0 ? kWideThreads / VG : tile;
   const int TP = T + 4;
   const int D = nc + np;
-  size_t floats = static_cast<size_t>(TP) * (nc + VG * (np + 2) + 2) +
-                  VG * (D + 3 * np) + np;  // + beta, gw, covj
-  if (mode == 1) floats += static_cast<size_t>(VG) * D * (D + 1) / 2;
+  size_t floats = static_cast<size_t>(TP) * (nc + NV * (np + 2) + 2) +
+                  NV * (D + 3 * np) + np;  // + beta, gw, covj
+  if (mode == 1 && hsm) floats += static_cast<size_t>(NV) * D * (D + 1) / 2;
   return sizeof(double) * kWideThreads + sizeof(float) * floats;
 }
 
 template <int VG, int MODE, bool SCALE>
 __global__ void __launch_bounds__(kWideThreads, 1)
 wide_kernel(WideArgs a) {
-  constexpr int T = kWideThreads / VG;
-  constexpr int TP = T + 4;
+  constexpr int NV = VG > 0 ? VG : 1;  // variants a CTA
+  const int T = VG > 0 ? kWideThreads / (VG > 0 ? VG : 1) : a.tile;
+  const int TP = T + 4;
+  const bool hsm = VG > 0 || a.hsm;  // Hinv0 in shared memory
   const int nc = a.nc, np = a.np, D = nc + np;
   const int F = nc + (MODE == 2 ? 1 : 2);  // table: [c | (y) | mask]
   const int NTRI = D * (D + 1) / 2;
@@ -102,43 +127,46 @@ wide_kernel(WideArgs a) {
   extern __shared__ double wsm[];
   double* sll = wsm;                                  // [256] loglik slots
   float* Xc = reinterpret_cast<float*>(wsm + kWideThreads);  // [nc][TP]
-  float* Xg = Xc + nc * TP;                           // [VG][np][TP]
-  float* Wt = Xg + VG * np * TP;                      // [VG][TP] w
-  float* Rt = Wt + VG * TP;                           // [VG][TP] r
-  float* Zr = Rt + VG * TP;                           // [TP] zeros
+  float* Xg = Xc + nc * TP;                           // [NV][np][TP]
+  float* Wt = Xg + NV * np * TP;                      // [NV][TP] w
+  float* Rt = Wt + NV * TP;                           // [NV][TP] r
+  float* Zr = Rt + NV * TP;                           // [TP] zeros
   float* On = Zr + TP;                                // [TP] ones
-  float* sb = On + TP;                                // [VG][D] beta
-  float* sw = sb + VG * D;                            // [VG][np][3] weights
-  int* scj = reinterpret_cast<int*>(sw + VG * np * 3);  // [np] covj
-  float* sh = reinterpret_cast<float*>(scj + np);     // [VG][NTRI] Hinv0
+  float* sb = On + TP;                                // [NV][D] beta
+  float* sw = sb + NV * D;                            // [NV][np][3] weights
+  int* scj = reinterpret_cast<int*>(sw + NV * np * 3);  // [np] covj
+  float* sh = reinterpret_cast<float*>(scj + np);     // [NV][NTRI] Hinv0
 
   const int tid = threadIdx.x;
-  const int vl = tid / T;  // phase A: this thread's variant and sample slot
-  const int sl = tid % T;
-  const int v = blockIdx.x * VG + vl;
+  // phase A: this thread's variant and sample slot (VG = 0: the first T
+  // threads)
+  const int vl = VG > 0 ? tid / T : 0;
+  const int sl = VG > 0 ? tid % T : tid;
+  const bool pa = VG > 0 || tid < T;
+  const int v = blockIdx.x * NV + vl;
   const int split = blockIdx.y;
   const int64_t s0 = static_cast<int64_t>(split) * a.split_len;
   const int64_t s1 = min(a.npad, s0 + a.split_len);
-  const bool on = v < a.vb && (MODE == 2 || a.active[v] != 0);
+  const bool on = pa && v < a.vb && (MODE == 2 || a.active[v] != 0);
 
   for (int i = tid; i < TP; i += kWideThreads) {
     Zr[i] = 0.f;
     On[i] = 1.f;
   }
   for (int i = tid; i < np; i += kWideThreads) scj[i] = a.covj[i];
-  for (int i = tid; i < VG * np * 3; i += kWideThreads) {
-    const int vv = blockIdx.x * VG + i / (np * 3);
+  for (int i = tid; i < NV * np * 3; i += kWideThreads) {
+    const int vv = blockIdx.x * NV + i / (np * 3);
     sw[i] = vv < a.vb ? a.gw[static_cast<int64_t>(vv) * np * 3 + i % (np * 3)] : 0.f;
   }
   if (MODE != 2) {
-    for (int i = tid; i < VG * D; i += kWideThreads) {
-      const int vv = blockIdx.x * VG + i / D;
+    for (int i = tid; i < NV * D; i += kWideThreads) {
+      const int vv = blockIdx.x * NV + i / D;
       sb[i] = vv < a.vb ? a.beta[static_cast<int64_t>(vv) * D + i % D] : 0.f;
     }
   }
-  if (MODE == 1) {
-    for (int i = tid; i < VG * NTRI; i += kWideThreads) {
-      const int vv = blockIdx.x * VG + i / NTRI;
+  if (MODE == 1 && hsm) {
+    for (int i = tid; i < NV * NTRI; i += kWideThreads) {
+      const int vv = blockIdx.x * NV + i / NTRI;
       int t = i % NTRI, j = 0;
       while (t >= D - j) {
         t -= D - j;
@@ -148,10 +176,12 @@ wide_kernel(WideArgs a) {
     }
   }
 
-  // phase B: this thread's tiles, as shared-memory row offsets
+  // phase B: this thread's tiles, as shared-memory row offsets (a CTA of
+  // the third grid axis takes the tiles from its 512 x blockIdx.z on)
   const int nt = wide_tiles(D);
   const int ntri_t = nt * (nt + 1) / 2;
   const int ipv = wide_items(D, MODE);
+  const int it0 = VG <= 1 ? blockIdx.z * (kWideThreads * kWideItems) : 0;
   int it_v[kWideItems], it_j[kWideItems], it_k[kWideItems];
   bool it_on[kWideItems], it_vec[kWideItems];
   const float* rowa[kWideItems][4];
@@ -159,8 +189,8 @@ wide_kernel(WideArgs a) {
   const float* roww[kWideItems];
 #pragma unroll
   for (int m = 0; m < kWideItems; ++m) {
-    const int it = tid + m * kWideThreads;
-    it_on[m] = it < VG * ipv;
+    const int it = it0 + tid + m * kWideThreads;
+    it_on[m] = it < NV * ipv;
     const int iv = it_on[m] ? it / ipv : 0;
     int t = it_on[m] ? it % ipv : 0;
     int bj = 0, bk = 0;
@@ -203,6 +233,9 @@ wide_kernel(WideArgs a) {
   const float* bv = sb + vl * D;
   const float* wv = sw + vl * np * 3;
   const float* hv = sh + vl * NTRI;
+  const float* hg = a.hinv + static_cast<int64_t>(on ? v : 0) * D * D;
+  const uint8_t* drow = reinterpret_cast<const uint8_t*>(
+      a.dos + static_cast<int64_t>(on ? v : 0) * a.npad);
   // late IRLS iterations leave few rows active: a CTA with none skips its
   // samples and writes zero partials
   const int64_t s_end = __syncthreads_or(on) ? s1 : s0;
@@ -211,18 +244,24 @@ wide_kernel(WideArgs a) {
     const int64_t s = t0 + sl;
     const bool in = s < s1;
     __syncthreads();  // the previous tile's phase B is done with the rows
-    if (vl == 0)
+    if (vl == 0 && pa)
       for (int j = 0; j < nc; ++j) Xc[j * TP + sl] = in ? a.feat[s * F + j] : 0.f;
     __syncthreads();
     float valid = 0.f, hpl = 0.f, apl = 0.f;
     if (on && in) {
-      const int code = (prow[s >> 2] >> (2 * (s & 3))) & 3;
-      valid = (code == 3) ? 0.f : a.feat[s * F + F - 1];
-      hpl = (code == 1) ? valid : 0.f;
-      apl = (code == 2) ? valid : 0.f;
+      if (a.dos) {  // dense mode: g = u / 16384 as the het plane
+        const uint32_t u = load_dosage(drow, s);
+        valid = (u == 0xFFFFu) ? 0.f : a.feat[s * F + F - 1];
+        hpl = static_cast<float>(u) * (1.f / 16384.f) * valid;
+      } else {
+        const int code = (prow[s >> 2] >> (2 * (s & 3))) & 3;
+        valid = (code == 3) ? 0.f : a.feat[s * F + F - 1];
+        hpl = (code == 1) ? valid : 0.f;
+        apl = (code == 2) ? valid : 0.f;
+      }
     }
     const float sc = (SCALE && in) ? a.sscale[s] : 1.f;
-    for (int p = 0; p < np; ++p) {
+    for (int p = 0; p < np && pa; ++p) {
       float g = wv[3 * p] * hpl + wv[3 * p + 1] * apl + wv[3 * p + 2] * valid;
       if (scj[p] > 0) g *= Xc[scj[p] * TP + sl];
       if (SCALE) g *= sc;
@@ -253,7 +292,7 @@ wide_kernel(WideArgs a) {
           const float xj = j < nc ? Xc[j * TP + sl] : xg[(j - nc) * TP + sl];
           for (int k = j; k < D; ++k, ++t) {
             const float xk = k < nc ? Xc[k * TP + sl] : xg[(k - nc) * TP + sl];
-            const float h = hv[t] * (k == j ? 1.f : 2.f);
+            const float h = (hsm ? hv[t] : hg[j * D + k]) * (k == j ? 1.f : 2.f);
             quad = fmaf(h * xj, xk, quad);
           }
         }
@@ -262,8 +301,10 @@ wide_kernel(WideArgs a) {
         wt = (1.f + hd) * vw;
       }
     }
-    Wt[vl * TP + sl] = wt;
-    if (MODE != 2) Rt[vl * TP + sl] = r;
+    if (pa) {
+      Wt[vl * TP + sl] = wt;
+      if (MODE != 2) Rt[vl * TP + sl] = r;
+    }
     __syncthreads();
 
 #pragma unroll
@@ -295,7 +336,7 @@ wide_kernel(WideArgs a) {
   // partial sums of this split: [split][entry][variant]
 #pragma unroll
   for (int m = 0; m < kWideItems; ++m) {
-    const int vv = blockIdx.x * VG + it_v[m];
+    const int vv = blockIdx.x * NV + it_v[m];
     if (!it_on[m] || vv >= a.vb) continue;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -315,7 +356,7 @@ wide_kernel(WideArgs a) {
   if (MODE == 0) {
     sll[tid] = ll;
     __syncthreads();
-    if (sl == 0 && v < a.vb) {
+    if (sl == 0 && pa && v < a.vb && (VG > 1 || blockIdx.z == 0)) {
       double s = 0.0;
       for (int i = 0; i < T; ++i) s += sll[vl * T + i];
       a.part_ll[static_cast<int64_t>(split) * a.vb + v] = s;
@@ -366,9 +407,11 @@ __global__ void wide_reduce_kernel(const float* __restrict__ part,
 }
 
 template <int VG, int MODE>
-cudaError_t launch_wide_vg(const WideArgs& a, int splits, cudaStream_t st) {
-  const size_t smem = wide_smem(VG, MODE, a.nc, a.np);
-  const dim3 grid((a.vb + VG - 1) / VG, splits);
+cudaError_t launch_wide_vg(const WideArgs& a, int splits, int zsplit,
+                           cudaStream_t st) {
+  const int NV = VG > 0 ? VG : 1;
+  const size_t smem = wide_smem(VG, MODE, a.nc, a.np, a.tile, a.hsm != 0);
+  const dim3 grid((a.vb + NV - 1) / NV, splits, zsplit);
   cudaError_t err;
   if (a.sscale) {
     err = cudaFuncSetAttribute(wide_kernel<VG, MODE, true>,
@@ -387,13 +430,14 @@ cudaError_t launch_wide_vg(const WideArgs& a, int splits, cudaStream_t st) {
 }
 
 template <int MODE>
-cudaError_t launch_wide_mode(const WideArgs& a, int splits, int vg,
+cudaError_t launch_wide_mode(const WideArgs& a, int splits, int vg, int zsplit,
                              cudaStream_t st) {
   switch (vg) {
-    case 8: return launch_wide_vg<8, MODE>(a, splits, st);
-    case 4: return launch_wide_vg<4, MODE>(a, splits, st);
-    case 2: return launch_wide_vg<2, MODE>(a, splits, st);
-    default: return launch_wide_vg<1, MODE>(a, splits, st);
+    case 8: return launch_wide_vg<8, MODE>(a, splits, zsplit, st);
+    case 4: return launch_wide_vg<4, MODE>(a, splits, zsplit, st);
+    case 2: return launch_wide_vg<2, MODE>(a, splits, zsplit, st);
+    case 1: return launch_wide_vg<1, MODE>(a, splits, zsplit, st);
+    default: return launch_wide_vg<0, MODE>(a, splits, zsplit, st);
   }
 }
 
@@ -405,25 +449,39 @@ cudaError_t launch_wide_mode(const WideArgs& a, int splits, int vg,
 // packed [vb, nb_bytes] u8; covj [np] int32 (0: no covariate factor, else
 // the table column that multiplies G_p); gw [vb, np, 3]; sscale [npad] or
 // null; part [splits, NT, vb] f32 and part_ll [splits, vb] f64 scratch;
-// out_mat [vb, d, d], out_vec [vb, d], out_ll [vb] f64 (d = nc + np).
+// out_mat [vb, d, d], out_vec [vb, d], out_ll [vb] f64 (d = nc + np).  dos
+// [vb, npad] u16 or null: the dense mode (np = 1, gw (1, 0, 0), packed
+// unused).
 PT_EXPORT int pt_glm_wide(const void* packed, long long nb_bytes, int vb,
                           const void* feat, long long npad, int nc, int np,
                           const void* covj, int mode, long long split_len,
                           int splits, const void* gw, const void* beta,
                           const void* hinv, const void* active,
-                          const void* sscale, void* part, void* part_ll,
-                          void* out_mat, void* out_vec, void* out_ll,
-                          void* stream) {
+                          const void* sscale, const void* dos, void* part,
+                          void* part_ll, void* out_mat, void* out_vec,
+                          void* out_ll, void* stream) {
   if (mode < 0 || mode > 2 || nc < 1 || np < 1 || split_len % 4 != 0)
     return cudaErrorInvalidValue;
   const int D = nc + np;
   const int ipv = wide_items(D, mode);
-  int vg = 8;
+  constexpr size_t kSmemMax = 220 * 1024;
+  int vg = 8, tile = 0;
+  bool hsm = true;
   while (vg > 1 && (vg * ipv > kWideThreads * kWideItems ||
                     wide_smem(vg, mode, nc, np) > 200 * 1024))
     vg /= 2;
-  if (ipv > kWideThreads * kWideItems || wide_smem(vg, mode, nc, np) > 220 * 1024)
-    return cudaErrorInvalidValue;
+  if (wide_smem(vg, mode, nc, np) > kSmemMax) {  // one variant, smaller tiles
+    vg = 0;
+    for (int pass = 0; pass < 2 && !tile; ++pass) {
+      hsm = pass == 0;
+      for (int t = 128; t >= 4 && !tile; t /= 2)
+        if (wide_smem(0, mode, nc, np, t, hsm) <= kSmemMax) tile = t;
+    }
+    if (!tile) return cudaErrorInvalidValue;
+  }
+  const int zsplit = vg <= 1 ? (ipv + kWideThreads * kWideItems - 1) /
+                                   (kWideThreads * kWideItems)
+                             : 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   WideArgs a{static_cast<const uint8_t*>(packed), nb_bytes, vb,
              static_cast<const float*>(feat), npad, nc, np,
@@ -431,10 +489,11 @@ PT_EXPORT int pt_glm_wide(const void* packed, long long nb_bytes, int vb,
              static_cast<const float*>(gw), static_cast<const float*>(beta),
              static_cast<const float*>(hinv), static_cast<const uint8_t*>(active),
              static_cast<const float*>(sscale), static_cast<float*>(part),
-             static_cast<double*>(part_ll)};
-  cudaError_t err = mode == 0   ? launch_wide_mode<0>(a, splits, vg, st)
-                    : mode == 1 ? launch_wide_mode<1>(a, splits, vg, st)
-                                : launch_wide_mode<2>(a, splits, vg, st);
+             static_cast<double*>(part_ll), static_cast<const uint16_t*>(dos),
+             tile, hsm ? 1 : 0};
+  cudaError_t err = mode == 0   ? launch_wide_mode<0>(a, splits, vg, zsplit, st)
+                    : mode == 1 ? launch_wide_mode<1>(a, splits, vg, zsplit, st)
+                                : launch_wide_mode<2>(a, splits, vg, zsplit, st);
   if (err != cudaSuccess) return err;
   const int has_vec = mode != 2;
   const double* pll = mode == 0 ? static_cast<const double*>(part_ll) : nullptr;

@@ -33,6 +33,10 @@
 // sums of a split stay in f32 (at most 2,048 terms); a second kernel adds
 // the splits in f64 in index order and writes the full symmetric layout.
 // No atomics: two runs give identical bytes.
+//
+// Any width: a row of more than 160 entries (dc > 16, e.g. `interaction`
+// over many covariates) is cut into chunks of 160 over a third grid axis;
+// each block of the axis decodes the same codes and sums its own chunk.
 #include "common.cuh"
 
 namespace {
@@ -55,6 +59,7 @@ linear_sums_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes,
   const int warp = threadIdx.x >> 5;
   const int vbase = blockIdx.x * kBlockVariants + warp * kWarpVariants;
   const int split = blockIdx.y;
+  const int f0 = blockIdx.z * NFP;  // this block's chunk of the feature row
   const int64_t s0 = static_cast<int64_t>(split) * split_len;
   const int64_t s1 = min(npad, s0 + split_len);
   const bool aligned = ((nb_bytes & 3) == 0) &&
@@ -80,7 +85,7 @@ linear_sums_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes,
     __syncthreads();
     for (int i = threadIdx.x; i < kLinTile * NFP; i += kWarps * 32) {
       const int r = i / NFP, e = i - r * NFP;
-      sfeat[i] = (r < tn && e < nf) ? feat[(t0 + r) * nf + e] : 0.f;
+      sfeat[i] = (r < tn && f0 + e < nf) ? feat[(t0 + r) * nf + f0 + e] : 0.f;
     }
     __syncthreads();
     // Tiles and splits start on multiples of 16 samples, so a 16-sample
@@ -126,7 +131,7 @@ linear_sums_kernel(const uint8_t* __restrict__ packed, int64_t nb_bytes,
     for (int p = 0; p < 3; ++p)
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
-        const int ent = e * 32 + lane;
+        const int ent = f0 + e * 32 + lane;
         if (ent < nf)
           part[((static_cast<int64_t>(split) * 3 + p) * vb + v) * nf + ent] =
               acc[p][w][e];
@@ -169,7 +174,8 @@ cudaError_t launch_linear(const uint8_t* packed, int64_t nb_bytes, int vb,
                           int dc, int64_t npad,
                           int64_t split_len, int splits, float* part,
                           double* out, cudaStream_t stream) {
-  const dim3 grid((vb + kBlockVariants - 1) / kBlockVariants, splits);
+  const dim3 grid((vb + kBlockVariants - 1) / kBlockVariants, splits,
+                  (nf + 32 * EPL - 1) / (32 * EPL));
   linear_sums_kernel<EPL><<<grid, kWarps * 32, 0, stream>>>(
       packed, nb_bytes, vb, a1_ref, feat, nf, npad, split_len, part);
   cudaError_t err = cudaGetLastError();
@@ -204,7 +210,7 @@ PT_EXPORT int pt_linear_sums(const void* packed, long long nb_bytes, int vb,
                             static_cast<float*>(part),                       \
                             static_cast<double*>(out),                       \
                             static_cast<cudaStream_t>(stream));
-  switch ((nf + 31) / 32) {
+  switch (min((nf + 31) / 32, 5)) {  // wider rows: chunks of 5 x 32
     PT_CASE(1)
     PT_CASE(2)
     PT_CASE(3)

@@ -19,9 +19,12 @@ from .io import PgenReader, read_bim, read_psam, read_pvar
 from .io.psam import SampleInfo
 from .io.pvar import VariantInfo
 from .ops.counts import HOST_SMALL_GENOTYPES, masked_geno_counts
+from .ops.planes import _unpack_np
 from .utils.chrom import MT_CODE, Y_CODE
 
 DEFAULT_BLOCK = 8192  # variants per streamed block (vblock analogue)
+# a hard call's ALT dosage in 1/16384 units; 65535 = missing
+_U16_OF_CODE = np.array([0, 16384, 32768, 65535], np.uint16)
 
 
 @dataclass
@@ -154,6 +157,26 @@ class Dataset:
         """Any variant carries a dosage track (vrtype bits 5-6)."""
         h = self.reader.header
         return h.mode == 0x10 and bool((h.vrtypes & 0x60).any())
+
+    def dosage_u16_row(self, v: int) -> np.ndarray:
+        """The fused ALT dosage of variant v in 1/16384 units, uint16 [raw
+        N]: the dosage track's value where present, 16384 x the hard call
+        elsewhere, 65535 where both are missing (the reference's GetD
+        semantics; plink_tpu `dosage_row` in integer form)."""
+        codes = _unpack_np(self.reader.read_packed(int(v), 1))[0][
+            : self.raw_sample_ct]
+        u = _U16_OF_CODE[codes]
+        aux = self.reader.read_dosage(int(v), codes=codes)
+        if aux.dosage_ids is not None and aux.dosage_ids.size:
+            u[aux.dosage_ids] = aux.dosage_vals
+        return u
+
+    def dosage_row(self, v: int) -> np.ndarray:
+        """Fused ALT dosage for one variant (plink_tpu `dosage_row`): f64
+        [raw N], dosage-track values where present, hard-call values
+        elsewhere, NaN when both are missing."""
+        u = self.dosage_u16_row(v)
+        return np.where(u == 65535, np.nan, u / 16384.0)
 
     @property
     def has_phase(self) -> bool:

@@ -11,7 +11,8 @@ launches made by the wrappers in ``ops/counts.py``, ``ops/glm.py``,
 ``ops/pairwise.py``, ``ops/pca.py`` and ``ops/ld.py``; it is the only module
 state the port keeps besides the loaded libraries.  An entry point lives in
 ``csrc/<name>.cu`` unless ``_SOURCE`` names another file (K9 and K10 share
-one; so do K11-K13); every source may include any ``csrc/*.cuh``.
+one; so do K11-K13, and K17-K18); every source may include any
+``csrc/*.cuh``.
 """
 
 from __future__ import annotations
@@ -51,9 +52,13 @@ _ENTRY = {
     "glm_irls_p2": ("pt_glm_irls_pass_p2",
                     [_P, _L, _I, _P, _L, _I, _I, _I, _L, _I] + [_P] * 13),
     "glm_wide": ("pt_glm_wide", [_P, _L, _I, _P, _L, _I, _I, _P, _I, _L, _I]
-                 + [_P] * 11),
+                 + [_P] * 12),
+    "glm_dense_moments": ("pt_glm_dense_moments",
+                          [_P, _I, _P, _L, _I, _L, _I, _P, _P, _P]),
+    "glm_dense_irls": ("pt_glm_dense_irls",
+                       [_P, _I, _P, _L, _I, _I, _L, _I] + [_P] * 9),
     "xm1_stats": ("pt_xm1_stats", [_P, _L, _I, _P, _P, _I, _P, _P, _P]),
-    "chol_small": ("pt_chol_small", [_P, _I, _I, _P, _P, _P, _P, _P]),
+    "chol_small": ("pt_chol_small", [_P, _I, _I, _P, _P, _P, _P, _P, _P]),
     "sample_counts": ("pt_sample_counts", [_P, _L, _I, _P, _I, _I, _P, _P]),
     "linear_sums": ("pt_linear_sums", [_P, _L, _I, _P, _P, _I, _L, _I, _P, _P,
                                        _P]),
@@ -73,16 +78,17 @@ _ENTRY = {
 # kernel modes counted apart from their entry point's default mode: name ->
 # entry point (K2 scaled; K3 scaled and residualized share glm_irls_x; K3
 # residualized with two columns is a mode of glm_irls_p2; K15 and K16 share
-# glm_wide; K4 above d = 48)
+# glm_wide; K4 above d = 48; K18's firth2 mode)
 _MODES = {"glm_moments_scaled": "glm_moments", "glm_irls_scaled": "glm_irls_x",
           "glm_irls_resid": "glm_irls_x", "glm_irls_resid_p2": "glm_irls_p2",
           "glm_moments_wide": "glm_wide", "glm_irls_wide": "glm_wide",
-          "chol_small_wide": "chol_small"}
+          "chol_small_wide": "chol_small", "glm_dense_firth": "glm_dense_irls"}
 # entry points launched only through their modes
 _MODE_ONLY = ("glm_irls_x", "glm_wide")
 # entry points whose source file is not named after them
 _SOURCE = {"pca_x": "pca_apply", "pca_xt": "pca_apply", "ld_band_bits": "ld_band",
-           "ld_band_stats": "ld_band", "ld_gram_pair": "ld_band"}
+           "ld_band_stats": "ld_band", "ld_gram_pair": "ld_band",
+           "glm_dense_moments": "glm_dense", "glm_dense_irls": "glm_dense"}
 _SOURCES = sorted({_SOURCE.get(k, k) for k in _ENTRY})
 
 LAUNCHES: dict[str, int] = dict.fromkeys(

@@ -1,6 +1,6 @@
 """GLM on the device: the linear sums (K6), kernels K2-K4 and K15-K16 with
-the logistic-hybrid IRLS around them, and the --xchr-model 1 statistics
-(K14).
+the logistic-hybrid IRLS around them, the dosage kernels K17-K18, and the
+--xchr-model 1 statistics (K14).
 
 Counterparts of plink_tpu/ops/glm.py:
 - `linear_sums` (K6, csrc/linear_sums.cu) for `_linear_sums_body`, and
@@ -22,7 +22,11 @@ Counterparts of plink_tpu/ops/glm.py:
 - `glm_resid_scan` / `resid_irls_block` for the cc-/firth-residualize
   entry points of the same names;
 - `xm1_stats` (K14, csrc/xm1_stats.cu) and `xm1_stats_scan` for
-  `xm1_stats_scan`.
+  `xm1_stats_scan`;
+- `glm_dense_moments` (K17) and `glm_dense_irls` (K18, csrc/glm_dense.cu)
+  under `dense_qt_block` / `dense_cc_block` / `dense_firth_block`, the
+  dosage GLM's blocks of the same names: the genotype column is a
+  fractional A1 dosage, read as uint16 in 1/16384 units.
 
 Each kernel wrapper takes the plain PyTorch version beside it for CPU
 tensors and launches the kernel for CUDA tensors.  The logistic design is
@@ -41,7 +45,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import NotPortedError
+from functools import partial
+
 from . import _cuda
 from .counts import geno_counts
 from .planes import planes, unpack_codes
@@ -49,13 +54,12 @@ from .planes import planes, unpack_codes
 _GLM_MAXIT = 25  # ref: plink2_glm_logistic.cc "maxit = 25"
 _FIRTH_MAXIT = 25
 _Z_INIT = 4.863891244002886  # IRLS start: OLS on z = 4.8639 * (y - 0.5)
-MAX_DC = 16  # widest covariate block the CUDA kernels are instantiated for
+MAX_DC = 16  # widest covariate block K2 / K3 / K17 / K18 are instantiated for
 # widest covariate block sent to the P = 2 register kernels (K2 at D = dc +
 # 4, K3 at d = dc + 2): ptxas (sm_90a) gives every P = 2 instantiation up
 # to dc = 14 <= 255 registers and no spill, K3 firth2 spills at dc = 15 and
 # K3 at dc = 16; wider designs run on K15 / K16
 P2_MAX_DC = 14
-WIDE_MAX_D = 96  # widest design K15 / K16 and K4 take
 
 
 # ---------------------------------------------------------------------------
@@ -88,17 +92,6 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-
-
-def _kernel_device(name, packed, dc):
-    if packed.device.type == "cpu":
-        return False
-    if packed.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {packed.device}")
-    if not 1 <= dc <= MAX_DC:
-        raise ValueError(f"{name}: the CUDA kernel takes 1..{MAX_DC} "
-                         f"covariate columns (got {dc})")
-    return True
 
 
 # Samples per split of the K2/K3 sample axis: each split's f32 accumulators
@@ -164,8 +157,10 @@ def linear_sums(packed, ccfl, cy, y2, a1_ref=None):
     _check("linear_sums y2", y2, torch.float32, (4 * nb,), dev)
     if a1_ref is not None:
         _check("linear_sums a1_ref", a1_ref, torch.bool, (vb,), dev)
-    if not _kernel_device("linear_sums", packed, dc):
+    if dev.type == "cpu":
         return linear_sums_plain(packed, ccfl, cy, y2, a1_ref)
+    if dev.type != "cuda" or dc < 1:
+        raise ValueError(f"linear_sums: {dev}, {dc} covariate columns")
     feat = _linear_feat(ccfl, cy, y2)
     split_len, splits = _splits(4 * nb)
     part = torch.empty((splits, 3, vb, feat.shape[1]), dtype=torch.float32,
@@ -228,13 +223,6 @@ def _plane_cols(packed, gw3, table, mask, covj, sscale=None):
     return valid, gcols
 
 
-def _wide_d(name, d):
-    if d > WIDE_MAX_D:
-        raise NotPortedError(
-            f"{name}: a design of width d = {d} is wider than the CUDA "
-            f"kernels take (d <= {WIDE_MAX_D})")
-
-
 def _register_kernel(P, covj, dc, sscale):
     """Whether the thread-per-variant K2 / K3 take a design of P genotype
     columns over dc covariate columns (`dc` counts y for K2): P = 1 at
@@ -288,7 +276,7 @@ def glm_moments(packed, gwm, feat, sscale=None, covj=None):
     covj (NP ints) multiplies column p by feat[:, covj[p]] when covj[p] > 0.
     K2 (csrc/glm_moments.cu, glm_moments_p2.cu) takes NP = 2, and NP = 3
     unscaled, with no covariate factor; K15 (csrc/glm_wide.cu) takes the
-    rest up to D = 98."""
+    rest, at any width."""
     vb, nb = packed.shape
     dc = feat.shape[1] - 2
     dev = packed.device
@@ -321,7 +309,6 @@ def glm_moments(packed, gwm, feat, sscale=None, covj=None):
                          split_len, splits, gwm.data_ptr(), _cuda.ptr(sscale),
                          part.data_ptr(), out.data_ptr())
         return out
-    _wide_d("glm_moments", D - 2)
     _wide(2, packed, feat, dc + 1, gwm, covj, split_len, splits, sscale=sscale,
           out_mat=out)
     return out
@@ -329,24 +316,27 @@ def glm_moments(packed, gwm, feat, sscale=None, covj=None):
 
 def _wide(mode, packed, feat, nc, gw3, covj, split_len, splits, beta=None,
           hinv=None, active=None, sscale=None, out_mat=None, out_vec=None,
-          out_ll=None):
-    """One K15 (mode 2) or K16 (0 logistic, 1 firth2) launch."""
-    vb, nb = packed.shape
+          out_ll=None, dos=None):
+    """One K15 (mode 2) or K16 (0 logistic, 1 firth2) launch; with dos u16
+    [vb, npad] (and packed None) their dense mode."""
+    vb = dos.shape[0] if packed is None else packed.shape[0]
+    nb = dos.shape[1] // 4 if packed is None else packed.shape[1]
     np_ = gw3.shape[1]
     D = nc + np_
     nt = D * (D + 1) // 2 + (0 if mode == 2 else D)
-    dev = packed.device
+    dev = feat.device
     part = torch.empty((splits, nt, vb), dtype=torch.float32, device=dev)
     part_ll = torch.empty((splits, vb), dtype=torch.float64, device=dev) \
         if mode == 0 else None
     cj = torch.tensor(covj, dtype=torch.int32, device=dev)
     act = None if active is None else active.to(torch.uint8)
     _cuda.launch("glm_moments_wide" if mode == 2 else "glm_irls_wide",
-                 packed.data_ptr(), nb, vb, feat.data_ptr(), 4 * nb, nc, np_,
-                 cj.data_ptr(), mode, split_len, splits, gw3.data_ptr(),
+                 _cuda.ptr(packed), nb, vb, feat.data_ptr(), feat.shape[0], nc,
+                 np_, cj.data_ptr(), mode, split_len, splits, gw3.data_ptr(),
                  _cuda.ptr(beta), _cuda.ptr(hinv), _cuda.ptr(act),
-                 _cuda.ptr(sscale), part.data_ptr(), _cuda.ptr(part_ll),
-                 out_mat.data_ptr(), _cuda.ptr(out_vec), _cuda.ptr(out_ll))
+                 _cuda.ptr(sscale), _cuda.ptr(dos), part.data_ptr(),
+                 _cuda.ptr(part_ll), out_mat.data_ptr(), _cuda.ptr(out_vec),
+                 _cuda.ptr(out_ll))
 
 
 # ---------------------------------------------------------------------------
@@ -375,15 +365,20 @@ def _hessian(w, c, gcols):
     ccfl = (c[:, :, None] * c[:, None, :]).reshape(n, dc * dc)
     h = torch.empty((vb, d, d), dtype=w.dtype, device=w.device)
     h[:, :dc, :dc] = (w @ ccfl).reshape(vb, dc, dc)
+    P = len(gcols)
+    # G columns a step of the G block takes: a [vb, step, n] temporary of at
+    # most 2^22 entries, cache-sized (one column at a time at biobank n)
+    step = max(1, (1 << 22) // max(vb * n, 1))
     for p, g in enumerate(gcols):
         wg = w * g
         cg = wg @ c
         h[:, :dc, dc + p] = cg
         h[:, dc + p, :dc] = cg
-        for q in range(p, len(gcols)):
-            gg = (wg * gcols[q]).sum(dim=1)
-            h[:, dc + p, dc + q] = gg
-            h[:, dc + q, dc + p] = gg
+        for q0 in range(p, P, step):  # entry (p, q): (wg * G_q).sum(dim=1)
+            q1 = min(P, q0 + step)
+            gg = (wg[:, None, :] * torch.stack(gcols[q0:q1], 1)).sum(dim=2)
+            h[:, dc + p, dc + q0:dc + q1] = gg
+            h[:, dc + q0:dc + q1, dc + p] = gg
     return h
 
 
@@ -403,6 +398,13 @@ def glm_irls_pass_plain(packed, gw, feat, beta, active, hinv=None,
     if gmean is not None:
         gm = gmean.reshape(-1, P)
         gcols = [(g - gm[:, p, None]) * valid for p, g in enumerate(gcols)]
+    return _irls_plain(valid, gcols, c, y, beta, active, hinv, offset)
+
+
+def _irls_plain(valid, gcols, c, y, beta, active, hinv=None, offset=None):
+    """One IRLS evaluation over [c | G_1..G_P] from decoded columns (the
+    plain versions of K3 / K16 / K18)."""
+    dc = c.shape[1]
     eta = beta[:, :dc] @ c.t()
     for p, g in enumerate(gcols):
         eta = eta + beta[:, dc + p : dc + p + 1] * g
@@ -460,7 +462,7 @@ def glm_irls_pass(packed, gw, feat, beta, active, hinv=None, sscale=None,
     valid and offset f32 [4*NB], which it requires, enters the linear
     predictor.  K3 (csrc/glm_irls*.cu) takes P = 1 and, unscaled, P = 2
     with no covariate factor, and the residualized designs; K16
-    (csrc/glm_wide.cu) the rest up to d = 96."""
+    (csrc/glm_wide.cu) the rest, at any width."""
     vb, nb = packed.shape
     gw3 = _gw3(gw)
     P = gw3.shape[1]
@@ -500,7 +502,6 @@ def glm_irls_pass(packed, gw, feat, beta, active, hinv=None, sscale=None,
     vec = torch.empty((vb, d), dtype=torch.float32, device=dev)
     ll = torch.empty(vb, dtype=torch.float64, device=dev) if mode == 0 else None
     if not resid and not _register_kernel(P, covj, dc, sscale):
-        _wide_d("glm_irls_pass", d)
         _wide(mode, packed, feat, dc, gw3, covj, split_len, splits, beta=beta,
               hinv=hinv, active=active, sscale=sscale, out_mat=mat,
               out_vec=vec, out_ll=ll)
@@ -529,6 +530,166 @@ def glm_irls_pass(packed, gw, feat, beta, active, hinv=None, sscale=None,
                  part.data_ptr(), _cuda.ptr(part_ll), mat.data_ptr(),
                  vec.data_ptr(), _cuda.ptr(ll))
     return mat, vec, ll
+
+
+# ---------------------------------------------------------------------------
+# K17 / K18: the dosage design
+# ---------------------------------------------------------------------------
+
+DOSAGE_MISSING = 65535  # the uint16 dosage of a missing call (and padding)
+
+
+def _dense_cols(dos, mask):
+    """valid [vb, npad] and the A1 dosage column g = u / 16384 * valid from
+    the uint16 dosages, in f32 (exact)."""
+    valid = (dos != DOSAGE_MISSING).to(torch.float32) * mask[None, :]
+    return valid, dos.to(torch.float32) * (1.0 / 16384.0) * valid
+
+
+def _check_dense(name, dos, feat):
+    vb, npad = dos.shape
+    dev = dos.device
+    _check(f"{name} dos", dos, torch.uint16, (vb, npad), dev)
+    _check(f"{name} feat", feat, torch.float32, (npad, feat.shape[1]), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return vb, npad, feat.shape[1] - 2
+
+
+def glm_dense_moments_plain(dos, feat):
+    dc = feat.shape[1] - 2
+    valid, g = _dense_cols(dos, feat[:, dc + 1])
+    return _moments_from_cols([g], valid, feat[:, : dc + 1])
+
+
+def glm_dense_moments(dos, feat):
+    """K17: per variant the moments sum_s valid x x^T over x = [c | y | g]
+    -> f32 [vb, dc+2, dc+2], from dos uint16 [vb, npad] (A1 dosage in
+    1/16384 units, DOSAGE_MISSING where missing and in the padding) and feat
+    f32 [npad, dc+2] = [c | y | mask].  CPU tensors take the plain version;
+    CUDA tensors launch K17 (csrc/glm_dense.cu) at dc <= MAX_DC and K15's
+    dense mode above."""
+    vb, npad, dc = _check_dense("glm_dense_moments", dos, feat)
+    if dos.device.type == "cpu":
+        return glm_dense_moments_plain(dos, feat)
+    D = dc + 2
+    split_len, splits = _splits(npad)
+    out = torch.empty((vb, D, D), dtype=torch.float32, device=dos.device)
+    if dc > MAX_DC:
+        _wide(2, None, feat, dc + 1, _dense_gw(vb, dos.device), (0,), split_len,
+              splits, out_mat=out, dos=dos)
+        return out
+    part = torch.empty((splits, D * (D + 1) // 2, vb), dtype=torch.float32,
+                       device=dos.device)
+    _cuda.launch("glm_dense_moments", dos.data_ptr(), vb, feat.data_ptr(), npad,
+                 dc, split_len, splits, part.data_ptr(), out.data_ptr())
+    return out
+
+
+def _dense_gw(vb, dev):
+    """K15 / K16's plane weights of the dense mode: g enters as the het
+    plane."""
+    return torch.tensor([1.0, 0.0, 0.0], device=dev).expand(vb, 1, 3).contiguous()
+
+
+def glm_dense_irls_plain(dos, feat, beta, active, hinv=None):
+    dc = feat.shape[1] - 2
+    valid, g = _dense_cols(dos, feat[:, dc + 1])
+    return _irls_plain(valid, [g], feat[:, :dc], feat[:, dc], beta, active, hinv)
+
+
+def glm_dense_irls(dos, feat, beta, active, hinv=None):
+    """K18: one logistic (hinv None) or firth2 IRLS evaluation over the
+    dosage design [c | g], as glm_irls_pass over [c | G]: dos and feat as in
+    glm_dense_moments, beta f32 [vb, dc+1], active bool [vb], hinv f32
+    [vb, d, d].  CPU tensors take the plain version; CUDA tensors launch
+    K18 (csrc/glm_dense.cu; firth2 counted as glm_dense_firth) at dc <=
+    MAX_DC and K16's dense mode above."""
+    vb, npad, dc = _check_dense("glm_dense_irls", dos, feat)
+    d = dc + 1
+    dev = dos.device
+    _check("glm_dense_irls beta", beta, torch.float32, (vb, d), dev)
+    _check("glm_dense_irls active", active, torch.bool, (vb,), dev)
+    if hinv is not None:
+        _check("glm_dense_irls hinv", hinv, torch.float32, (vb, d, d), dev)
+    if dev.type == "cpu":
+        return glm_dense_irls_plain(dos, feat, beta, active, hinv)
+    mode = 0 if hinv is None else 1
+    split_len, splits = _splits(npad)
+    mat = torch.empty((vb, d, d), dtype=torch.float32, device=dev)
+    vec = torch.empty((vb, d), dtype=torch.float32, device=dev)
+    ll = torch.empty(vb, dtype=torch.float64, device=dev) if mode == 0 else None
+    if dc > MAX_DC:
+        _wide(mode, None, feat, dc, _dense_gw(vb, dev), (0,), split_len, splits,
+              beta=beta, hinv=hinv, active=active, out_mat=mat, out_vec=vec,
+              out_ll=ll, dos=dos)
+        return mat, vec, ll
+    part = torch.empty((splits, d * (d + 1) // 2 + d, vb), dtype=torch.float32,
+                       device=dev)
+    part_ll = torch.empty((splits, vb), dtype=torch.float64, device=dev) \
+        if mode == 0 else None
+    _cuda.launch("glm_dense_irls" if mode == 0 else "glm_dense_firth",
+                 dos.data_ptr(), vb, feat.data_ptr(), npad, dc, mode, split_len,
+                 splits, beta.data_ptr(), _cuda.ptr(hinv),
+                 active.to(torch.uint8).data_ptr(), part.data_ptr(),
+                 _cuda.ptr(part_ll), mat.data_ptr(), vec.data_ptr(),
+                 _cuda.ptr(ll))
+    return mat, vec, ll
+
+
+def _dense_obs(dos, feat):
+    """Valid samples per variant (a tensor op: the count is exact)."""
+    return ((dos != DOSAGE_MISSING) & (feat[:, -1] > 0)[None, :]).sum(
+        dim=1).to(torch.float32)
+
+
+def dense_qt_block(dos, feat):
+    """plink_tpu dense_qt_block: per variant of a dosage block the OLS
+    sufficient statistics (X^T X [vb, d, d] over [c | g], X^T y [vb, d],
+    y'y, sum g, sum g^2, obs), all read from one K17 pass; c[:, 0] is the
+    intercept."""
+    dc = feat.shape[1] - 2
+    m = glm_dense_moments(dos, feat)
+    idx = list(range(dc)) + [dc + 1]
+    return (m[:, idx][:, :, idx].contiguous(), m[:, idx, dc].contiguous(),
+            m[:, dc, dc], m[:, 0, dc + 1], m[:, dc + 1, dc + 1], m[:, 0, 0])
+
+
+def dense_cc_block(dos, feat, firth=False):
+    """plink_tpu dense_cc_block: one dosage case/control block.  K17 gives
+    X^T X over [c | g], sum g y, sum g, sum g^2 and the OLS start; the
+    logistic (with `firth`, the Firth) IRLS runs on K18 and K4.  Returns
+    (xtx, g_case, g_tot, g_ssq, beta, se, conv, fail, unf, obs, invalid)."""
+    vb = dos.shape[0]
+    dc = feat.shape[1] - 2
+    d = dc + 1
+    m = glm_dense_moments(dos, feat)
+    idx = list(range(dc)) + [dc + 1]
+    active = torch.ones(vb, dtype=torch.bool, device=dos.device)
+    irls = partial(glm_dense_irls, dos, feat)
+    if firth:
+        res = _firth_core(irls, vb, d, active)
+    else:
+        h0, rhs0 = _ols_start(m, dc, 1)
+        res = _logistic_core(irls, h0, rhs0, active)
+    beta, se, _ll, conv, fail, unf, hinv = res
+    return (m[:, idx][:, :, idx].contiguous(), m[:, dc, dc + 1], m[:, 0, dc + 1],
+            m[:, dc + 1, dc + 1], beta, se, conv, fail, unf, m[:, 0, 0],
+            _valid_params_flags(hinv, d))
+
+
+def dense_firth_block(dos, feat, active=None):
+    """plink_tpu dense_firth_block: Firth regression over a dosage block
+    (the hybrid's second pass) for the rows in `active` (all when None), on
+    K18 and K4.  Returns (beta, se, conv, fail, unf, obs, invalid)."""
+    vb = dos.shape[0]
+    d = feat.shape[1] - 1
+    if active is None:
+        active = torch.ones(vb, dtype=torch.bool, device=dos.device)
+    beta, se, _pll, conv, fail, unf, h2inv = _firth_core(
+        partial(glm_dense_irls, dos, feat), vb, d, active)
+    return (beta, se, conv, fail, unf, _dense_obs(dos, feat),
+            _valid_params_flags(h2inv, d))
 
 
 # ---------------------------------------------------------------------------
@@ -573,12 +734,18 @@ def chol_small_plain(h, rhs=None, inverse=False, logdet=False):
     return x, inv, ld
 
 
+# bytes of shared memory K4's block mode may hold a matrix in
+# (csrc/chol_small.cu kCholSmemMax); above, it works in device memory
+_CHOL_SMEM_MAX = 227 * 1024 - 64
+
+
 def chol_small(h, rhs=None, inverse=False, logdet=False):
-    """K4: batched Cholesky of SPD h f32 [vb, d, d] (d <= 96 on the card:
-    one thread per matrix up to d = 48, one block per matrix above, counted
-    as mode chol_small_wide).  Returns (h^-1 rhs [vb, d] if rhs is given,
-    h^-1 [vb, d, d] if inverse, log det h [vb] if logdet), None for what was
-    not asked; rows that are not positive definite come back NaN."""
+    """K4: batched Cholesky of SPD h f32 [vb, d, d] (any d: one thread per
+    matrix up to d = 48, one block per matrix above, counted as mode
+    chol_small_wide, with a device-memory workspace above d = 240).
+    Returns (h^-1 rhs [vb, d] if rhs is given, h^-1 [vb, d, d] if inverse,
+    log det h [vb] if logdet), None for what was not asked; rows that are
+    not positive definite come back NaN."""
     vb, d, _ = h.shape
     dev = h.device
     _check("chol_small h", h, torch.float32, (vb, d, d), dev)
@@ -588,15 +755,17 @@ def chol_small(h, rhs=None, inverse=False, logdet=False):
         return chol_small_plain(h, rhs, inverse, logdet)
     if dev.type != "cuda":
         raise ValueError(f"chol_small: unsupported device {dev}")
-    _wide_d("chol_small", d)
     x = torch.empty((vb, d), dtype=torch.float32, device=dev) \
         if rhs is not None else None
     inv = torch.empty((vb, d, d), dtype=torch.float32, device=dev) \
         if inverse else None
     ld = torch.empty(vb, dtype=torch.float32, device=dev) if logdet else None
+    per = d * (d + 1) + d  # one matrix's L, L^-1 and solve vector
+    ws = torch.empty((vb, per), dtype=torch.float32, device=dev) \
+        if d > 48 and 4 * per > _CHOL_SMEM_MAX else None
     _cuda.launch("chol_small" if d <= 48 else "chol_small_wide", h.data_ptr(),
                  vb, d, _cuda.ptr(rhs), _cuda.ptr(x), _cuda.ptr(inv),
-                 _cuda.ptr(ld))
+                 _cuda.ptr(ld), _cuda.ptr(ws))
     return x, inv, ld
 
 
@@ -609,28 +778,29 @@ def _diag(m):
     return torch.diagonal(m, dim1=1, dim2=2)
 
 
-def _logistic_core(pk, gw, feat, h0, rhs0, active, **design):
+def _logistic_core(irls, h0, rhs0, active):
     """Batched logistic IRLS (plink_tpu _logistic_core) from the normal
-    equations (h0, rhs0) of the OLS start.  Each K3 call at beta_k gives
-    ll_k, H_k and the gradient; convergence compares ll_{k+1} with ll_k,
-    with the step-size fallback, and the reported SE comes from H of the
-    last solve.  `design` holds glm_irls_pass's sscale / offset / gmean /
-    covj.  Returns (beta, se, ll, conv, failed, unfinished, hinv)."""
-    vb = pk.shape[0]
-    d = h0.shape[1]
+    equations (h0, rhs0) of the OLS start.  Each call irls(beta, active)
+    (K3 / K16 / K18 logistic mode: glm_irls_pass or glm_dense_irls with the
+    design bound) at beta_k gives H_k, the gradient and ll_k; convergence
+    compares ll_{k+1} with ll_k, with the step-size fallback, and the
+    reported SE comes from H of the last solve.  Returns (beta, se, ll,
+    conv, failed, unfinished, hinv)."""
+    vb, d = rhs0.shape
+    dev = rhs0.device
     beta, _, _ = chol_small(h0, rhs=rhs0)
-    H, g, ll_old = glm_irls_pass(pk, gw, feat, beta, active, **design)
+    H, g, ll_old = irls(beta, active)
     failed = torch.isnan(ll_old)
     done = failed | ~active
     conv = torch.zeros_like(done)
-    eye = torch.eye(d, dtype=torch.float32, device=pk.device)
+    eye = torch.eye(d, dtype=torch.float32, device=dev)
     h_last = eye.expand(vb, d, d).clone()
     it = 1
     while it < _GLM_MAXIT and not bool(done.all()):
         dbeta, _, _ = chol_small(H, rhs=g)
         beta_new = beta - dbeta
         upd = ~done
-        Hn, gn, ll = glm_irls_pass(pk, gw, feat, beta_new, upd, **design)
+        Hn, gn, ll = irls(beta_new, upd)
         new_failed = torch.isnan(ll) | torch.isnan(dbeta).any(dim=1)
         new_conv = ((ll - ll_old).abs() < 1e-8 * (0.05 + ll.abs())) | (
             dbeta.abs().amax(dim=1)
@@ -645,20 +815,18 @@ def _logistic_core(pk, gw, feat, h0, rhs0, active, **design):
         g = torch.where(upd[:, None], gn, g)
         it += 1
     _, hinv, _ = chol_small(h_last, inverse=True)
-    se = torch.sqrt(torch.maximum(_diag(hinv), torch.zeros(1, device=pk.device)))
+    se = torch.sqrt(torch.maximum(_diag(hinv), torch.zeros(1, device=dev)))
     return beta, se, ll_old, conv, failed, ~conv & ~failed, hinv
 
 
-def _firth_core(pk, gw, feat, active, **design):
-    """Batched Firth-penalised IRLS (plink_tpu _firth_core).  Per iteration:
-    K3 logistic (v, H0, loglik) -> K4 (H0^-1, log det) -> K3 firth2
-    (ustar, H2) -> K4 (H2^-1) (K16 for K3 on the wide designs); with d = 1
-    (the residualized design) K4 runs on 1 x 1 matrices.  `design` as in
-    _logistic_core.  Returns (beta, se, pll, conv, failed, unfinished,
-    h2inv)."""
-    vb = pk.shape[0]
-    d = feat.shape[1] - 2 + _gw3(gw).shape[1]
-    dev = pk.device
+def _firth_core(irls, vb, d, active):
+    """Batched Firth-penalised IRLS (plink_tpu _firth_core) of vb rows of
+    width d.  Per iteration: irls logistic (v, H0, loglik) -> K4 (H0^-1, log
+    det) -> irls firth2 (ustar, H2, with hinv=H0^-1) -> K4 (H2^-1), irls as
+    in _logistic_core (K3, K16 on the wide designs, K18 on dosages); with
+    d = 1 (the residualized design) K4 runs on 1 x 1 matrices.  Returns
+    (beta, se, pll, conv, failed, unfinished, h2inv)."""
+    dev = active.device
     beta = torch.zeros((vb, d), dtype=torch.float32, device=dev)
     pll_old = torch.zeros(vb, dtype=torch.float64, device=dev)
     delta_max = torch.zeros(vb, dtype=torch.float32, device=dev)
@@ -669,11 +837,10 @@ def _firth_core(pk, gw, feat, active, **design):
     it = 0
     while it <= _FIRTH_MAXIT and not bool(done.all()):
         live = ~done
-        h0, _, ll = glm_irls_pass(pk, gw, feat, beta, live, **design)
+        h0, _, ll = irls(beta, live)
         _, h0inv, logdet = chol_small(h0, inverse=True, logdet=True)
         pll = ll + 0.5 * logdet
-        h2, ustar, _ = glm_irls_pass(pk, gw, feat, beta, live, hinv=h0inv,
-                                     **design)
+        h2, ustar, _ = irls(beta, live, hinv=h0inv)
         new_failed = torch.isnan(pll)
         new_conv = ((it > 0) & (delta_max <= 1e-5)
                     & (ustar.abs().amax(dim=1) < 1e-5)
@@ -787,12 +954,12 @@ def glm_logistic_scan(blocks, gws, gwms, feat, firth=False, sscale=None,
         gw = gws[bi].contiguous()
         momy = glm_moments(pk, gwms[bi].contiguous(), feat, sscale, covj + (0,))
         active = torch.ones(pk.shape[0], dtype=torch.bool, device=pk.device)
-        design = dict(sscale=sscale, covj=covj)
+        irls = partial(glm_irls_pass, pk, gw, feat, sscale=sscale, covj=covj)
         if firth:
-            res = _firth_core(pk, gw, feat, active, **design)
+            res = _firth_core(irls, pk.shape[0], d, active)
         else:
             h0, rhs0 = _ols_start(momy, dc, P)
-            res = _logistic_core(pk, gw, feat, h0, rhs0, active, **design)
+            res = _logistic_core(irls, h0, rhs0, active)
         beta, se, _ll, conv, fail, unf, hinv = res
         outs.append((momy, _mstats(momy, dc, P), _collin_screen_device(momy, dc, P),
                      beta, se, conv, fail, unf, momy[:, 0, 0],
@@ -808,9 +975,10 @@ def firth_irls_block(packed, gw, feat, active=None, sscale=None, covj=None):
     vb, nb = packed.shape
     if active is None:
         active = torch.ones(vb, dtype=torch.bool, device=packed.device)
+    irls = partial(glm_irls_pass, packed, gw.contiguous(), feat, sscale=sscale,
+                   covj=_covj(covj, gw.shape[1]))
     beta, se, pll, conv, fail, unf, h2inv = _firth_core(
-        packed, gw.contiguous(), feat, active, sscale=sscale,
-        covj=_covj(covj, gw.shape[1]))
+        irls, vb, feat.shape[1] - 2 + gw.shape[1], active)
     cts = geno_counts(packed, feat[:, -1:].contiguous())[0]
     obs = (cts[:, :3].sum(dim=1)).to(torch.float32)
     return beta, se, pll, conv, fail, unf, obs, h2inv
@@ -840,9 +1008,9 @@ def logistic_irls_block(packed, gw, feat, covj=None, sscale=None):
     momy = glm_moments(packed, _with_add(gw), feat, sscale, covj + (0,))
     h0, rhs0 = _ols_start(momy, dc, P)
     active = torch.ones(packed.shape[0], dtype=torch.bool, device=packed.device)
-    beta, se, ll, conv, fail, unf, hinv = _logistic_core(
-        packed, gw.contiguous(), feat, h0, rhs0, active, sscale=sscale,
-        covj=covj)
+    irls = partial(glm_irls_pass, packed, gw.contiguous(), feat, sscale=sscale,
+                   covj=covj)
+    beta, se, ll, conv, fail, unf, hinv = _logistic_core(irls, h0, rhs0, active)
     return beta, se, ll, conv, fail, unf, momy[:, 0, 0], hinv
 
 
@@ -900,11 +1068,12 @@ def glm_resid_scan(blocks, gws, gwms, feat, offset, firth=False, sscale=None):
         momy = glm_moments(pk, gwms[bi].contiguous(), feat, sscale)
         mean, h0, rhs0 = _resid_start(momy, dc, P)
         active = torch.ones(pk.shape[0], dtype=torch.bool, device=pk.device)
-        design = dict(sscale=sscale, offset=offset, gmean=mean)
+        irls = partial(glm_irls_pass, pk, gw, feat_r, sscale=sscale,
+                       offset=offset, gmean=mean)
         if firth:
-            res = _firth_core(pk, gw, feat_r, active, **design)
+            res = _firth_core(irls, pk.shape[0], P, active)
         else:
-            res = _logistic_core(pk, gw, feat_r, h0, rhs0, active, **design)
+            res = _logistic_core(irls, h0, rhs0, active)
         beta, se, _ll, conv, fail, unf, hinv = res
         dg = _diag(hinv)
         invalid = ((dg < 1e-20) | ~torch.isfinite(dg)).any(dim=1)
@@ -928,9 +1097,10 @@ def resid_irls_block(packed, gw, feat, offset, active=None, sscale=None):
     momy = glm_moments(packed, _with_add(gw), feat[:, [0, dc, dc + 1]].contiguous(),
                        sscale)
     mean, _, _ = _resid_start(momy, 1, P)
-    beta, se, pll, conv, fail, unf, h2inv = _firth_core(
-        packed, gw.contiguous(), feat[:, dc:].contiguous(), active,
-        sscale=sscale, offset=offset, gmean=mean)
+    irls = partial(glm_irls_pass, packed, gw.contiguous(),
+                   feat[:, dc:].contiguous(), sscale=sscale, offset=offset,
+                   gmean=mean)
+    beta, se, pll, conv, fail, unf, h2inv = _firth_core(irls, vb, P, active)
     return beta, se, pll, conv, fail, unf, momy[:, 0, 0], h2inv
 
 

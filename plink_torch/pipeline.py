@@ -1,7 +1,8 @@
 """Command pipeline (ref: Plink2Core, 2.0/plink2.cc:836), as far as this port
 runs it, in plink_tpu's order (plink_tpu/pipeline.py): load a .pgen/.bed
-fileset, apply --pheno, the sample filters (keep/remove, founders, --mind),
-the variant filters (extract/exclude, chr), the counts-based reports and
+fileset (or write and load a --dummy one), apply --pheno, the sample
+filters (keep/remove, founders, --mind), the variant filters
+(extract/exclude, chr), the counts-based reports and
 their filters (freq, geno-counts, missing, --geno, hardy, --hwe,
 --maf/--mac), the relationship commands (KING, then GRM / PCA),
 --indep-pairwise, --indep-pairphase, the --r2/--r tables and matrices,
@@ -32,6 +33,8 @@ _PORTED_FIELDS = {
     "variance_standardize", "quantile_normalize", "pheno_quantile_normalize",
     "covar_quantile_normalize", "condition", "condition_list",
     "output_chr", "seed", "silent", "threads", "memory", "argv",
+    # --dummy and its hard-call / erase thresholds
+    "dummy", "hard_call_thresh", "dosage_erase_thresh",
     # sample and variant filters
     "keep", "remove", "keep_founders", "keep_nonfounders", "mind",
     "extract", "exclude", "chr", "not_chr", "autosome", "autosome_par",
@@ -64,13 +67,18 @@ def _unported_flags(cfg: Config) -> list[str]:
     return out
 
 
-def _load(cfg: Config, device):
-    """The input fileset (--pfile / --bfile; every other input flag is
-    refused by _unported_flags before this runs)."""
-    if not (cfg.pfile or cfg.bfile):
-        raise ValueError("no input fileset specified (--pfile/--bfile)")
-    return load_dataset(cfg.pfile or cfg.bfile, device,
-                        missing_pheno=cfg.input_missing_phenotype)
+def _load(cfg: Config, device, log):
+    """The input fileset (--pfile / --bfile, or the panel --dummy writes;
+    every other input flag is refused by _unported_flags before this
+    runs)."""
+    if cfg.pfile or cfg.bfile:
+        return load_dataset(cfg.pfile or cfg.bfile, device,
+                            missing_pheno=cfg.input_missing_phenotype)
+    if cfg.dummy:
+        from .commands.dummy import generate_dummy
+
+        return generate_dummy(cfg, log, device)
+    raise ValueError("no input fileset specified (--pfile/--bfile/--dummy)")
 
 
 def _degenerate_data_checks(cfg: Config, ds) -> None:
@@ -169,7 +177,7 @@ def run_pipeline(cfg: Config, device) -> int:
     if cfg.seed is not None:
         np.random.seed(cfg.seed)
     try:
-        ds = _load(cfg, device)
+        ds = _load(cfg, device, log)
         log.log(
             f"{ds.raw_variant_ct} variants and {ds.raw_sample_ct} samples loaded."
         )

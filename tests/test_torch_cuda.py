@@ -4,7 +4,10 @@ decode path) or a ragged tile, variant counts that are not a multiple of the
 64-variant block (or of K5's 256-row chunk), every covariate width the
 kernels are built for, inactive rows and masked-out variants, the designs
 with two genotype columns (K2 / K3) and with G x covariate columns (K15 /
-K16), and matrix sizes up to the 96-column limit of chol_small.
+K16), the dosage kernels K17 / K18 (and K15 / K16's dense mode above 16
+covariate columns), and matrix sizes past every shared-memory layout of
+chol_small (d = 250 works in device memory) and of K15 / K16 (d = 128
+splits a variant's tiles over CTAs).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card, from the
 repository root (the repo's conftest imports jax, which that machine lacks):
@@ -233,7 +236,7 @@ def test_xm1_stats_kernel(dev, n, V):
     assert torch.equal(k, xm1_stats(pk, wt, mask))
 
 
-@pytest.mark.parametrize("d", [1, 2, 5, 13, 17, 30, 48, 49, 64, 96])
+@pytest.mark.parametrize("d", [1, 2, 5, 13, 17, 30, 48, 49, 64, 96, 128, 250])
 def test_chol_small_kernel(dev, d):
     from plink_torch.ops.glm import chol_small, chol_small_plain
 
@@ -277,7 +280,7 @@ def test_sample_counts_kernel(dev, n, vb, dc):
 
 
 @pytest.mark.parametrize("swap", [False, True], ids=["alt", "a1_ref"])
-@pytest.mark.parametrize("n,vb,dc", SHAPES)
+@pytest.mark.parametrize("n,vb,dc", SHAPES + [(1000, 40, 49)])  # 49: chunked rows
 def test_linear_sums_kernel(dev, n, vb, dc, swap):
     """K6 against its plain version run in f64, each entry normalised by a
     Cauchy-Schwarz bound on its plane sum; two runs give identical bytes.
@@ -700,3 +703,115 @@ def test_glm_irls_pass_resid_p2_kernel(dev, n, vb, mode, scaled):
     p = glm_irls_pass_plain(pk, g3, fr, beta, active, hinv, **design)
     assert k[0].shape == (vb, 2, 2)
     _k3_compare(*k, *p, active, n)
+
+
+# ---------------------------------------------------------------------------
+# the dosage kernels K17 / K18 and the widths past 96
+# ---------------------------------------------------------------------------
+
+
+def _dense_inputs(n, vb, dc, seed):
+    """uint16 A1 dosages [vb, npad] (65535 missing and padding; some rows
+    hard calls only, some A1 = REF) and the [c | y | mask] table."""
+    _, feat, _ = _inputs(n, vb, dc, seed)
+    rng = np.random.default_rng(seed + 100)
+    npad = feat.shape[0]
+    maf = rng.uniform(0.01, 0.5, size=(vb, 1))
+    hard = ((rng.random((vb, n)) < maf).astype(np.int64)
+            + (rng.random((vb, n)) < maf)) * 16384
+    soft = np.clip(hard + rng.integers(-6000, 6001, (vb, n)), 0, 32768)
+    u = np.where((rng.random((vb, n)) < 0.7) & (np.arange(vb) % 5 != 0)[:, None],
+                 soft, hard)
+    u = np.where((np.arange(vb) % 2 == 1)[:, None], 32768 - u, u)
+    dos = np.full((vb, npad), 65535, np.uint16)
+    dos[:, :n] = np.where(rng.random((vb, n)) < 0.05, 65535, u)
+    return dos, feat
+
+
+DENSE_SHAPES = SHAPES + [(1000, 40, 20)]  # dc = 20: K15 / K16's dense mode
+
+
+@pytest.mark.parametrize("n,vb,dc", DENSE_SHAPES)
+def test_glm_dense_moments_kernel(dev, n, vb, dc):
+    """K17 (K15 dense above dc = 16) against its plain version; no
+    atomics."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.glm import glm_dense_moments, glm_dense_moments_plain
+
+    dos, feat = _dense_inputs(n, vb, dc, 40)
+    u = torch.from_numpy(dos).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    before = dict(_cuda.LAUNCHES)
+    k = glm_dense_moments(u, f)
+    name = "glm_moments_wide" if dc > 16 else "glm_dense_moments"
+    assert _cuda.LAUNCHES[name] == before[name] + 1
+    assert k.shape == (vb, dc + 2, dc + 2)
+    assert _mat_err(k, glm_dense_moments_plain(u, f)) <= TOL
+    assert torch.equal(k, glm_dense_moments(u, f))
+
+
+@pytest.mark.parametrize("n,vb,dc", DENSE_SHAPES)
+@pytest.mark.parametrize("mode", ["logistic", "firth2"])
+def test_glm_dense_irls_kernel(dev, n, vb, dc, mode):
+    """K18 (K16 dense above dc = 16) against its plain version, inactive
+    rows zero, two runs identical."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.glm import chol_small, glm_dense_irls, glm_dense_irls_plain
+
+    dos, feat = _dense_inputs(n, vb, dc, 41)
+    rng = np.random.default_rng(42)
+    u = torch.from_numpy(dos).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    beta = torch.from_numpy(rng.normal(scale=0.3 / (dc + 1) ** 0.5,
+                                       size=(vb, dc + 1)).astype(np.float32)).to(dev)
+    active = torch.from_numpy(rng.random(vb) < 0.8).to(dev)
+    hinv = None
+    if mode == "firth2":
+        h, _, _ = glm_dense_irls(u, f, beta, torch.ones_like(active))
+        _, hinv, _ = chol_small(h, inverse=True)
+    before = dict(_cuda.LAUNCHES)
+    k = glm_dense_irls(u, f, beta, active, hinv)
+    name = "glm_irls_wide" if dc > 16 else \
+        "glm_dense_irls" if mode == "logistic" else "glm_dense_firth"
+    assert _cuda.LAUNCHES[name] == before[name] + 1
+    _k3_compare(*k, *glm_dense_irls_plain(u, f, beta, active, hinv), active, n)
+    again = glm_dense_irls(u, f, beta, active, hinv)
+    assert torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])
+
+
+@pytest.mark.parametrize("mode", ["moments", "logistic", "firth2"])
+def test_glm_wide_kernels_at_d128(dev, mode):
+    """K15 / K16 at d = 128 (`interaction` over 63 covariates: the tile list
+    is split over CTAs) against the plain versions; two runs identical."""
+    from plink_torch.ops.glm import (chol_small, glm_irls_pass, glm_irls_pass_plain,
+                                     glm_moments, glm_moments_plain)
+
+    n, vb, dc = 3000, 6, 64
+    packed, feat, gw = _inputs(n, vb, dc, 43)
+    rng = np.random.default_rng(44)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    g3, covj = _design(gw, dc, "interaction")
+    g3 = g3.to(dev)
+    d = dc + g3.shape[1]
+    assert d == 128
+    if mode == "moments":
+        gwm = torch.cat([g3, g3[:, :1]], 1).contiguous()
+        k = glm_moments(pk, gwm, f, None, covj + (0,))
+        assert _mat_err(k, glm_moments_plain(pk, gwm, f, None, covj + (0,))) <= TOL
+        assert torch.equal(k, glm_moments(pk, gwm, f, None, covj + (0,)))
+        return
+    beta = torch.from_numpy(rng.normal(scale=0.2 / d ** 0.5, size=(vb, d))
+                            .astype(np.float32)).to(dev)
+    active = torch.ones(vb, dtype=torch.bool, device=dev)
+    active[2] = False
+    hinv = None
+    if mode == "firth2":
+        h, _, _ = glm_irls_pass(pk, g3, f, beta, torch.ones_like(active), covj=covj)
+        _, hinv, _ = chol_small(h, inverse=True)
+        active &= torch.linalg.cond(h.double()) < 1e4
+    k = glm_irls_pass(pk, g3, f, beta, active, hinv, covj=covj)
+    _k3_compare(*k, *glm_irls_pass_plain(pk, g3, f, beta, active, hinv, covj=covj),
+                active, n)
+    again = glm_irls_pass(pk, g3, f, beta, active, hinv, covj=covj)
+    assert torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])

@@ -26,8 +26,7 @@ def _cli(args, cwd, device="cpu", extra_env=None):
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
     """A 40-sample x 24-variant panel with a SEX + 1 covariate file, a
-    48-covariate file (`interaction` then has d = 98 > 96) and a
-    quantitative phenotype file."""
+    48-covariate file and a quantitative phenotype file."""
     from plink_torch.bench_gen import gen_panel, make_cov
 
     d = tmp_path_factory.mktemp("tiny")
@@ -75,8 +74,10 @@ def test_bad_device_name_refused(tiny, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("args", [
     ["--blocks", "no-pheno-req"],
     ["--freq", "cols=+machr2"],
-    # the logistic design 1 + 48 + 1 + 48 is wider than the CUDA kernels take
-    ["--glm", "interaction", "--covar", "{p}.wide.cov"],
+    # a design of any width runs (1 + 48 + 1 + 48 included); local
+    # covariates do not yet
+    ["--glm", "interaction", "local-covar={p}.wide.cov", "--covar",
+     "{p}.wide.cov"],
     ["--glm", "cc-residualize", "hide-covar", "genotypic", "firth", "aperm",
      "--covar", "{p}.cov"],
     ["--glm", "--covar", "{p}.cov", "--maf", "0.01", "--af-pseudocount", "1"],

@@ -699,10 +699,10 @@ def test_logistic_irls_block_matches_jax(geno_factory, design):
 def test_joint_designs_route_to_their_kernels():
     """The dispatch rule on (P, covj, d): K2 / K3 take one column, and two
     unscaled without a covariate factor; every G x covariate design and
-    every wider one goes to K15 / K16; d > 96 is refused on the card."""
-    from plink_torch import NotPortedError
-    from plink_torch.ops.glm import (MAX_DC, P2_MAX_DC, WIDE_MAX_D,
-                                     _register_kernel, _wide_d)
+    every wider one goes to K15 / K16, at any width (no refusal past d = 96:
+    the wrappers' width limit is gone)."""
+    from plink_torch.ops import glm as G
+    from plink_torch.ops.glm import MAX_DC, P2_MAX_DC, _register_kernel
 
     assert _register_kernel(1, (0,), 12, None)
     assert _register_kernel(1, (0,), 12, torch.ones(4))
@@ -711,6 +711,14 @@ def test_joint_designs_route_to_their_kernels():
     assert not _register_kernel(1, (3,), 12, None)
     assert not _register_kernel(12, (0,) * 12, 12, None)
     assert not _register_kernel(1, (0,), MAX_DC + 1, None)
-    _wide_d("x", WIDE_MAX_D)
-    with pytest.raises(NotPortedError, match="d = 97"):
-        _wide_d("x", WIDE_MAX_D + 1)
+    assert not hasattr(G, "WIDE_MAX_D") and not hasattr(G, "_wide_d")
+    # the plain route takes a d = 128 design (what K15 / K16 take on the card)
+    rng = np.random.default_rng(5)
+    pk = torch.from_numpy(rng.integers(0, 256, size=(3, 16), dtype=np.uint8))
+    feat = torch.from_numpy(np.column_stack(
+        [np.ones(64), rng.normal(size=(64, 63)), rng.random(64) < 0.5,
+         np.ones(64)]).astype(np.float32))
+    gw = torch.tensor([1.0, 2.0, 0.0]).expand(3, 64, 3).contiguous()
+    h, _, _ = G.glm_irls_pass(pk, gw, feat, torch.zeros(3, 128),
+                              torch.ones(3, dtype=torch.bool), covj=tuple(range(64)))
+    assert h.shape == (3, 128, 128)
