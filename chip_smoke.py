@@ -126,6 +126,28 @@ run:
      `interaction` over 48 covariates (d = 98) on 64 variants of the parity
      panel; two card runs byte-identical.
 
+Slice 9 (the --glm permutation tests, --adjust, local covariates) adds, in
+the order they run:
+  3e. K19 (the permuted X^T y and y^T y) and K20 (the t or joint F of each
+     variant and permutation) on block 0 of phase 4's panel against 134
+     permuted QT1 columns, at P = 1, genotypic (q = 2) and `interaction`:
+     K19 against its plain version in f32 (every row) and f64
+     (JOINT_F64_ROWS rows), K20 against its plain version in f64 on the
+     same inputs; two runs identical; each timed beside its bound and one
+     library call;
+  4e. on the joint-model panel (500,000 x 2,048): the linear `--glm
+     hide-covar mperm=1000 --seed 1` and `aperm --aperm 6 268` on a QT
+     with two planted variants, and `--glm firth hide-covar mperm=66` on
+     PHENO1: K19, K20, K2 and K4 (K3 for Firth) launched, every K19 / K20
+     launch kept and held to its plain version, 64 linear and 16 Firth
+     (variant, permutation) statistics of the first batch against numpy
+     f64 fits of the rebuilt permuted phenotype, the planted variants at
+     the EMP floor; the linear path traced on two batches;
+  17e. permutation, --adjust and local-covariate cases on the parity
+     panel, CUDA against CPU by plink_torch.testing's rules (the EMP
+     columns byte-identical in >= 98% of the rows, within 3 / (N + 1)
+     elsewhere); two card runs byte-identical.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
 without the plink_torch package beside this script.
@@ -2884,6 +2906,17 @@ def hold_to_f64(label, vrows, col, wants, nobs):
     return best
 
 
+def pmap(fn, items, workers=4):
+    """[fn(x) for x in items] on a pool of threads: the numpy f64 reference
+    fits spend their time in numpy calls on 500,000-row arrays, which
+    release the interpreter lock (each reads its codes with its own
+    memmap)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(fn, items))
+
+
 def check_joint_rows(prefix, label, mods, path, C, cnames, keep, y, n_rows,
                      per_variant=4, offs=None):
     """n_rows rows of a joint-model report (per_variant rows from each of
@@ -2903,11 +2936,14 @@ def check_joint_rows(prefix, label, mods, path, C, cnames, keep, y, n_rows,
     rest = [v for v in ok if v not in pick]
     pick += rest[:: max(1, len(rest) // max(1, n_var - len(pick)))][: n_var - len(pick)]
     worst, checked = 0.0, 0
-    for vid in pick:
+
+    def fit(vid):
         vrows = by_vid[vid]
-        firth = fi is not None and vrows[0][fi] == "Y"
-        wants, nobs = f64_variant(prefix, vrows, col, mods, C, cnames, keep, y,
-                                  firth, offs)
+        return f64_variant(prefix, vrows, col, mods, C, cnames, keep, y,
+                           fi is not None and vrows[0][fi] == "Y", offs)
+
+    for vid, (wants, nobs) in zip(pick, pmap(fit, pick)):
+        vrows = by_vid[vid]
         sel = vrows[:: max(1, len(vrows) // per_variant)][:per_variant]
         if "GENO_2DF" in wants[0] and vrows[-1] not in sel:
             sel[-1] = vrows[-1]
@@ -3937,6 +3973,498 @@ def run_dosage_parity_case(tmp, label, args, exts, must, refit_of, held):
         f"CUDA {secs['cuda1']:.1f}s, CPU {secs['cpu']:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the --glm permutation tests (K19 / K20), --adjust, local
+# covariates
+# ---------------------------------------------------------------------------
+
+PERM_B = 134  # permutations a linear batch at 500,000 samples: plink_tpu's
+# max(16, min(256, 2^26 // n)); the Firth batch is max(4, min(64, 2^24 // n))
+PERM_EFFECT = 0.05  # planted QT effect a genotype copy (t ~ 20 at 500,000)
+PERM_N_LINEAR = 64  # (variant, permutation) pairs held to numpy f64 OLS
+PERM_N_FIRTH = 16  # (variant, permutation) pairs held to numpy f64 Firth
+TOL_PERM_STAT = 1e-5  # K20 (f64 inside) vs its plain version in f64 on the
+# same f32 inputs: the final rounding to f32, relative to max(|stat|, 1)
+
+
+def _perm_xty_scale(torch, G, pk, gw, c, Y, mask, covj, sscale=None):
+    """Cauchy-Schwarz bounds on K19's outputs: sqrt(sum_s L_j^2 * sum_s
+    Y_b^2) for xty [vb, d, B] and sum_s mask Y_b^2 for yy [vb, B]
+    (decoded 128 rows at a time)."""
+    def sq_of(sl):
+        valid, gcols = G._plane_cols(pk[sl], G._gw3(gw[sl]), c, mask,
+                                     G._covj(covj, gw.shape[1]), sscale)
+        return torch.cat([valid @ (c * c)] + [(g * g).sum(1, keepdim=True)
+                                              for g in gcols], 1)
+
+    sq = chunked(torch, sq_of, pk.shape[0], 128)
+    y2 = (Y * Y * mask[:, None]).sum(0)
+    return torch.sqrt(sq[:, :, None] * y2[None, None, :]), y2[None, :]
+
+
+def _xty_err(torch, k, p, scale):
+    return max(float(((k[0] - p[0]).abs() / scale[0]).max()),
+               float(((k[1] - p[1]).abs() / scale[1]).max()))
+
+
+def _stat_err(torch, k, p):
+    """(max |k - p| / max(|p|, 1) over the finite entries, NaN where both
+    are NaN)."""
+    assert torch.equal(torch.isnan(k), torch.isnan(p)), "NaN places differ"
+    fin = torch.isfinite(p)
+    return float(((k - p).abs() / p.abs().clamp(min=1.0))[fin].max())
+
+
+def check_perm_kernels(torch, dev, prefix):
+    """Phase 3e: K19 (the permuted X^T y, y^T y) and K20 (t or joint F) on
+    block 0 of phase 4's panel (2,048 variants x 500,000 samples, SEX + 10
+    PCs, dc = 12) against PERM_B = 134 permuted QT1 columns (numpy seed
+    71), at three designs: the additive model (P = 1), genotypic (P = 2,
+    joint F over q = 2) and `interaction` (ADD and ADD x each covariate,
+    the t of ADD).  K19 against its plain version in f32 on every row and
+    in f64 on JOINT_F64_ROWS rows, each entry normalised by a
+    Cauchy-Schwarz bound; K20 (which works in f64 on its f32 inputs)
+    against its plain version in f64 on the same inputs, on every row.
+    Two runs identical; each timed beside its bound and one library call
+    (K19: an f32 torch.matmul, TF32 off, of the decoded valid plane by
+    [c (*) Y | Y^2], 13 of its 14 rows at P = 1; K20: torch.bmm of the
+    inverses by X^T y, its first product)."""
+    import numpy as np
+
+    from plink_torch.ops import glm as G
+
+    packed_all, feat, _ = main_path_inputs(torch, prefix, dev)
+    vb = 2048
+    pk = packed_all[:vb]
+    dc = feat.shape[1] - 2
+    npad = feat.shape[0]
+    c, mask = feat[:, :dc].contiguous(), feat[:, dc + 1].contiguous()
+    qt = np.loadtxt(prefix + ".qt", skiprows=1, usecols=1).astype(np.float32)
+    rng = np.random.default_rng(71)
+    Yn = np.zeros((npad, PERM_B), np.float32)
+    for b in range(PERM_B):
+        Yn[:N_SAMPLES, b] = rng.permutation(qt)
+    Y = torch.from_numpy(Yn).to(dev)
+    del Yn
+    add = torch.zeros((vb, 3), dtype=torch.float32, device=dev)
+    add[:, 0], add[:, 1] = 1.0, 2.0  # ADD with A1 = ALT
+    dom = torch.zeros_like(add)
+    dom[:, 0] = 1.0
+    designs = {  # name: (gw [vb, P, 3], covj, q)
+        "additive": (add[:, None].contiguous(), (0,), 0),
+        "genotypic": (torch.stack([add, dom], 1).contiguous(), (0, 0), 2),
+        "interaction": (torch.stack([add] * dc, 1).contiguous(), tuple(range(dc)), 0),
+    }
+    sub = slice(0, JOINT_F64_ROWS)
+    n_valid = float(unpack_codes(pk).ne(3).sum())
+    res = {}
+    for name, (gw, covj, q) in designs.items():
+        P = gw.shape[1]
+        k = G.linear_perm_xty(pk, gw, c, Y, mask, covj)
+        again = G.linear_perm_xty(pk, gw, c, Y, mask, covj)
+        assert torch.equal(k[0], again[0]) and torch.equal(k[1], again[1]), name
+        del again
+        p, pms = timed(torch, lambda: chunked(torch, lambda sl: G.linear_perm_xty_plain(
+            pk[sl], gw[sl], c, Y, mask, covj), vb, 128))
+        scale = _perm_xty_scale(torch, G, pk, gw, c, Y, mask, covj)
+        e = _xty_err(torch, k, p, scale)
+        max_abs = max(float((k[0] - p[0]).abs().max()), float((k[1] - p[1]).abs().max()))
+        del p
+        r = chunked(torch, lambda sl: G.linear_perm_xty_plain(
+            pk[sub][sl], gw[sub][sl].double(), c.double(), Y.double(), mask.double(),
+            covj), JOINT_F64_ROWS, 64)
+        er = _xty_err(torch, (k[0][sub], k[1][sub]), r,
+                      (scale[0][sub].double(), scale[1].double()))
+        del r
+        assert e <= TOL_VS_PLAIN and er <= TOL_VS_F64, (name, e, er)
+        ms = time_ms(torch, lambda: G.linear_perm_xty(pk, gw, c, Y, mask, covj), 3)
+        rows = dc + P + 1
+        bound = _bound(2.0 * PERM_B * rows * n_valid,
+                       pk.numel() + (gw.numel() + c.numel() + Y.numel() + mask.numel()
+                                     + k[0].numel() + k[1].numel()) * 4)
+        # K20 on the K2 / K15 and K4 inverses of the design
+        (inv, inv0, nm), = G.perm_inverses(pk[None], gw[None], c, mask, covj, q)
+        st = G.linear_perm_stat(inv, *k, nm, dc, q, inv0)
+        st2 = G.linear_perm_stat(inv, *k, nm, dc, q, inv0)
+        assert torch.equal(st.view(torch.int32), st2.view(torch.int32)), name
+        dbl = (lambda t: None if t is None else t.double())
+        ps, sms = timed(torch, lambda: G.linear_perm_stat_plain(
+            inv.double(), k[0].double(), k[1].double(), nm.double(), dc, q, dbl(inv0)))
+        es = _stat_err(torch, st, ps)
+        assert es <= TOL_PERM_STAT, (name, es)
+        e32 = _stat_err(torch, st, G.linear_perm_stat_plain(inv, *k, nm, dc, q, inv0))
+        sms_ = time_ms(torch, lambda: G.linear_perm_stat(inv, *k, nm, dc, q, inv0), 10)
+        d = inv.shape[1]
+        d0 = d - q
+        sbound = _bound(vb * PERM_B * 2.0 * (d * d + d + (d0 * d0 + d0 if q else 0)),
+                        (inv.numel() + (inv0.numel() if q else 0) + k[0].numel()
+                         + 3 * k[1].numel() + nm.numel()) * 4)
+        slib = time_ms(torch, lambda: torch.bmm(inv, k[0]), 10)
+        log(f"K19 linear_perm_xty {name} [{vb}x{npad}, P={P}, B={PERM_B}]: norm err "
+            f"vs plain {e:.2e}, vs f64 ({JOINT_F64_ROWS} rows) {er:.2e}, two runs "
+            f"identical; {ms:.3f} ms, plain {pms:.1f} ms, bound "
+            f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); K20 [{name}, d={d}, "
+            f"q={q}]: err vs plain in f64 {es:.2e} (tol {TOL_PERM_STAT:g}), vs the "
+            f"f32 plain {e32:.2e}, {int(torch.isnan(st[:, 0]).sum())} singular rows "
+            f"NaN in both; {sms_:.4f} ms, plain {sms:.2f} ms, bound "
+            f"{sbound['bound_ms']:.4f} ms ({sbound['bound_by']}), bmm {slib:.4f} ms")
+        res[name] = (dict(max_abs_err=max_abs, max_norm_err=e, tol=TOL_VS_PLAIN,
+                          max_norm_err_f64=er, tol_f64=TOL_VS_F64, ms=ms,
+                          plain_ms=pms, **bound),
+                     dict(max_abs_err=float((st - ps).abs()[torch.isfinite(ps)].max()),
+                          max_norm_err=es, tol=TOL_PERM_STAT, f32_plain_err=e32,
+                          ms=sms_, plain_ms=sms, **sbound, library_ms=slib))
+        del k, st, st2, ps, scale, inv, inv0
+        torch.cuda.empty_cache()
+    # the library yardstick of K19: the valid plane by [c (*) Y | Y^2]
+    valid_f = (unpack_codes(pk) != 3).to(torch.float32) * mask[None, :]
+    cyy = torch.cat([c[:, j:j + 1] * Y for j in range(dc)] + [Y * Y], 1)
+    lib = time_ms(torch, lambda: torch.matmul(valid_f, cyy), 3)
+    del valid_f, cyy
+    torch.cuda.empty_cache()
+    x_add, s_add = res["additive"]
+    extra = {f"{nm_}_{key}": res[nm_][0][key] for nm_ in ("genotypic", "interaction")
+             for key in ("ms", "plain_ms", "bound_ms")}
+    sextra = {f"{nm_}_{key}": res[nm_][1][key] for nm_ in ("genotypic", "interaction")
+              for key in ("ms", "bound_ms")}
+    return [dict(name="linear_perm_xty", source="plink_torch/csrc/linear_perm.cu",
+                 replaces="plink_tpu/ops/glm.py:1031", **x_add, library_ms=lib,
+                 **extra),
+            dict(name="linear_perm_stat", source="plink_torch/csrc/linear_perm.cu",
+                 replaces="plink_tpu/ops/glm.py:1137", **s_add, **sextra)]
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Wrap `name` where `module` looks it up, keeping every call's
+    (arguments, result).  Yields (calls, the real function)."""
+    real, calls = getattr(module, name), []
+
+    def rec(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield calls, real
+    finally:
+        setattr(module, name, real)
+
+
+def perm_argvs(prefix, permqt, firth_rows):
+    """The permutation paths (slice 9): label -> argv.  The Firth path runs
+    on the variants listed in `firth_rows`: at 500,000 samples no f32 Firth
+    fit meets plink2's score test (|U*| < 1e-5; the f32 sums of U* carry
+    more rounding than that), so the report refits every row in f64 on the
+    host (as plink_tpu does), ~0.25 s a row."""
+    base = ["--pfile", prefix, "--covar", prefix + ".cov"]
+    lin = base + ["--pheno", permqt, "--glm", "hide-covar"]
+    return {"linear_mperm": lin + ["mperm=1000", "--seed", "1"],
+            "linear_aperm": lin + ["aperm", "--aperm", "6", "268", "--seed", "1"],
+            "firth_mperm": base + ["--glm", "firth", "hide-covar", "mperm=66",
+                                   "--extract", firth_rows, "--seed", "1"]}
+
+
+def check_perm_linear_pairs(prefix, stat, y, variants, perms, a1_alt):
+    """PERM_N_LINEAR (variant, permutation) pairs of the path's first batch
+    held to numpy f64 OLS: |t| of the A1 dosage in [1 | SEX | PC1..PC10 |
+    g] over the variant's valid samples, on the permuted phenotype rebuilt
+    from the seed (plink_tpu's stream: default_rng(1), one permutation a
+    column of the f32 phenotype).  Within GLM_FLOAT_RTOL of max(|t|, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    yt = np.stack([rng.permutation(y.astype(np.float32)) for _ in range(PERM_B)])
+    C, *_ = _panel_design(prefix)
+
+    def fit(vg):  # the variant's f64 OLS t on each permuted phenotype
+        v, g = vg
+        ok = g != 3
+        gv = g[ok].astype(float) if a1_alt[v] else 2.0 - g[ok]
+        X = np.column_stack([C[ok], gv])
+        inv = np.linalg.inv(X.T @ X)
+        ts = []
+        for b in perms:
+            yp = yt[b][ok].astype(np.float64)
+            beta = inv @ (X.T @ yp)
+            rss = float(yp @ yp - beta @ (X.T @ yp))
+            ts.append(beta[-1] / np.sqrt(rss / (ok.sum() - X.shape[1]) * inv[-1, -1]))
+        return ts
+
+    worst = 0.0
+    for v, ts in zip(variants, pmap(fit, list(zip(variants,
+                                                  pgen_codes(prefix, variants))))):
+        for b, t in zip(perms, ts):
+            got = float(stat[v, b])
+            frac = abs(abs(got) - abs(t)) / (GLM_FLOAT_RTOL * max(abs(t), 1.0))
+            assert frac <= 1.0, ("perm t", v, b, got, t)
+            worst = max(worst, frac)
+    return worst
+
+
+def check_perm_firth_pairs(prefix, stats, y, pairs, a1_alt):
+    """PERM_N_FIRTH (variant, permutation) pairs of the Firth path's first
+    batch held to numpy f64 Firth fits (plink_torch.testing.f64_logit, at
+    any stop an f32 fit can take under plink2's rules: slack 10, and the
+    converged f64 fit, which the f32 fit approaches without meeting the
+    score test): |z| of the A1 dosage, within GLM_FLOAT_RTOL of max(|z|,
+    1)."""
+    import numpy as np
+
+    from plink_torch.testing import f64_logit
+
+    B = stats.shape[0]
+    rng = np.random.default_rng(1)
+    yt = np.stack([rng.permutation(y.astype(np.float32)) for _ in range(B)])
+    C, *_ = _panel_design(prefix)
+
+    def fit(pg):
+        (v, b), g = pg
+        ok = g != 3
+        gv = g[ok].astype(float) if a1_alt[v] else 2.0 - g[ok]
+        X = np.column_stack([C[ok], gv])
+        return f64_logit(X, yt[b][ok].astype(np.float64), firth=True, slack=10)
+
+    worst = 0.0
+    codes = pgen_codes(prefix, [v for v, _ in pairs])
+    for (v, b), fits in zip(pairs, pmap(fit, list(zip(pairs, codes)))):
+        got = float(stats[b, v])
+        fr = [abs(got - abs(bb[-1] / se[-1])) / (GLM_FLOAT_RTOL * max(
+            abs(bb[-1] / se[-1]), 1.0)) for bb, se, _ in fits]
+        assert min(fr) <= 1.0, ("perm Firth |z|", v, b, got, fits[0][:2])
+        worst = max(worst, min(fr))
+    return worst
+
+
+def run_perm_paths(torch, prefix, tmp, card):
+    """Phase 4e: the permutation paths on the joint-model panel (500,000 x
+    2,048: one block; SEX + 10 PCs): the linear `--glm hide-covar
+    mperm=1000 --seed 1` and the same with `aperm --aperm 6 268` (two
+    batches: the planted variants run to the maximum) on QTP =
+    QT1 + PERM_EFFECT x the ALT count of two common variants (the planted
+    ones), and `--glm firth hide-covar mperm=66 --seed 1` on PHENO1 (the
+    Firth IRLS at 500,000 samples on a path; on the PERM_N_FIRTH variants
+    of `--extract`, see perm_argvs).  K19, K20, K2 and K4 (K3 for the Firth
+    path) must have launched; every K19 / K20 launch of the
+    linear paths is kept and run again against its plain version (K19 in
+    f32 on the first JOINT_F64_ROWS rows of each launch; K20 against its
+    f64 plain version on every row);
+    PERM_N_LINEAR linear and PERM_N_FIRTH Firth (variant, permutation)
+    pairs of the first batch against numpy f64 fits of the rebuilt
+    permuted phenotype; the planted variants' EMP1 (and EMP2) at the floor
+    1 / (N + 1).
+    The linear mperm path is traced on one batch (mperm=134).  Returns
+    {label: launches}."""
+    import numpy as np
+
+    from plink_torch.ops import glm as G
+    from plink_torch.utils.fmt import g6
+
+    codes = pgen_codes(prefix, list(range(64)))
+    freq = np.array([gg[gg != 3].mean() / 2 for gg in codes])
+    planted = [v for v in range(64) if 0.3 <= freq[v] <= 0.7][:2]
+    C, y, sex, qt = _panel_design(prefix)
+    qtp = qt + sum(PERM_EFFECT * np.where(codes[v] == 3, 0.0, codes[v])
+                   for v in planted)
+    permqt = os.path.join(tmp, "perm.qt")
+    with open(permqt, "w") as f:
+        f.write("#IID\tQTP\n")
+        f.writelines(f"per{i}\t{v:.6f}\n" for i, v in enumerate(qtp))
+    qtp = np.loadtxt(permqt, skiprows=1, usecols=1)  # as the CLI reads it
+    firth_vars = [v for v in range(64) if 0.05 <= freq[v] <= 0.95][:PERM_N_FIRTH]
+    firth_rows = os.path.join(tmp, "perm.firth_rows")
+    with open(firth_rows, "w") as f:
+        f.writelines(f"snp{v}\n" for v in firth_vars)
+    argvs = perm_argvs(prefix, permqt, firth_rows)
+    expect = {"linear_mperm": ("linear_perm_xty", "linear_perm_stat", "glm_moments",
+                               "chol_small", "linear_sums"),
+              "linear_aperm": ("linear_perm_xty", "linear_perm_stat", "glm_moments",
+                               "chol_small", "linear_sums"),
+              "firth_mperm": ("glm_irls", "chol_small", "glm_moments")}
+    found = {}
+    for label, argv in argvs.items():
+        out = os.path.join(tmp, f"perm_{label}")
+        with contextlib.ExitStack() as st:
+            if label.startswith("linear"):
+                xcalls = st.enter_context(recording(G, "linear_perm_xty"))[0]
+                scalls = st.enter_context(recording(G, "linear_perm_stat"))[0]
+            else:
+                fcalls = st.enter_context(recording(G, "firth_perm_multi_scan"))[0]
+            wall, launches = drive(torch, argv + ["--out", out, "--silent"], out)
+        assert all(launches[k] > 0 for k in expect[label]), (label, launches)
+        found[label] = launches
+        suffix = {"linear_mperm": "QTP.glm.linear.mperm",
+                  "linear_aperm": "QTP.glm.linear.aperm",
+                  "firth_mperm": "PHENO1.glm.firth.mperm"}[label]
+        hdr, rows = read_report(f"{out}.{suffix}")
+        assert len(rows) == (JOINT_VARIANTS if label.startswith("linear")
+                             else PERM_N_FIRTH), len(rows)
+        col = {c_: hdr.index(c_) for c_ in hdr}
+        a1_alt = {int(r[col["ID"]][3:]): r[col["A1"]] == r[col["ALT"]] for r in rows}
+        note = ""
+        if label.startswith("linear"):
+            n_perm = 268 if "aperm" in label else 1000
+            floor = g6(1.0 / (n_perm + 1))  # no permutation reached the original
+            for v in planted:
+                r = rows[v]
+                assert r[col["EMP1"]] == floor, (label, r)
+                assert (r[col["PERM_CT"]] == str(n_perm) if "aperm" in label
+                        else r[col["EMP2"]] == floor), (label, r)
+            # every launch of the path against the plain version on its
+            # inputs: K19 on its first JOINT_F64_ROWS rows, K20 (f64 inside)
+            # against the f64 plain version on every row
+            sub = slice(0, JOINT_F64_ROWS)
+            e19 = e20 = 0.0
+            for args, kw, k in xcalls:
+                pk, gw, c_, Y, mask, covj, ss = args
+                p = G.linear_perm_xty_plain(pk[sub], gw[sub], c_, Y, mask, covj, ss)
+                scale = _perm_xty_scale(torch, G, pk[sub], gw[sub], c_, Y, mask, covj,
+                                        ss)
+                e19 = max(e19, _xty_err(torch, (k[0][sub], k[1][sub]), p, scale))
+            for args, kw, out_ in scalls:
+                inv, xty, yy, nm, tc, q, inv0 = args
+                dbl = (lambda t: None if t is None else t.double())
+                p = G.linear_perm_stat_plain(inv.double(), xty.double(), yy.double(),
+                                             nm.double(), tc, q, dbl(inv0))
+                e20 = max(e20, _stat_err(torch, out_, p))
+            assert e19 <= TOL_VS_PLAIN and e20 <= TOL_PERM_STAT, (label, e19, e20)
+            note = (f"; every launch held to its plain version (K19 {len(xcalls)}, "
+                    f"worst norm err {e19:.2e}; K20 {len(scalls)}, worst err "
+                    f"{e20:.2e})")
+            if label == "linear_mperm":
+                stat = scalls[0][2].cpu().numpy()
+                variants = planted + [v for v in range(100, JOINT_VARIANTS, 260)
+                                      if 0.05 <= freq_of(prefix, v) <= 0.95][:6]
+                perms = list(range(0, PERM_B, PERM_B // 8))[:8]
+                assert len(variants) * len(perms) == PERM_N_LINEAR
+                worst = check_perm_linear_pairs(prefix, stat, qtp, variants, perms,
+                                                a1_alt)
+                note += (f"; {PERM_N_LINEAR} (variant, permutation) t = numpy f64 "
+                         f"OLS within {worst:.3f} of their tolerance")
+        else:
+            args, kw, stats = fcalls[0]
+            stats = stats[:, 0].cpu().numpy()  # [B, vb] of the one block
+            pairs = [(v, (7 * i) % stats.shape[0]) for i, v in enumerate(firth_vars)]
+            assert len(pairs) == PERM_N_FIRTH
+            worst = check_perm_firth_pairs(prefix, stats, y, pairs, a1_alt)
+            per_perm = launches["glm_irls"] / 66.0
+            note = (f"; {PERM_N_FIRTH} (variant, permutation) |z| = numpy f64 Firth "
+                    f"within {worst:.3f} of their tolerance; K3 {per_perm:.1f} "
+                    f"launches a permutation (logistic + firth2 each iteration)")
+        log(f"{label} path: {N_SAMPLES} samples x {len(rows)} variants: "
+            f"{wall:.2f}s wall on {card}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }{note}")
+    trace_path(torch, argvs["linear_mperm"][:-3] + ["mperm=134", "--seed", "1",
+                                                     "--out", os.path.join(
+                                                         tmp, "perm_traced"),
+                                                     "--silent"],
+               "linear mperm (one batch)")
+    return found
+
+
+def freq_of(prefix, v):
+    """Variant v's ALT frequency over its calls."""
+    g = pgen_codes(prefix, [v])[0]
+    return float(g[g != 3].mean() / 2)
+
+
+def run_perm_parity(tmp, prefix, n, m):
+    """Phase 17e: the permutation tests, --adjust and local covariates on
+    the parity panel, CUDA against CPU: linear mperm=200 (+ --adjust),
+    aperm (--aperm 6 400), genotypic mperm with perm-count, interaction
+    mperm, linear mperm on the chrX copy with the SEX-less .cov (ploidy
+    groups), local covariates (every 30th variant, two local columns; +
+    --adjust), and firth mperm=20 (+ --adjust) on a 2,000 x 256 panel of
+    the same generator (seed 5): its CPU run takes ~1 s a permutation on
+    the parity panel's 1,200 variants.  Permutation reports by
+    plink_torch.testing.perm_report_close, .adjusted by adjusted_close,
+    the local-covariate report by compare_reports; two card runs
+    byte-identical."""
+    import numpy as np
+
+    from plink_torch import cli
+    from plink_torch.testing import adjusted_close, perm_report_close
+
+    nosex, xprefix = prefix + ".nosex.cov", prefix + "_x"
+    qt = ["--pheno", prefix + ".qt", "--pheno-name", "QT1"]
+    cov = ["--covar", prefix + ".cov"]
+    # the local covariates: every 30th variant, two columns a sample
+    rng = np.random.default_rng(91)
+    with open(prefix + ".psam") as f:
+        ids = [ln.split()[0] for ln in f.readlines()[1:]]
+    with open(prefix + ".pvar") as f:
+        pv = [ln for ln in f if not ln.startswith("##")]
+    with open(prefix + ".loc.psam", "w") as f:
+        f.write("#IID\n" + "".join(f"{i}\n" for i in ids))
+    with open(prefix + ".loc.pvar", "w") as f:
+        f.writelines([pv[0]] + pv[1::30])
+    with open(prefix + ".loc.cov", "w") as f:
+        for _ in pv[1::30]:
+            f.write(" ".join(f"{a:.4f} {b:.4f}" for a, b in
+                             rng.normal(size=(len(ids), 2))) + "\n")
+    local = [f"local-covar={prefix}.loc.cov", f"local-psam={prefix}.loc.psam",
+             f"local-pvar={prefix}.loc.pvar"]
+    fprefix = prefix + "_f256"
+    make_panel(fprefix, n, 256, 5)
+    lin, fir = "QT1.glm.linear", "PHENO1.glm.firth"
+    cases = (  # label, argv after the fileset, [(file, kind, N)]
+        ("linear_mperm_adjust", qt + cov + ["--glm", "hide-covar", "mperm=200",
+                                            "--seed", "2", "--adjust"],
+         [(f"{lin}.mperm", "perm", 200), (f"{lin}.adjusted", "adjusted", 0)]),
+        ("aperm", qt + cov + ["--glm", "hide-covar", "aperm", "--aperm", "6", "400",
+                              "--seed", "2"], [(f"{lin}.aperm", "perm", 400)]),
+        ("firth_mperm_adjust", ["--pfile", fprefix, "--covar", fprefix + ".cov",
+                                "--glm", "firth", "hide-covar", "mperm=20",
+                                "--seed", "2", "--adjust"],
+         [(f"{fir}.mperm", "perm", 20), (f"{fir}.adjusted", "adjusted", 0)]),
+        ("genotypic_perm_count", qt + cov + ["--glm", "genotypic", "hide-covar",
+                                             "mperm=50", "perm-count", "--seed", "2"],
+         [(f"{lin}.mperm", "perm", 50)]),
+        ("interaction", qt + cov + ["--glm", "interaction", "hide-covar", "mperm=50",
+                                    "--seed", "2"], [(f"{lin}.mperm", "perm", 50)]),
+        ("chrx_groups", ["--pfile", xprefix] + qt + ["--covar", nosex, "--glm",
+                                                     "hide-covar", "mperm=100",
+                                                     "--seed", "2"],
+         [(f"{lin}.mperm", "perm", 100)]),
+        ("local_adjust", cov + ["--glm", *local, "--adjust"],
+         [("PHENO1.glm.logistic.hybrid", "report", 0),
+          ("PHENO1.glm.logistic.hybrid.adjusted", "adjusted", 0)]),
+    )
+    os.environ["PLINK_TORCH_VB"] = "256"
+    try:
+        for label, args, files in cases:
+            full = args if args[0] == "--pfile" else ["--pfile", prefix] + args
+            outs, secs = {}, {}
+            for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"), ("cuda2", "cuda")):
+                os.environ["PLINK_TORCH_DEVICE"] = devname
+                outs[tag] = os.path.join(tmp, f"perm_{tag}_{label}")
+                t0 = time.perf_counter()
+                rc = cli.main(full + ["--out", outs[tag], "--silent"])
+                assert rc == 0, (label, tag, rc)
+                secs[tag] = time.perf_counter() - t0
+            notes = []
+            for ext, kind, n_perm in files:
+                a, b, c2 = (f"{outs[t]}.{ext}" for t in ("cuda1", "cpu", "cuda2"))
+                assert filecmp.cmp(a, c2, shallow=False), ("two CUDA runs differ", ext)
+                if kind == "perm":
+                    ok, frac = perm_report_close(b, a, n_perm)
+                    assert ok, (label, ext, frac)
+                    notes.append(f"{ext} EMP rows identical {100 * frac:.1f}%")
+                elif kind == "adjusted":
+                    assert adjusted_close(b, a), (label, ext)
+                    notes.append(f"{ext} by the --adjust rule")
+                else:
+                    worst = compare_reports(a, b, beta_by_se=True)
+                    notes.append(f"{ext} floats within {worst:.2f} of their tolerance")
+            log(f"parity {label} [{n}x{m}]: CUDA = CPU ({'; '.join(notes)}), two CUDA "
+                f"runs byte-identical (CUDA {secs['cuda1']:.1f}s, CPU "
+                f"{secs['cpu']:.1f}s)")
+    finally:
+        os.environ.pop("PLINK_TORCH_VB", None)
+        os.environ.pop("PLINK_TORCH_DEVICE", None)
+
+
 def joint_panel(tmp):
     """The joint-model paths' panel: 500,000 x JOINT_VARIANTS, made as the
     main panel (seed 42, its covariates and QT1)."""
@@ -3986,6 +4514,10 @@ def main(argv=None):
         rows += check_joint_kernels(torch, dev, prefix)
         torch.cuda.empty_cache()
         phase_secs["joint-model kernels"] = time.perf_counter() - t0
+        t0 = stamp("permutation kernels")
+        rows += check_perm_kernels(torch, dev, prefix)
+        torch.cuda.empty_cache()
+        phase_secs["permutation kernels"] = time.perf_counter() - t0
         t0 = stamp("dosage kernels and widths past 96")
         dprefix = dosage_panel(tmp)
         rows += check_dense_kernels(torch, dev, dprefix)
@@ -4020,9 +4552,13 @@ def main(argv=None):
         paths["xm1_logistic"], paths["xm1_linear"] = xm["logistic"], xm["linear"]
         phase_secs["--xchr-model 1 paths"] = time.perf_counter() - t0
         t0 = stamp("joint-model paths")
-        paths.update(run_joint_paths(torch, joint_panel(tmp), tmp, card,
-                                     JOINT_VARIANTS))
+        jprefix = joint_panel(tmp)
+        paths.update(run_joint_paths(torch, jprefix, tmp, card, JOINT_VARIANTS))
         phase_secs["joint-model paths"] = time.perf_counter() - t0
+        t0 = stamp("permutation paths")
+        paths.update(run_perm_paths(torch, jprefix, tmp, card))
+        torch.cuda.empty_cache()
+        phase_secs["permutation paths"] = time.perf_counter() - t0
         t0 = stamp("dosage paths")
         paths.update(run_dosage_paths(torch, dprefix, tmp, card))
         phase_secs["dosage paths"] = time.perf_counter() - t0
@@ -4095,9 +4631,12 @@ def main(argv=None):
         t0 = stamp("dosage parity")
         run_dosage_parity(tmp)
         phase_secs["dosage parity"] = time.perf_counter() - t0
+        t0 = stamp("permutation parity")
+        run_perm_parity(tmp, os.path.join(tmp, "small"), *SMALL[:2])
+        phase_secs["permutation parity"] = time.perf_counter() - t0
         stamp("done")
-        log("slice-6/7/8 phases: " + ", ".join(f"{k} {v:.1f}s"
-                                               for k, v in phase_secs.items()))
+        log("slice-6/7/8/9 phases: " + ", ".join(f"{k} {v:.1f}s"
+                                                 for k, v in phase_secs.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lib_names = {"glm_irls_pass": "glm_irls"}

@@ -38,20 +38,45 @@ def _np_counts_masked(packed: np.ndarray, mask: np.ndarray) -> np.ndarray:
     return out
 
 
+# A packed byte's four 2-bit codes as (het, hom-ALT, missing) counts in
+# 21-bit fields of one int64: summing a row of bytes sums each field, and a
+# row of fewer than 2^21 samples cannot carry into the next field.
+_FIELD_BITS = 21
+_BYTE_FIELDS = np.array([sum(1 << (_FIELD_BITS * (((b >> (2 * k)) & 3) - 1))
+                             for k in range(4) if (b >> (2 * k)) & 3)
+                         for b in range(256)], np.int64)
+
+
 def geno_counts_plain(packed: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: packed uint8 [V, NB], masks f32 [4*NB, G] ->
-    int32 [G, V, 4]; hom-REF = |mask| - het - hom-ALT - missing."""
-    codes = unpack_codes(packed)
-    out = torch.empty((masks.shape[1], packed.shape[0], 4), dtype=torch.int32,
+    int32 [G, V, 4]; hom-REF = |mask| - het - hom-ALT - missing.  Bytes
+    whose four samples are all in the mask are counted whole through a
+    256-entry table; the samples of the other bytes the mask touches are
+    decoded one by one."""
+    V, nb = packed.shape
+    lut = torch.from_numpy(_BYTE_FIELDS).to(packed.device)
+    field = (1 << _FIELD_BITS) - 1
+    step = max(1, (1 << 25) // max(nb, 1))  # rows a pass: ~256 MB of int64
+    out = torch.empty((masks.shape[1], V, 4), dtype=torch.int32,
                       device=packed.device)
     for g in range(masks.shape[1]):
         m = masks[:, g] > 0
-        cm = codes[:, m]
-        het, alt, miss = ((cm == c).sum(dim=1) for c in (1, 2, 3))
-        out[g, :, 0] = int(m.sum()) - het - alt - miss
-        out[g, :, 1] = het
-        out[g, :, 2] = alt
-        out[g, :, 3] = miss
+        m4 = m.reshape(nb, 4)
+        full = m4.all(dim=1)
+        part = m4.any(dim=1) & ~full
+        every = bool(full.all())
+        part_m = m4[part].reshape(-1)
+        cts = torch.empty((V, 3), dtype=torch.int64, device=packed.device)
+        for r0 in range(0, V, step):
+            pk = packed[r0:r0 + step]
+            f = lut[(pk if every else pk[:, full]).long()].sum(dim=1)
+            c = torch.stack([(f >> (_FIELD_BITS * i)) & field for i in range(3)], 1)
+            if part_m.any():
+                cm = unpack_codes(pk[:, part])[:, part_m]
+                c += torch.stack([(cm == k).sum(dim=1) for k in (1, 2, 3)], 1)
+            cts[r0:r0 + step] = c
+        out[g, :, 1:] = cts.to(torch.int32)
+        out[g, :, 0] = int(m.sum()) - cts.sum(dim=1).to(torch.int32)
     return out
 
 

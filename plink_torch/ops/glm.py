@@ -1161,3 +1161,228 @@ def xm1_stats_scan(blocks, w, mask):
     nbk, vb, nb = blocks.shape
     out = xm1_stats(blocks.reshape(nbk * vb, nb), w, mask)
     return tuple(out[i].reshape(nbk, vb) for i in range(4))
+
+
+# ---------------------------------------------------------------------------
+# K19 / K20: the permuted linear scan; the Firth permutation scans
+# ---------------------------------------------------------------------------
+
+
+def linear_perm_xty_plain(packed, gw, c, Y, mask, covj=None, sscale=None):
+    """Plain version of K19 (plink_tpu `_linear_perm_body` /
+    `_linear_perm_multi_body`'s right-hand sides): over packed uint8
+    [vb, NB] with gw [vb, P, 3], c [npad, dc], Y [npad, B] and mask
+    [npad], xty [vb, dc + P, B] (valid c_j against Y, then G_p against Y)
+    and yy [vb, B] (valid against Y^2), in the inputs' float type."""
+    gw3 = _gw3(gw)
+    valid, gcols = _plane_cols(packed, gw3, c, mask, _covj(covj, gw3.shape[1]),
+                               sscale)
+    parts = [valid @ (c[:, j:j + 1] * Y) for j in range(c.shape[1])]
+    parts += [g @ Y for g in gcols]
+    return torch.stack(parts, dim=1), valid @ (Y * Y)
+
+
+def linear_perm_xty(packed, gw, c, Y, mask, covj=None, sscale=None):
+    """K19: the permuted right-hand sides of one block's linear designs
+    (`linear_perm_xty_plain`).  packed uint8 [vb, NB], gw f32 [vb, P, 3]
+    (or [vb, 3]), c f32 [4*NB, dc], Y f32 [4*NB, B], mask f32 [4*NB]; covj
+    (P ints) multiplies G_p by c[:, covj[p]] when covj[p] > 0; sscale f32
+    [4*NB] multiplies every G.  CUDA tensors launch csrc/linear_perm.cu
+    (f32 within 2,048-sample splits, f64 across them)."""
+    vb, nb = packed.shape
+    gw3 = _gw3(gw)
+    P = gw3.shape[1]
+    dc = c.shape[1]
+    B = Y.shape[1]
+    dev = packed.device
+    _check("linear_perm_xty packed", packed, torch.uint8, (vb, nb), dev)
+    _check("linear_perm_xty gw", gw3, torch.float32, (vb, P, 3), dev)
+    _check("linear_perm_xty c", c, torch.float32, (4 * nb, dc), dev)
+    _check("linear_perm_xty Y", Y, torch.float32, (4 * nb, B), dev)
+    _check("linear_perm_xty mask", mask, torch.float32, (4 * nb,), dev)
+    if sscale is not None:
+        _check("linear_perm_xty sscale", sscale, torch.float32, (4 * nb,), dev)
+    covj = _covj(covj, P)
+    if max(covj) >= dc:
+        raise ValueError(f"linear_perm_xty: covj {covj} beyond the {dc} columns")
+    if dev.type == "cpu":
+        return linear_perm_xty_plain(packed, gw3, c, Y, mask, covj, sscale)
+    if dev.type != "cuda":
+        raise ValueError(f"linear_perm_xty: unsupported device {dev}")
+    xty = torch.empty((vb, dc + P, B), dtype=torch.float32, device=dev)
+    yy = torch.empty((vb, B), dtype=torch.float32, device=dev)
+    cj = torch.tensor([j if j else -1 for j in covj], dtype=torch.int32, device=dev)
+    _cuda.launch("linear_perm_xty", packed.data_ptr(), nb, vb, gw3.data_ptr(), P,
+                 c.data_ptr(), dc, Y.data_ptr(), B, mask.data_ptr(),
+                 cj.data_ptr(), _cuda.ptr(sscale), _SPLIT, xty.data_ptr(),
+                 yy.data_ptr())
+    return xty, yy
+
+
+def _kept(d, tc, q):
+    """The reduced design's columns: all but the q constrained ones from
+    tc."""
+    return list(range(tc)) + list(range(tc + q, d))
+
+
+def linear_perm_stat_plain(inv, xty, yy, nm, tc, q=0, inv0=None):
+    """Plain version of K20 (the statistic of plink_tpu `_linear_perm_body`
+    / `_linear_perm_multi_body`): from the design inverse inv [vb, d, d],
+    xty [vb, d, B], yy [vb, B] and nm [vb], t of column tc (q = 0) or the
+    joint F of the q columns from tc over the reduced inverse inv0 (q >
+    0) -> [vb, B]; NaN where an inverse is."""
+    d = inv.shape[1]
+    beta = torch.einsum("vij,vjb->vib", inv, xty)
+    rss = yy - (beta * xty).sum(dim=1)
+    dof = torch.clamp(nm - d, min=1.0)
+    sigma2 = rss / dof[:, None]
+    if q == 0:
+        se2 = sigma2 * inv[:, tc, tc][:, None]
+        return beta[:, tc] / torch.sqrt(torch.clamp(se2, min=0.0))
+    xty0 = xty[:, _kept(d, tc, q)]
+    b0 = torch.einsum("vij,vjb->vib", inv0, xty0)
+    rss0 = yy - (b0 * xty0).sum(dim=1)
+    return ((rss0 - rss) / float(q)) / torch.clamp(sigma2, min=1e-30)
+
+
+def linear_perm_stat(inv, xty, yy, nm, tc, q=0, inv0=None):
+    """K20: `linear_perm_stat_plain` for f32 inv [vb, d, d], xty
+    [vb, d, B], yy [vb, B], nm [vb] and, with q > 0, inv0 [vb, d - q,
+    d - q]; one CUDA thread per (variant, permutation)."""
+    vb, d, _ = inv.shape
+    B = yy.shape[1]
+    dev = inv.device
+    _check("linear_perm_stat inv", inv, torch.float32, (vb, d, d), dev)
+    _check("linear_perm_stat xty", xty, torch.float32, (vb, d, B), dev)
+    _check("linear_perm_stat yy", yy, torch.float32, (vb, B), dev)
+    _check("linear_perm_stat nm", nm, torch.float32, (vb,), dev)
+    if not 0 <= tc < d or q < 0 or tc + q > d or (q > 0) != (inv0 is not None):
+        raise ValueError(f"linear_perm_stat: tc {tc}, q {q} at d = {d}")
+    if q:
+        _check("linear_perm_stat inv0", inv0, torch.float32, (vb, d - q, d - q), dev)
+    if dev.type == "cpu":
+        return linear_perm_stat_plain(inv, xty, yy, nm, tc, q, inv0)
+    if dev.type != "cuda":
+        raise ValueError(f"linear_perm_stat: unsupported device {dev}")
+    out = torch.empty((vb, B), dtype=torch.float32, device=dev)
+    _cuda.launch("linear_perm_stat", inv.data_ptr(), xty.data_ptr(), yy.data_ptr(),
+                 nm.data_ptr(), _cuda.ptr(inv0), vb, d, tc, q, B, out.data_ptr())
+    return out
+
+
+def perm_inverses(blocks, gws, c, mask, covj=None, q=0, sscale=None):
+    """What the permuted linear scan keeps across permutation batches, per
+    block of blocks uint8 [nb, vb, NB] with gws f32 [nb, vb, P, 3]: (inv,
+    inv0 or None, nm) -- the inverse of X^T X over [c | G_1..G_P] (one
+    `design_moments_block` pass, K2 / K15, then K4), with q > 0 that of the
+    design without the q genotype main effects, and the valid count.
+    plink_tpu forms them anew for every batch from the same inputs."""
+    feat = torch.cat([c, mask[:, None]], dim=1).contiguous()
+    dc = c.shape[1]
+    out = []
+    for bi in range(blocks.shape[0]):
+        h = design_moments_block(blocks[bi], gws[bi].contiguous(), feat, covj,
+                                 sscale)
+        _, inv, _ = chol_small(h, inverse=True)
+        inv0 = None
+        if q:
+            keep = _kept(h.shape[1], dc, q)
+            _, inv0, _ = chol_small(h[:, keep][:, :, keep].contiguous(),
+                                    inverse=True)
+        out.append((inv, inv0, h[:, 0, 0].contiguous()))
+    return out
+
+
+def linear_perm_multi_scan(blocks, gws, c, Y, mask, dc, covj, q, sscale=None,
+                           inverses=None):
+    """plink_tpu linear_perm_multi_scan: per block of blocks uint8
+    [nb, vb, NB] (gws f32 [nb, vb, P, 3]) and permuted phenotype column of
+    Y f32 [npad, B], the joint F over the first q genotype columns (q > 0)
+    or the t of the first one (q = 0) -> [nb, vb, B] f32, NaN on singular
+    fits.  K19 and K20 per block, over `inverses` (`perm_inverses`, formed
+    here when None)."""
+    if c.shape[1] != dc:
+        raise ValueError(f"linear perm scan: c has {c.shape[1]} columns, dc {dc}")
+    if inverses is None:
+        inverses = perm_inverses(blocks, gws, c, mask, covj, q, sscale)
+    outs = []
+    for bi in range(blocks.shape[0]):
+        inv, inv0, nm = inverses[bi]
+        xty, yy = linear_perm_xty(blocks[bi], gws[bi].contiguous(), c, Y, mask,
+                                  covj, sscale)
+        outs.append(linear_perm_stat(inv, xty, yy, nm, dc, q, inv0))
+    return torch.stack(outs)
+
+
+def linear_perm_scan(blocks, gws, c, Y, mask, dc, covj=(), sscale=None,
+                     inverses=None):
+    """plink_tpu linear_perm_scan: the single-predictor t statistics
+    [nb, vb, B] (gws f32 [nb, vb, 1, 3]); see linear_perm_multi_scan."""
+    return linear_perm_multi_scan(blocks, gws, c, Y, mask, dc, covj, 0, sscale,
+                                  inverses)
+
+
+def _firth_fit(packed, gw, c, yb, mask, covj, sscale, active):
+    """One Firth fit of the `active` rows of a block against phenotype
+    column yb (plink_tpu `_firth_body`): K3 / K16 in logistic and firth2
+    modes and K4 per iteration.  Returns (beta, se, failed, h2inv)."""
+    feat = torch.cat([c, yb[:, None], mask[:, None]], dim=1).contiguous()
+    irls = partial(glm_irls_pass, packed, gw, feat, sscale=sscale,
+                   covj=_covj(covj, gw.shape[1]))
+    beta, se, _pll, _conv, fail, _unf, h2inv = _firth_core(
+        irls, packed.shape[0], c.shape[1] + gw.shape[1], active)
+    return beta, se, fail, h2inv
+
+
+def _abs_z(bg, sg):
+    """The Firth permutation statistic of plink_tpu firth_perm_scan (ref
+    GlmLogisticPerm, plink2_glm_logistic.cc:6690-6697): |beta / se|, 0 at
+    beta = 0, +inf at se = 0."""
+    stat = (bg / sg).abs()
+    stat = torch.where(bg == 0.0, torch.zeros_like(stat), stat)
+    return torch.where((sg == 0.0) & (bg != 0.0), torch.full_like(stat, np.inf),
+                       stat)
+
+
+def firth_perm_multi_scan(blocks, gws, c, Y, mask, dc, covj, q, sscale=None,
+                          rows=None):
+    """plink_tpu firth_perm_multi_scan: per permuted column of Y f32
+    [npad, B] and block, the Firth fit of [c | G_1..G_P] and the joint Wald
+    chisq / q over the first q genotype columns from the Firth Hessian
+    inverse (q > 0; its q x q solve on K4), or |z| of the first one (q =
+    0); -1 marks a failed fit.  Returns [B, nb, vb] f32.  With rows bool
+    [nb, vb] only those rows are fitted (the others read -1): a row's fit
+    does not depend on the others, and the IRLS loop then ends when they
+    are done (K3 skips a 64-variant tile with no active row)."""
+    if c.shape[1] != dc:
+        raise ValueError(f"Firth perm scan: c has {c.shape[1]} columns, dc {dc}")
+    if rows is None:
+        rows = torch.ones(blocks.shape[:2], dtype=torch.bool, device=blocks.device)
+    per_perm = []
+    for b in range(Y.shape[1]):
+        yb = Y[:, b].contiguous()
+        stats = []
+        for bi in range(blocks.shape[0]):
+            beta, se, failed, hinv = _firth_fit(blocks[bi], gws[bi].contiguous(),
+                                                c, yb, mask, covj, sscale, rows[bi])
+            if q == 0:
+                stat = _abs_z(beta[:, dc], se[:, dc])
+            else:
+                bg = beta[:, dc:dc + q].contiguous()
+                x, _, _ = chol_small(hinv[:, dc:dc + q, dc:dc + q].contiguous(),
+                                     rhs=bg)
+                stat = (bg * x).sum(dim=1) / float(q)
+                stat = torch.where(stat < 0.0, torch.full_like(stat, -1.0), stat)
+            stats.append(torch.where(failed | torch.isnan(stat) | ~rows[bi],
+                                     torch.full_like(stat, -1.0), stat))
+        per_perm.append(torch.stack(stats))
+    return torch.stack(per_perm)
+
+
+def firth_perm_scan(blocks, gws, c, Y, mask, dc, covj=(), sscale=None,
+                    rows=None):
+    """plink_tpu firth_perm_scan: the Firth |z| of the single genotype
+    column per (permutation, block, variant) -> [B, nb, vb] f32; -1 on a
+    failed fit, 0 at beta = 0, +inf at se = 0."""
+    return firth_perm_multi_scan(blocks, gws, c, Y, mask, dc, covj, 0, sscale,
+                                 rows)

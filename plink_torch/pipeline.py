@@ -32,6 +32,8 @@ _PORTED_FIELDS = {
     "xchr_model", "xchr_model_set", "covar_variance_standardize",
     "variance_standardize", "quantile_normalize", "pheno_quantile_normalize",
     "covar_quantile_normalize", "condition", "condition_list",
+    # --glm's permutation tests (--aperm) and --adjust
+    "aperm", "adjust",
     "output_chr", "seed", "silent", "threads", "memory", "argv",
     # --dummy and its hard-call / erase thresholds
     "dummy", "hard_call_thresh", "dosage_erase_thresh",

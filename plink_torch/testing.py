@@ -1,5 +1,6 @@
-"""Comparison rules for the relationship outputs (KING, GRM, .rel, PCA), and
-the f64 logistic / Firth reference fit of the GLM checks.
+"""Comparison rules for the relationship outputs (KING, GRM, .rel, PCA), the
+--glm permutation reports and the --adjust report, and the f64 logistic /
+Firth reference fit of the GLM checks.
 
 One place for the rules that the CPU tests (plink_torch against plink_tpu)
 and chip_smoke.py (the card against the CPU) hold two runs' files to:
@@ -12,8 +13,20 @@ and chip_smoke.py (the card against the CPU) hold two runs' files to:
   exact, each column within EIG_TOL after matching its sign;
 - .eigenvec.allele: the header and the variant / allele columns exact, each
   PC column within EIG_TOL absolute after matching its sign;
+- .mperm / .aperm: every column but EMP1 / EMP2 / PERM_CT (EMP1_CT /
+  EMP2_CT with 'perm-count') byte-identical; those byte-identical in at
+  least PERM_SAME_FRAC of the rows and within 3 / (N + 1) (3 counts)
+  elsewhere (`perm_report_close`);
+- .adjusted: the same rows (#CHROM ID A1), each p-value within
+  ADJUST_RTOL relative, in the same order but where two rows' UNADJ are
+  within it (`adjusted_close`);
 - everything else (.kin0, .king*, id files, cutoff lists, .grm.N.bin):
   byte-identical.
+
+Both packages (and the card and the CPU) permute the phenotype with the
+same numpy stream, so a permutation report can differ only where an f32
+permuted statistic sits within its rounding of the original one: the
+count of that variant moves by one.
 """
 
 from __future__ import annotations
@@ -72,6 +85,62 @@ def relationship_output_close(ext: str, ref: str, got: str,
         b = b * np.sign((a * b).sum(axis=0))
         return float(np.abs(a - b).max()) <= EIG_TOL
     return filecmp.cmp(ref, got, shallow=False)
+
+
+PERM_SAME_FRAC = 0.98
+ADJUST_RTOL = 1e-3  # the GLM report's P rule (bench.py)
+_EMP_COLS = ("EMP1", "EMP2", "PERM_CT", "EMP1_CT", "EMP2_CT")
+
+
+def perm_report_close(ref: str, got: str, n_perm: int):
+    """(whether permutation report `got` matches `ref` by the rule above,
+    the fraction of rows whose EMP columns are byte-identical)."""
+    ra, rb = _rows(ref), _rows(got)
+    if not ra or ra[0] != rb[0] or len(ra) != len(rb):
+        return False, 0.0
+    emp = [i for i, c in enumerate(ra[0]) if c.lstrip("#") in _EMP_COLS]
+    same = 0
+    for a, b in zip(ra[1:], rb[1:]):
+        if [x for i, x in enumerate(a) if i not in emp] != \
+                [x for i, x in enumerate(b) if i not in emp]:
+            return False, 0.0
+        if all(a[i] == b[i] for i in emp):
+            same += 1
+            continue
+        for i in emp:
+            if "NA" in (a[i], b[i]):
+                if a[i] != b[i]:
+                    return False, 0.0
+                continue
+            col = ra[0][i]
+            lim = 3.0 if col.endswith("_CT") else 3.0 / (n_perm + 1)
+            if abs(float(a[i]) - float(b[i])) > lim + 1e-12:
+                return False, 0.0
+    frac = same / max(len(ra) - 1, 1)
+    return frac >= PERM_SAME_FRAC, frac
+
+
+def adjusted_close(ref: str, got: str, rtol: float = ADJUST_RTOL) -> bool:
+    """Whether --adjust report `got` matches `ref` by the rule above."""
+    ra, rb = _rows(ref), _rows(got)
+    if not ra or ra[0] != rb[0] or len(ra) != len(rb):
+        return False
+    key = {tuple(r[:3]): r for r in ra[1:]}
+    if set(key) != {tuple(r[:3]) for r in rb[1:]}:
+        return False
+
+    def pvals(r):
+        return np.array([np.inf if x == "INF" else float(x) for x in r[3:]])
+
+    for b in rb[1:]:
+        if not close_floats(pvals(key[tuple(b[:3])]), pvals(b), rtol):
+            return False
+    unadj = {k: float(r[3]) for k, r in key.items()}
+    for a, b in zip(ra[1:], rb[1:]):  # order: swaps only between near-ties
+        ua, ub = unadj[tuple(a[:3])], unadj[tuple(b[:3])]
+        if a[:3] != b[:3] and abs(ua - ub) > rtol * max(ua, ub):
+            return False
+    return True
 
 
 def f64_logit(X, y, off=0.0, firth=False, slack=None):

@@ -7,7 +7,9 @@ with two genotype columns (K2 / K3) and with G x covariate columns (K15 /
 K16), the dosage kernels K17 / K18 (and K15 / K16's dense mode above 16
 covariate columns), and matrix sizes past every shared-memory layout of
 chol_small (d = 250 works in device memory) and of K15 / K16 (d = 128
-splits a variant's tiles over CTAs).
+splits a variant's tiles over CTAs), and the permuted linear scan's K19 /
+K20 at every design (P = 1, two columns, G x covariate columns, scaled)
+and batches of 5, 70 and 256 permutations.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card, from the
 repository root (the repo's conftest imports jax, which that machine lacks):
@@ -815,3 +817,63 @@ def test_glm_wide_kernels_at_d128(dev, mode):
                 active, n)
     again = glm_irls_pass(pk, g3, f, beta, active, hinv, covj=covj)
     assert torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])
+
+
+PERM_DESIGNS = ["p1", "p2", "interaction", "p2_scaled"]
+
+
+@pytest.mark.parametrize("B", [5, 70, 256])
+@pytest.mark.parametrize("design", PERM_DESIGNS)
+@pytest.mark.parametrize("n,vb,dc", SHAPES)
+def test_linear_perm_kernels(dev, n, vb, dc, design, B):
+    """K19 (the permuted X^T y and y^T y) against its plain version in f64,
+    normalised by the sum of the terms' magnitudes, two runs identical; K20
+    (t, or the joint F for p2) against its plain version on the K2 / K4
+    inverses, NaN where they are."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.glm import (linear_perm_stat, linear_perm_stat_plain,
+                                     linear_perm_xty, linear_perm_xty_plain,
+                                     perm_inverses)
+
+    packed, feat, gw = _inputs(n, vb, dc, 51)
+    rng = np.random.default_rng(52)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    c, mask = f[:, :dc].contiguous(), f[:, dc + 1].contiguous()
+    if design == "p1":
+        g3, covj = torch.from_numpy(gw)[:, None].contiguous(), (0,)
+    else:
+        g3, covj = _design(gw, dc, design)
+    g3 = g3.to(dev)
+    ss = torch.from_numpy(np.where(rng.random(f.shape[0]) < 0.5, 0.5, 1.0)
+                          .astype(np.float32)).to(dev) \
+        if design == "p2_scaled" else None
+    Y = torch.from_numpy(rng.normal(1.0, 2.0, size=(f.shape[0], B))
+                         .astype(np.float32)).to(dev) * mask[:, None]
+    before = _cuda.LAUNCHES["linear_perm_xty"]
+    xty, yy = linear_perm_xty(pk, g3, c, Y, mask, covj, ss)
+    assert _cuda.LAUNCHES["linear_perm_xty"] == before + 1
+    dbl = (lambda t: None if t is None else t.double())
+    p_xty, p_yy = linear_perm_xty_plain(pk, g3.double(), c.double(), Y.double(),
+                                        mask.double(), covj, dbl(ss))
+    a_xty, a_yy = linear_perm_xty_plain(pk, g3.double().abs(), c.double().abs(),
+                                        Y.double().abs(), mask.double(), covj,
+                                        dbl(ss))
+    assert float(((xty - p_xty).abs() / a_xty.clamp(min=1e-30)).max()) <= TOL
+    assert float(((yy - p_yy).abs() / a_yy.clamp(min=1e-30)).max()) <= TOL
+    again = linear_perm_xty(pk, g3, c, Y, mask, covj, ss)
+    assert torch.equal(xty, again[0]) and torch.equal(yy, again[1])
+
+    # K20 works in f64 on its f32 inputs: held to the plain version run in
+    # f64 on them, on the rows whose design an f64 solve resolves
+    q = 2 if design.startswith("p2") else 0
+    (inv, inv0, nm), = perm_inverses(pk[None], g3[None], c, mask, covj, q, ss)
+    k = linear_perm_stat(inv, xty, yy, nm, dc, q, inv0)
+    p = linear_perm_stat_plain(inv.double(), xty.double(), yy.double(),
+                               nm.double(), dc, q, dbl(inv0))
+    assert torch.equal(torch.isnan(k), torch.isnan(p))
+    good = (torch.linalg.cond(inv.double()) < 1e6)[:, None] & torch.isfinite(p)
+    assert float(good.float().mean()) > 0.5
+    assert float(((k - p).abs() / p.abs().clamp(min=1.0))[good].max()) <= 1e-5
+    again = linear_perm_stat(inv, xty, yy, nm, dc, q, inv0)
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))  # NaN too

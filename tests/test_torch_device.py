@@ -74,15 +74,15 @@ def test_bad_device_name_refused(tiny, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("args", [
     ["--blocks", "no-pheno-req"],
     ["--freq", "cols=+machr2"],
-    # a design of any width runs (1 + 48 + 1 + 48 included); local
-    # covariates do not yet
-    ["--glm", "interaction", "local-covar={p}.wide.cov", "--covar",
-     "{p}.wide.cov"],
+    # a design of any width runs (1 + 48 + 1 + 48 included), and so do
+    # permutation and local covariates; the filters and --adjust-file of
+    # ROADMAP A4 / A5 do not yet
+    ["--glm", "interaction", "--covar", "{p}.wide.cov", "--thin", "0.5"],
     ["--glm", "cc-residualize", "hide-covar", "genotypic", "firth", "aperm",
-     "--covar", "{p}.cov"],
+     "--covar", "{p}.cov", "--snps-only"],
     ["--glm", "--covar", "{p}.cov", "--maf", "0.01", "--af-pseudocount", "1"],
     ["--glm", "hide-covar", "qt-residualize", "dominant", "mperm=10",
-     "--covar", "{p}.cov", "--pheno", "{p}.qt"],
+     "--covar", "{p}.cov", "--pheno", "{p}.qt", "--adjust-file", "{p}.cov"],
 ], ids=["blocks", "freq", "interaction", "cc-residualize", "maf-filter",
         "quantitative"])
 def test_unported_flag_says_so(tiny, tmp_path, args, monkeypatch, capsys):

@@ -116,15 +116,19 @@ ERRORS = {
                                    "hide-covar"],
 }
 # what later slices port: plink_torch says so (rc 2); the genotype models,
-# interaction and --condition run since the joint-models slice, so their
-# cases carry what is still unported (permutation, local covariates)
+# interaction and --condition run since the joint-models slice, permutation
+# and local covariates since the permutation slice, so each case carries a
+# flag that is still unported (--snps-only, --thin, --adjust-file: ROADMAP
+# A4 / A5)
 LATER = {
-    "genotypic": ["--glm", "genotypic", "firth", "aperm", "hide-covar"],
-    "interaction": ["--glm", "interaction", "local-covar=gp.cov"],
-    "aperm": ["--glm", "firth", "aperm", "hide-covar"],
-    "mperm": ["--glm", "firth", "mperm=10", "hide-covar"],
+    "genotypic": ["--glm", "genotypic", "firth", "aperm", "hide-covar",
+                  "--snps-only"],
+    "interaction": ["--glm", "interaction", "--thin", "0.5"],
+    "aperm": ["--glm", "firth", "aperm", "hide-covar", "--adjust-file",
+              "gp.cov"],
+    "mperm": ["--glm", "firth", "mperm=10", "hide-covar", "--thin", "0.5"],
     "condition": ["--glm", "firth", "mperm=10", "hide-covar", "--condition",
-                  "snp3"],
+                  "snp3", "--snps-only"],
 }
 
 
