@@ -20,9 +20,11 @@ Phases, each of which raises on failure (nothing is caught):
   5. QC + linear path: `--mind --freq --geno-counts --missing --hardy
      --geno --hwe --maf --glm hide-covar` on a Gaussian QT1 of the same
      panel; K1, K5 and K6 must have launched and every filter must have
-     removed something; the integer reports must equal a CPU run's byte for
-     byte, and 64 report rows must agree with a numpy f64 least-squares
-     fit; then once more under torch.profiler;
+     removed something; 64 rows of .gcount, .vmiss, .afreq and .smiss must
+     equal numpy counts (a CPU run of the whole path, ~46 s, was cut in
+     slice 10: the parity panel holds every report CUDA = CPU), and 64
+     report rows must agree with a numpy f64 least-squares fit; then once
+     more under torch.profiler;
   6. pair kernels: K7 (KING) and K8 (GRM) against their plain versions on
      the 50,000 x 32,768 panel of bench.py's king_50k / grm_50k, timed beside
      their bound and one library call;
@@ -75,11 +77,11 @@ Slice 6 (the --glm modifiers) adds, in the order they run:
      seeded offset; logistic and firth2) against their plain versions in
      f32 and f64, and K14 `xm1_stats` exactly, on block 0 of phase 4's panel;
   4b. `--glm cc-residualize hide-covar` on phase 4's panel (K2 and the
-     residualized K3 launched; 64 rows, FIRTH?=Y first, against numpy f64
+     residualized K3 launched; 32 rows, FIRTH?=Y first, against numpy f64
      fits of the centred dosage with the null model's offset; traced);
   5b. `--xchr-model 1` on a copy whose variants n/2.. sit on chrX:
      logistic (`no-x-sex`: the .cov holds SEX; K14 and the scaled K2 / K3)
-     and linear on QT1 (K6 three times on chrX), 64 chrX rows of each
+     and linear on QT1 (K6 three times on chrX), 32 chrX rows of each
      against numpy f64 fits with the males' dosages halved;
   17b. the modifiers on the parity panel, CUDA against CPU: the transforms,
      allow-no-covars + pheno-ids, sex, cc- + qt-residualize,
@@ -95,8 +97,8 @@ Slice 7 (the --glm joint models) adds, in the order they run:
      4's panel;
   4c. on a 500,000 x 2,048 panel: `--glm genotypic hide-covar`, `--glm
      interaction`, `--glm dominant hide-covar --condition-list` (three
-     variants) and `--glm genotypic cc-residualize hide-covar`, 64 rows of
-     each report against numpy f64 fits (GENO_2DF from the f64 joint
+     variants) and `--glm genotypic cc-residualize hide-covar`, 32 rows
+     (N_JOINT_ROWS) of each report against numpy f64 fits (GENO_2DF from the f64 joint
      test); `--glm genotypic interaction hide-covar --condition-list` of
      five (d = 51: K4's block mode); the interaction path traced;
   17c. nine joint cases on the parity panel, CUDA against CPU (a variant
@@ -117,12 +119,12 @@ run:
   4d. `--glm hide-covar --covar` (logistic-hybrid) and the linear `--glm
      hide-covar` on QT1 over the 500,000 x 512 dosage panel: K17, K18 and
      K4 must have launched (K17 for the linear), every one of their
-     launches is kept and run again against its plain version, 64 rows of
+     launches is kept and run again against its plain version, 32 rows of
      each report against numpy f64 fits of the dosage design; the logistic
      path traced;
   17d. the dosage --glm on a 4,500 x 600 dosage panel, CUDA against CPU
      on 200 of its variants (hybrid, firth with K18's firth2, no-firth,
-     qt-residualize, and the host route's genotypic and interaction), and
+     qt-residualize; the host route's genotypic and interaction on 64), and
      `interaction` over 48 covariates (d = 98) on 64 variants of the parity
      panel; two card runs byte-identical.
 
@@ -139,7 +141,7 @@ the order they run:
      hide-covar mperm=1000 --seed 1` and `aperm --aperm 6 268` on a QT
      with two planted variants, and `--glm firth hide-covar mperm=66` on
      PHENO1: K19, K20, K2 and K4 (K3 for Firth) launched, every K19 / K20
-     launch kept and held to its plain version, 64 linear and 16 Firth
+     launch kept and held to its plain version, 64 linear and 8 Firth
      (variant, permutation) statistics of the first batch against numpy
      f64 fits of the rebuilt permuted phenotype, the planted variants at
      the EMP floor; the linear path traced on two batches;
@@ -147,6 +149,33 @@ the order they run:
      panel, CUDA against CPU by plink_torch.testing's rules (the EMP
      columns byte-identical in >= 98% of the rows, within 3 / (N + 1)
      elsewhere); two card runs byte-identical.
+
+Slice 10 (the sample reports and scoring: --het, --sample-counts,
+--check-sex / --impute-sex, --score, --variant-score) adds, in the order
+they run:
+  3f. K21 (per-sample weighted plane sums; f64 at K = 3 and 5, f32 0/1
+     selectors at K = 10) and K22 (per-variant; f64 at K = 2 and 6, f32 at
+     K = 2) over phase 4's whole 500,000 x 4,096 matrix against their plain
+     versions (f64 within 1e-12 of the sum of |terms|, f32 exact, NaN / Inf
+     where the plain version has them), two runs identical, each timed
+     beside its bound and one torch.matmul of the weights by the decoded
+     planes; K21's f32 splits added in f64 past 2^24 (the split cap
+     lowered to 4 variants: sums of 2^25 + 3 exact);
+  4f. `--het --sample-counts --score <3-column score file> header
+     --score-col-nums 3-5 --variant-score <2-column weight file>` on phase
+     4's panel: K1, K21 and K22 launched; the integer columns exact against
+     numpy counts of 64 samples, E(HOM), F and the score averages of 64
+     samples and the .vscore of 64 variants held to numpy f64; traced;
+  5f. `--check-sex` with four thresholds on a copy with variants n/2..7n/8
+     on chrX and the rest on chrY, half its males haploid there: F and
+     YRATE of 64 samples held to numpy f64, SNPSEX / STATUS by the
+     thresholds, both SNPSEX classes among them;
+  17f. plink_torch.testing.SR_RUNS (the cases of
+     tests/test_torch_sample_reports.py) on the parity panel, its copies
+     and the dosage parity panel, CUDA against CPU (byte for byte; the f64
+     .vscore.bin and the f32 sums of `single-prec` within their
+     tolerances; the frequency guard's refusals alike); two card runs
+     byte-identical.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
@@ -198,6 +227,7 @@ QC_FLAGS = ["--mind", "0.028", "--freq", "--geno-counts", "--missing",
 QC_REPORTS = (".afreq", ".gcount", ".vmiss", ".smiss", ".hardy")
 QC_REMOVALS = ("(--mind)", "(--geno)", "Hardy-Weinberg", "allele frequency")
 N_OLS_ROWS = 64  # .glm.linear rows checked against numpy's f64 fit
+N_QC_ROWS = 64  # rows of each QC count report checked against numpy counts
 LOGISTIC_KERNELS = ("geno_counts", "glm_moments", "glm_irls", "chol_small")
 # the --glm modifiers' paths (slice 6): cc-residualize runs the plain K2 and
 # the residualized K3; --xchr-model 1 logistic the plain modes on chr1 and the
@@ -206,7 +236,13 @@ RESID_KERNELS = ("geno_counts", "glm_moments", "glm_irls_resid", "chol_small")
 XM1_KERNELS = ("glm_moments", "glm_irls", "glm_moments_scaled", "glm_irls_scaled",
                "chol_small", "xm1_stats")
 XM1_LINEAR_KERNELS = ("linear_sums",)
-N_CHECK_ROWS = 64  # report rows of each slice-6/7 path checked against numpy f64
+# report rows of the cc-residualize, --xchr-model 1 and dosage paths held to
+# numpy f64 fits: cut 64 -> 32 in slice 10 to make room for its phases
+N_CHECK_ROWS = 32
+# rows of each joint-model report (4c) held to numpy f64 fits: cut 64 -> 16
+# to make room for slice 10's phases in the script's time (each row's f64
+# fit at 500,000 samples is ~0.5-2 s of host time)
+N_JOINT_ROWS = 16
 JOINT_VARIANTS = 2_048  # variants of the joint-model paths' panel (one block)
 JOINT_F64_ROWS = 256  # rows of each joint-model kernel check also held to f64
 # the dosage paths (slice 8): the port's own --dummy writes a 500,000-sample
@@ -1831,10 +1867,9 @@ def removal_counts(log_path):
 
 
 def run_qc_linear(torch, prefix, out, card, n_variants):
-    """Phase 5: the QC + linear path on the card, its integer reports
-    against a CPU run of the same flags, and 64 report rows against numpy."""
-    from plink_torch import cli
-
+    """Phase 5: the QC + linear path on the card, N_QC_ROWS rows of its
+    count reports against numpy counts (check_qc_rows), and 64 report rows
+    against numpy's least squares."""
     wall, launches = drive(torch, qc_argv(prefix, out), out)
     assert all(launches[k] > 0 for k in QC_KERNELS), launches
     removed = removal_counts(out + ".log")
@@ -1848,19 +1883,55 @@ def run_qc_linear(torch, prefix, out, card, n_variants):
     log(f"QC + linear path: {N_SAMPLES} samples x {n_variants} variants, d=13: "
         f"{wall:.2f}s wall on {card}; removed {removed}; {len(rows)} report "
         f"rows; launches {launches}")
-    cpu_out = out + "_cpu"
-    os.environ["PLINK_TORCH_DEVICE"] = "cpu"
-    t0 = time.perf_counter()
-    try:
-        assert cli.main(qc_argv(prefix, cpu_out, glm=False)) == 0
-    finally:
-        os.environ.pop("PLINK_TORCH_DEVICE")
-    for ext in QC_REPORTS:
-        assert filecmp.cmp(out + ext, cpu_out + ext, shallow=False), ext
-    log(f"QC reports {' '.join(QC_REPORTS)} = the CPU run's, byte for byte "
-        f"(CPU run {time.perf_counter() - t0:.1f}s)")
+    check_qc_rows(torch, prefix, out, n_variants)
     check_ols(prefix, out)
     return launches
+
+
+def check_qc_rows(torch, prefix, out, n_variants):
+    """N_QC_ROWS variants' .gcount / .vmiss / .afreq rows and N_QC_ROWS
+    samples' .smiss rows of the QC path against numpy counts of the codes
+    over the samples --mind kept (the .smiss rows; every sample a founder,
+    all variants autosomal): counts exact, F_MISS and ALT_FREQS to the
+    printed digits.  (This replaced a CPU run of the whole path, ~46 s;
+    the parity panel's qc_linear case holds every report, .hardy too, CUDA
+    against CPU byte for byte.)"""
+    import numpy as np
+
+    from plink_torch.dataset import load_dataset
+
+    ds = load_dataset(prefix, torch.device("cpu"))
+    hdr, srows = read_report(out + ".smiss")
+    kept = np.isin(ds.si.iid.astype(str), [r[0] for r in srows])
+    vidx = np.linspace(0, n_variants - 1, N_QC_ROWS).round().astype(np.int64)
+    c = pgen_codes(prefix, vidx)[:, kept]
+    cts = np.stack([(c == k).sum(1) for k in range(4)], 1)
+    nonmiss = cts[:, :3].sum(1)
+    for ext, cols in ((".gcount", {"HOM_REF_CT": cts[:, 0], "HET_REF_ALT_CTS": cts[:, 1],
+                                   "TWO_ALT_GENO_CTS": cts[:, 2], "HAP_REF_CT": 0 * nonmiss,
+                                   "HAP_ALT_CTS": 0 * nonmiss, "MISSING_CT": cts[:, 3]}),
+                      (".vmiss", {"MISSING_CT": cts[:, 3], "OBS_CT": nonmiss + cts[:, 3]}),
+                      (".afreq", {"OBS_CT": 2 * nonmiss})):
+        h, rows = read_report(out + ext)
+        r = [rows[v] for v in vidx]
+        for col, want in cols.items():
+            assert [int(x[h.index(col)]) for x in r] == want.tolist(), (ext, col)
+        if ext == ".vmiss":
+            _held(".vmiss F_MISS", [x[h.index("F_MISS")] for x in r],
+                  cts[:, 3] / (nonmiss + cts[:, 3]), 1.0)
+        if ext == ".afreq":
+            _held(".afreq ALT_FREQS", [x[h.index("ALT_FREQS")] for x in r],
+                  (cts[:, 1] + 2 * cts[:, 2]) / (2 * nonmiss), 1.0)
+    sidx = np.linspace(0, len(srows) - 1, N_QC_ROWS).round().astype(np.int64)
+    raw = np.flatnonzero(kept)[sidx]
+    miss = (_sample_codes(ds, raw) == 3).sum(0)
+    assert [int(srows[i][hdr.index("MISSING_CT")]) for i in sidx] == miss.tolist()
+    assert {int(srows[i][hdr.index("OBS_CT")]) for i in sidx} == {n_variants}
+    _held(".smiss F_MISS", [srows[i][hdr.index("F_MISS")] for i in sidx],
+          miss / n_variants, 1.0)
+    log(f"QC reports: {N_QC_ROWS} rows of .gcount / .vmiss / .afreq and "
+        f"{N_QC_ROWS} of .smiss ({int(kept.sum())} samples kept) = numpy counts "
+        f"(F_MISS, ALT_FREQS to the printed digits)")
 
 
 def check_ols(prefix, out):
@@ -2649,7 +2720,7 @@ def _a1_dosage(prefix, r, col):
 def run_resid_path(torch, prefix, out, card, n_variants):
     """Phase 4b: `--glm cc-residualize hide-covar` at 500,000 x n_variants:
     K2 and the residualized K3 (logistic, and firth2 for the fallback rows)
-    must have launched; 64 rows against numpy f64 fits of the centred A1
+    must have launched; N_CHECK_ROWS rows against numpy f64 fits of the centred A1
     dosage with the null model's linear predictor as offset (the logistic
     null for FIRTH?=N rows, the Firth null for FIRTH?=Y)."""
     import numpy as np
@@ -2699,7 +2770,7 @@ def write_x_copy(prefix, dst, n_variants):
 def run_xm1_paths(torch, prefix, tmp, card, n_variants):
     """Phase 5b: --xchr-model 1 on a copy with variants n/2.. on chrX:
     logistic (K14 and the scaled K2 / K3 on the chrX pass) and linear (K6
-    three times on the chrX pass); 64 chrX rows of each against numpy f64
+    three times on the chrX pass); N_CHECK_ROWS chrX rows of each against numpy f64
     fits with the males' A1 dosages halved."""
     import numpy as np
 
@@ -3039,7 +3110,7 @@ def run_joint_paths(torch, prefix, tmp, card, n_variants):
         for e in exts:
             yy = y if "PHENO1" in e else qt
             check_joint_rows(prefix, f"{label} {e.split('.', 1)[1]} rows", mods,
-                             f"{out}.{e}", Cp, cn, keep, yy, N_CHECK_ROWS,
+                             f"{out}.{e}", Cp, cn, keep, yy, N_JOINT_ROWS,
                              offs=offs)
     trace_path(torch, argvs["interaction"][0]
                + ["--out", os.path.join(tmp, "joint_traced"), "--silent"],
@@ -3792,7 +3863,7 @@ def run_dosage_paths(torch, dprefix, tmp, card):
     """Phase 4d: `--glm hide-covar --covar` (logistic-hybrid on PHENO1) and
     the linear `--glm hide-covar` on QT1 over the 500,000 x
     DOSAGE_VARIANTS dosage panel: their kernels must have launched, every
-    K17 / K18 / K4 launch is kept and held to its plain version, 64 rows of
+    K17 / K18 / K4 launch is kept and held to its plain version, N_CHECK_ROWS rows of
     each report against numpy f64 fits; the logistic path is traced.
     Returns {label: launches}."""
     import numpy as np
@@ -3880,6 +3951,11 @@ def run_dosage_parity(tmp):
     # time (the host route fits every variant in f64 on both sides)
     with open(prefix + ".ext200", "w") as f:
         f.writelines(f"snp{v}\n" for v in range(200))
+    # the host route's cases (genotypic, interaction: the same f64 fits on
+    # the card's machine and on the CPU) take 64 of them: cut 200 -> 64 in
+    # slice 10, for the script's time
+    with open(prefix + ".ext64", "w") as f:
+        f.writelines(f"snp{v}\n" for v in range(64))
     ds, C = dosage_design(prefix)
     both = {p: np.loadtxt(p + ".both", skiprows=1, usecols=(1, 2))
             for p in (prefix, small)}
@@ -3913,6 +3989,7 @@ def run_dosage_parity(tmp):
     logi, lin = "PHENO1.glm.logistic.hybrid", "QT1.glm.linear"
     base = ["--pfile", prefix, "--pheno", prefix + ".both", "--covar", prefix + ".cov",
             "--extract", prefix + ".ext200"]
+    base64 = base[:-1] + [prefix + ".ext64"]
     cases = (
         ("hybrid", base + ["--glm", "hide-covar"], [logi, lin], ()),
         ("firth", base + ["--glm", "firth", "hide-covar"], ["PHENO1.glm.firth", lin],
@@ -3920,8 +3997,8 @@ def run_dosage_parity(tmp):
         ("no_firth", base + ["--glm", "no-firth"], ["PHENO1.glm.logistic", lin], ()),
         ("qt_residualize", base + ["--glm", "qt-residualize", "hide-covar"],
          [logi, lin], ()),
-        ("genotypic", base + ["--glm", "genotypic", "hide-covar"], [logi, lin], ()),
-        ("interaction", base + ["--glm", "interaction"], [logi, lin], ()),
+        ("genotypic", base64 + ["--glm", "genotypic", "hide-covar"], [logi, lin], ()),
+        ("interaction", base64 + ["--glm", "interaction"], [logi, lin], ()),
         ("interaction_d98", ["--pfile", small, "--pheno", small + ".both", "--covar",
                              small + ".wide48.cov", "--glm", "interaction",
                              "hide-covar"],
@@ -3982,7 +4059,8 @@ PERM_B = 134  # permutations a linear batch at 500,000 samples: plink_tpu's
 # max(16, min(256, 2^26 // n)); the Firth batch is max(4, min(64, 2^24 // n))
 PERM_EFFECT = 0.05  # planted QT effect a genotype copy (t ~ 20 at 500,000)
 PERM_N_LINEAR = 64  # (variant, permutation) pairs held to numpy f64 OLS
-PERM_N_FIRTH = 16  # (variant, permutation) pairs held to numpy f64 Firth
+PERM_N_FIRTH = 8  # (variant, permutation) pairs held to numpy f64 Firth (and
+# the Firth path's variants: 16 -> 8 in slice 10, ~0.6 s of host refit each)
 TOL_PERM_STAT = 1e-5  # K20 (f64 inside) vs its plain version in f64 on the
 # same f32 inputs: the final rounding to f32, relative to max(|stat|, 1)
 
@@ -4465,6 +4543,492 @@ def run_perm_parity(tmp, prefix, n, m):
         os.environ.pop("PLINK_TORCH_DEVICE", None)
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the sample reports and scoring (--het, --sample-counts,
+# --check-sex / --impute-sex, --score, --variant-score; K21 / K22)
+# ---------------------------------------------------------------------------
+
+FP64_FLOP_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores; K21's
+# work is one add a sample, variant and weight set (the weight of the
+# sample's class), K22's one multiply-add by a 0/1 plane a sample, variant,
+# weight set and plane (het, hom-ALT, valid), each counted as one operation
+SPW_SETS = ((5, True), (3, True), (10, False))  # K21: (weight sets, f64):
+# the score path's 3 columns + 2, --het's 3 (--check-sex's 4) in f64; the ten
+# --sample-counts selectors in f32
+VPW_SETS = ((2, True), (6, True), (2, False))  # K22: a 2-column weight file;
+# 6 = W, W_y and W_x1 of one launch with chrY and --xchr-model 1 variants
+TOL_WEIGHTED = 1e-12  # K21 / K22 f64 against the plain version, relative to
+# the sum of the terms' magnitudes (the two sum in different orders)
+N_SAMPLE_ROWS = 64  # report rows of the sample-report paths held to numpy
+XY_CHECK = ["max-female-xf=0.2", "min-male-xf=0.7", "max-female-yrate=0.7",
+            "min-male-yrate=0.6"]
+SR_KERNELS = ("geno_counts", "sample_plane_weighted", "variant_plane_weighted")
+
+
+def plane_library_ms(torch, pk, w, per_sample, f64, step=128):
+    """One torch.matmul a chunk of `step` variants of the weights by the
+    decoded 0/1 planes (decoded beforehand, untimed), the chunks' CUDA-event
+    times summed: K21's [K, 4 step] x [4 step, npad], K22's [3 step, npad]
+    x [npad, K]."""
+    dt = torch.float64 if f64 else torch.float32
+    total = 0.0
+    for r0 in range(0, pk.shape[0], step):
+        codes = unpack_codes(pk[r0:r0 + step])
+        if per_sample:
+            planes = torch.cat([(codes == c).to(dt) for c in range(4)])
+            wc = w[r0:r0 + step].permute(2, 1, 0).reshape(w.shape[2], -1).contiguous()
+            _, ms = timed(torch, lambda: torch.matmul(wc, planes))
+        else:
+            planes = torch.cat([(codes == 1).to(dt), (codes == 2).to(dt),
+                                (codes != 3).to(dt)])
+            _, ms = timed(torch, lambda: torch.matmul(planes, w))
+        total += ms
+        del planes, codes
+    return total
+
+
+def check_weighted_kernels(torch, dev, prefix):
+    """Phase 3f: K21 (f64 at K = 3 and 5, f32 0/1 selectors at K = 10) and
+    K22 (f64 at K = 2 and 6, f32 0/1 weights at K = 2) over phase 4's whole
+    500,000 x 4,096 matrix against their plain versions (f64 within
+    TOL_WEIGHTED of the sum of |terms|, f32 exact, NaN / Inf where the plain
+    version has them), two runs identical, each timed beside its bound
+    (bytes over 3.35 TB/s, or the operations of FP64_FLOP_PER_S's note over
+    the FP64 / FP32 peak) and one torch.matmul of the weights by the
+    decoded planes."""
+    import numpy as np
+
+    from plink_torch.dataset import load_dataset
+    from plink_torch.ops import counts as C
+
+    ds = load_dataset(prefix, dev)
+    pk = ds.device_all_packed()
+    V, nb = pk.shape
+    n, npad = ds.raw_sample_ct, 4 * nb
+    rng = np.random.default_rng(71)
+    rows = []
+    for name, sets in (("sample_plane_weighted", SPW_SETS),
+                       ("variant_plane_weighted", VPW_SETS)):
+        per_sample = name == "sample_plane_weighted"
+        kern = C.sample_plane_weighted if per_sample else C.variant_plane_weighted
+        plain = C.sample_plane_weighted_plain if per_sample \
+            else C.variant_plane_weighted_plain
+        row = None
+        for K, f64 in sets:
+            dt, esz = (np.float64, 8) if f64 else (np.float32, 4)
+            shape = (V, 4, K) if per_sample else (npad, K)
+            wn = rng.normal(size=shape) if f64 else rng.random(shape) < 0.5
+            if not per_sample:
+                wn[n:] = 0.0
+            w = torch.from_numpy(wn.astype(dt)).to(dev)
+            k = kern(pk, w)
+            bits = torch.int64 if k.dtype == torch.float64 else torch.int32
+            assert torch.equal(k.view(bits), kern(pk, w).view(bits)), \
+                (name, K, "two runs differ")
+            p, plain_ms = timed(torch, lambda: plain(pk, w))
+            if f64:
+                a = plain(pk, w.abs())
+                err = float(((k - p).abs() / a.clamp(min=1e-300)).max())
+                assert err <= TOL_WEIGHTED, (name, K, err)
+            else:
+                err = float((k - p).abs().max())
+                assert err == 0.0, (name, K, err)
+            mae = float((k - p).abs().max())
+            ms = time_ms(torch, lambda: kern(pk, w), 10)
+            lib = plane_library_ms(torch, pk, w, per_sample, f64)
+            per_entry = 1 if per_sample else 3
+            nbytes = V * nb + w.numel() * esz + k.numel() * k.element_size()
+            bound = _bound(per_entry * K * V * n, nbytes,
+                           FP64_FLOP_PER_S if f64 else FP32_FLOP_PER_S)
+            log(f"{'K21' if per_sample else 'K22'} {name} [{V}x{n}] K={K} "
+                f"{'f64' if f64 else 'f32'}: {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+                f"matmul {lib:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+                f"({bound['bound_by']}); vs plain {err:.2e}, two runs identical")
+            del p, k
+            if row is None:
+                row = dict(name=name, source="plink_torch/csrc/plane_weighted.cu",
+                           replaces="plink_tpu/ops/counts.py:195" if per_sample
+                           else "plink_tpu/ops/counts.py:237",
+                           max_abs_err=mae, tol=f"{TOL_WEIGHTED} relative to "
+                           "sum |terms| (f64); exact (f32)", ms=ms,
+                           plain_ms=plain_ms, library_ms=lib, K=K, **bound)
+            else:
+                row[f"ms_K{K}_{'f64' if f64 else 'f32'}"] = ms
+                row[f"bound_ms_K{K}_{'f64' if f64 else 'f32'}"] = bound["bound_ms"]
+                row["max_abs_err"] = max(row["max_abs_err"], mae)
+        if per_sample:
+            # f32 splits added in f64: with the split cap lowered to 4
+            # variants, weights of 2^22 on 8 variants and 1 on 3 sum to
+            # 2^25 + 3 (no f32 holds it) for every sample
+            cap, C.F32_SPLIT_ROWS = C.F32_SPLIT_ROWS, 4
+            try:
+                w = torch.ones((11, 4, 1), dtype=torch.float32, device=dev)
+                w[:8] = 2.0 ** 22
+                k = kern(pk[:11], w)
+            finally:
+                C.F32_SPLIT_ROWS = cap
+            assert k.dtype == torch.float64 and bool((k == 2.0 ** 25 + 3).all())
+            log(f"  {name}: f32 splits of <= 4 variants added in f64 give 2^25 + 3 "
+                "exactly")
+        # one NaN and one +Inf weight: NaN / Inf exactly where the plain
+        # version (plink_tpu's products) has them
+        if per_sample:
+            wn = rng.normal(size=(V, 4, 3))
+            wn[V // 3, 3, 0], wn[V // 2, 2, 2] = np.nan, np.inf
+        else:
+            wn = np.zeros((npad, 3))
+            wn[:n] = rng.normal(size=(n, 3))
+            wn[n // 3, 1], wn[n // 2, 0] = np.nan, np.inf  # set 2 stays finite
+        w = torch.from_numpy(wn).to(dev)
+        k, p = kern(pk, w), plain(pk, w)
+        for f in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(f(k), f(p)), (name, f.__name__)
+        assert torch.isnan(k).any() and torch.isinf(k).any()
+        fin = torch.isfinite(p)
+        a = plain(pk, torch.nan_to_num(w.abs(), posinf=0.0))
+        assert float(((k - p).abs() / a.clamp(min=1e-300))[fin].max()) <= TOL_WEIGHTED
+        log(f"  {name}: NaN / Inf weights give NaN / Inf where the plain version "
+            f"does ({int(torch.isnan(k).sum())} NaN, {int(torch.isinf(k).sum())} Inf)")
+        del k, p, a, w
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _device_counts(torch, pk, masks, step=256):
+    """Per-variant (hom-REF, het, hom-ALT, missing) counts [G, V, 4] over
+    each sample mask, from the packed matrix by torch comparisons (not K1)."""
+    import numpy as np
+
+    out = []
+    for m in masks:
+        mt = torch.from_numpy(np.asarray(m, bool)).to(pk.device)
+        rows = []
+        for r0 in range(0, pk.shape[0], step):
+            c = unpack_codes(pk[r0:r0 + step])[:, :mt.numel()][:, mt]
+            rows.append(torch.stack([(c == k).sum(1) for k in range(4)], 1))
+        out.append(torch.cat(rows).cpu().numpy().astype(np.float64))
+    return out
+
+
+def _sample_codes(ds, idx):
+    """2-bit codes [V, len(idx)] of those samples, from the host matrix."""
+    import numpy as np
+
+    pk = ds.all_packed()
+    return (pk[:, idx // 4] >> (2 * (idx % 4)).astype(np.uint8)) & 3
+
+
+def _held(label, got, want, scale):
+    """Printed 6-significant-figure floats against numpy f64: within the
+    printing's rounding (5e-6 relative) plus 1e-12 of `scale`."""
+    import numpy as np
+
+    got = np.array([float(x) for x in got])
+    err = np.abs(got - want) - 5e-6 * np.abs(want)
+    assert (err <= 1e-12 * scale).all(), (label, got[err > 1e-12 * scale][:4],
+                                          want[err > 1e-12 * scale][:4])
+
+
+def sr_argv(prefix, out, sfile, vfile):
+    return ["--pfile", prefix, "--het", "--sample-counts", "--score", sfile, "header",
+            "--score-col-nums", "3-5", "--variant-score", vfile, "--out", out,
+            "--silent"]
+
+
+def run_sample_report_path(torch, dev, prefix, tmp, card):
+    """Phase 4f: `--het --sample-counts --score <3-column score file> header
+    --score-col-nums 3-5 --variant-score <2-column weight file>` on phase
+    4's panel (every variant scored, the named allele ALT and REF in turn):
+    K1, K21 and K22 launched; the integer columns (O(HOM), OBS_CT, the
+    .scount columns, ALLELE_CT, NAMED_ALLELE_DOSAGE_SUM) exact against
+    numpy counts of N_SAMPLE_ROWS samples, E(HOM), F and the score averages
+    held to numpy f64, the .vscore to numpy f64 on N_SAMPLE_ROWS variants;
+    then the run once more under torch.profiler."""
+    import numpy as np
+
+    from plink_torch.dataset import load_dataset
+
+    ds = load_dataset(prefix, torch.device("cpu"))
+    n, V = ds.raw_sample_ct, ds.raw_variant_ct
+    rng = np.random.default_rng(72)
+    W3 = rng.normal(size=(V, 3))
+    named_alt = np.arange(V) % 2 == 0
+    sfile, vfile = os.path.join(tmp, "sr.score"), os.path.join(tmp, "sr.vs")
+    with open(sfile, "w") as f:
+        f.write("ID\tA1\tW1\tW2\tW3\n")
+        f.writelines(f"{ds.vi.vid[v]}\t{ds.vi.alt[v] if named_alt[v] else ds.vi.ref[v]}"
+                     f"\t{W3[v, 0]:.6f}\t{W3[v, 1]:.6f}\t{W3[v, 2]:.6f}\n"
+                     for v in range(V))
+    W3 = np.array([[float(x) for x in ln.split("\t")[2:]] for ln in
+                   open(sfile).read().splitlines()[1:]])
+    WS = np.round(rng.normal(size=(n, 2)), 6)
+    with open(vfile, "w") as f:
+        f.write("#IID\tV1\tV2\n")
+        f.writelines(f"{ds.si.iid[i]}\t{WS[i, 0]:.6f}\t{WS[i, 1]:.6f}\n"
+                     for i in range(n))
+    out = os.path.join(tmp, "sr")
+    wall, launches = drive(torch, sr_argv(prefix, out, sfile, vfile), out)
+    assert all(launches[k] > 0 for k in SR_KERNELS), launches
+    log(f"sample-report path: {n} samples x {V} variants: {wall:.2f}s wall on "
+        f"{card}; launches {launches}")
+
+    # numpy: whole-panel counts by torch comparisons on the card, the codes
+    # of N_SAMPLE_ROWS samples from the host matrix
+    pk = torch.from_numpy(ds.all_packed()).to(dev)
+    cts = _device_counts(torch, pk, [np.ones(n, bool)])[0]
+    del pk
+    alt = cts[:, 1] + 2 * cts[:, 2]
+    obs = 2 * (cts[:, 0] + cts[:, 1] + cts[:, 2])
+    freq = alt / obs
+    idx = np.linspace(0, n - 1, N_SAMPLE_ROWS).round().astype(np.int64)
+    c = _sample_codes(ds, idx)
+    miss, het, hom_alt = c == 3, c == 1, c == 2
+    # .het
+    ehet = 2 * freq * (1 - freq)
+    sel = (ehet >= 2.0 ** -35)[:, None]
+    OBS = (sel & ~miss).sum(0)
+    O_HOM = OBS - (sel & het).sum(0)
+    E_HOM = OBS - (np.where(sel & ~miss, ehet[:, None], 0.0)).sum(0)
+    F = (O_HOM - E_HOM) / (OBS - E_HOM)
+    hdr, rows = read_report(out + ".het")
+    r = [rows[i] for i in idx]
+    assert [int(x[hdr.index("O(HOM)")]) for x in r] == O_HOM.tolist()
+    assert [int(x[hdr.index("OBS_CT")]) for x in r] == OBS.tolist()
+    _held(".het E(HOM)", [x[hdr.index("E(HOM)")] for x in r], E_HOM, OBS.max())
+    _held(".het F", [x[hdr.index("F")] for x in r], F, 1.0)
+    # .scount (the panel's alleles are B / A: one-base, not base pairs)
+    hdr, rows = read_report(out + ".scount")
+    singleton = (cts[:, 1] + cts[:, 2]) == 1
+    want = {"HOM_REF_CT": (c == 0).sum(0), "HOM_ALT_SNP_CT": hom_alt.sum(0),
+            "HET_SNP_CT": het.sum(0),
+            "DIPLOID_SINGLETON_CT": ((het | hom_alt) & singleton[:, None]).sum(0),
+            "MISSING_INCL_FEMALE_Y_CT": miss.sum(0)}
+    for col in hdr[1:]:
+        got = [int(rows[i][hdr.index(col)]) for i in idx]
+        assert got == want.get(col, np.zeros(len(idx), int)).tolist(), col
+    # .sscore: named dosage, a missing call imputed as 2 x the named freq
+    hdr, rows = read_report(out + ".sscore")
+    nf = np.where(named_alt, freq, 1 - freq)
+    nd = np.where(named_alt[:, None], c, 2 - c).astype(np.float64)
+    contrib = np.where(miss, 2 * nf[:, None], nd)
+    avg = contrib.T @ W3 / (2.0 * V)
+    r = [rows[i] for i in idx]
+    assert [x[hdr.index("ALLELE_CT")] for x in r] == \
+        [str(2 * V - 2 * int(m)) for m in miss.sum(0)]
+    assert [x[hdr.index("NAMED_ALLELE_DOSAGE_SUM")] for x in r] == \
+        [str(int(d)) for d in np.where(miss, 0.0, nd).sum(0)]
+    avg_cols = [h for h in hdr if h.endswith("_AVG")]
+    assert len(avg_cols) == 3, hdr
+    for k, col in enumerate(avg_cols):
+        _held(f".sscore {col}", [x[hdr.index(col)] for x in r], avg[:, k],
+              np.abs(W3[:, k]).sum() / V)
+    # .vscore on N_SAMPLE_ROWS variants over every sample
+    vidx = np.linspace(0, V - 1, N_SAMPLE_ROWS).round().astype(np.int64)
+    pkv = ds.all_packed()[vidx]
+    cv = ((pkv[:, :, None] >> np.arange(0, 8, 2, dtype=np.uint8)) & 3
+          ).reshape(len(vidx), -1)[:, :n]
+    dos = np.where(cv == 3, 2 * freq[vidx, None], cv)
+    want = dos @ WS
+    hdr, rows = read_report(out + ".vscore")
+    for k in range(2):
+        _held(f".vscore VSCORE{k + 1}", [rows[v][5 + k] for v in vidx], want[:, k],
+              2 * np.abs(WS[:, k]).sum())
+    log(f"sample-report path: .het / .scount / .sscore integer columns exact, "
+        f"E(HOM), F, SCORE_AVG ({N_SAMPLE_ROWS} samples) and .vscore "
+        f"({N_SAMPLE_ROWS} variants) = numpy f64 to the printed digits")
+    trace_path(torch, sr_argv(prefix, os.path.join(tmp, "sr_traced"), sfile, vfile),
+               "sample reports")
+    return launches
+
+
+def write_xy_copy(torch, dev, prefix, dst, n_variants):
+    """A copy of the panel (the .psam linked) whose variants n/2..7n/8 sit on
+    chrX and the last n/8 on chrY, with a seeded half of the males haploid
+    there: their het calls on chrX and chrY rewritten as hom-REF or hom-ALT
+    (seeded, on the card), so that both SNPSEX classes occur."""
+    import numpy as np
+
+    os.symlink(prefix + ".psam", dst + ".psam")
+    with open(prefix + ".pvar") as f, open(dst + ".pvar", "w") as g:
+        g.write(f.readline())
+        for i, ln in enumerate(f):
+            chrom = "1" if i < n_variants // 2 else "X" if i < n_variants * 7 // 8 \
+                else "Y"
+            g.write(chrom + ln[ln.index("\t"):])
+    with open(prefix + ".psam") as f:
+        col = f.readline().rstrip("\n").split("\t").index("SEX")
+        sex = np.array([ln.rstrip("\n").split("\t")[col] for ln in f])
+    n = sex.size
+    nb = (n + 3) // 4
+    shutil.copyfile(prefix + ".pgen", dst + ".pgen")
+    assert os.path.getsize(dst + ".pgen") == 12 + n_variants * nb  # mode 0x02
+    hap = np.zeros(4 * nb, bool)
+    hap[:n] = (sex == "1") & (np.random.default_rng(74).random(n) < 0.5)
+    hmask = torch.from_numpy(hap.reshape(nb, 4)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(75)
+    mm = np.memmap(dst + ".pgen", np.uint8, "r+", offset=12, shape=(n_variants, nb))
+    for r0 in range(n_variants // 2, n_variants, 256):
+        x = torch.from_numpy(np.array(mm[r0:r0 + 256])).to(dev).to(torch.int32)
+        codes = torch.stack([(x >> (2 * j)) & 3 for j in range(4)], -1)
+        hom = 2 * torch.randint(0, 2, codes.shape, generator=gen, device=dev,
+                                dtype=torch.int32)
+        codes = torch.where(hmask & (codes == 1), hom, codes)
+        packed = codes[..., 0] | codes[..., 1] << 2 | codes[..., 2] << 4 \
+            | codes[..., 3] << 6
+        mm[r0:r0 + 256] = packed.to(torch.uint8).cpu().numpy()
+    mm.flush()
+    del mm
+    return int(hap.sum())
+
+
+def run_check_sex_path(torch, dev, prefix, tmp, card, n_variants):
+    """Phase 5f: `--check-sex` with four thresholds on a copy with chrX and
+    a chrY tail (YRATE computed) and half its males haploid there: K1 and
+    K21 launched; F and YRATE of
+    N_SAMPLE_ROWS samples held to numpy f64 (chrX frequencies with the
+    males haploid, as plink2 counts them), SNPSEX and STATUS by the
+    thresholds."""
+    import numpy as np
+
+    from plink_torch.dataset import load_dataset
+
+    xy = os.path.join(tmp, "xy")
+    n_hap = write_xy_copy(torch, dev, prefix, xy, n_variants)
+    out = os.path.join(tmp, "sexcheck")
+    argv = ["--pfile", xy, "--check-sex", *XY_CHECK, "--out", out, "--silent"]
+    wall, launches = drive(torch, argv, out)
+    assert launches["geno_counts"] > 0 and launches["sample_plane_weighted"] > 0, \
+        launches
+    log(f"--check-sex path: {N_SAMPLES} samples x {n_variants} variants "
+        f"({n_variants * 3 // 8} chrX, {n_variants // 8} chrY; {n_hap} males "
+        f"haploid there): {wall:.2f}s wall "
+        f"on {card}; launches {launches}")
+    ds = load_dataset(xy, torch.device("cpu"))
+    n, V = ds.raw_sample_ct, ds.raw_variant_ct
+    male = ds.si.sex == 1
+    pk = torch.from_numpy(ds.all_packed()).to(dev)
+    a, m = _device_counts(torch, pk, [np.ones(n, bool), male])
+    del pk
+    nm = a - m
+    x_alt = nm[:, 1] + 2 * nm[:, 2] + m[:, 2] + 0.5 * m[:, 1]
+    x_obs = 2 * (nm[:, 0] + nm[:, 1] + nm[:, 2]) + m[:, 0] + m[:, 1] + m[:, 2]
+    freq = x_alt / x_obs
+    isx, isy = ds.vi.chrom == 23, ds.vi.chrom == 24
+    ehet = 2 * freq * (1 - freq)
+    sel = (isx & (ehet >= 2.0 ** -35))[:, None]
+    idx = np.linspace(0, n - 1, N_SAMPLE_ROWS).round().astype(np.int64)
+    c = _sample_codes(ds, idx)
+    OBS = (sel & (c != 3)).sum(0)
+    O_HOM = OBS - (sel & (c == 1)).sum(0)
+    E_HOM = OBS - np.where(sel & (c != 3), ehet[:, None], 0.0).sum(0)
+    F = (O_HOM - E_HOM) / (OBS - E_HOM)
+    YRATE = (isy[:, None] & ((c == 0) | (c == 2))).sum(0) / isy.sum()
+    hdr, rows = read_report(out + ".sexcheck")
+    r = [rows[i] for i in idx]
+    _held(".sexcheck F", [x[hdr.index("F")] for x in r], F, 1.0)
+    _held(".sexcheck YRATE", [x[hdr.index("YRATE")] for x in r], YRATE, 1.0)
+    th = dict(a.split("=") for a in XY_CHECK)
+    is_m = (F >= float(th["min-male-xf"])) & (YRATE >= float(th["min-male-yrate"]))
+    is_f = (F <= float(th["max-female-xf"])) & (YRATE <= float(th["max-female-yrate"]))
+    snp = np.where(is_m & ~is_f, "1", np.where(is_f & ~is_m, "2", "NA"))
+    assert {"1", "2"} <= set(snp.tolist()), snp  # both sides of the thresholds
+    assert [x[hdr.index("SNPSEX")] for x in r] == snp.tolist()
+    assert [x[hdr.index("STATUS")] for x in r] == [
+        "OK" if s != "NA" and s == x[hdr.index("PEDSEX")] else "PROBLEM"
+        for s, x in zip(snp, r)]
+    os.remove(xy + ".pgen")
+    log(f"--check-sex path: F and YRATE of {N_SAMPLE_ROWS} samples = numpy f64 to "
+        f"the printed digits, SNPSEX / STATUS by the thresholds "
+        f"({dict(zip(*np.unique(snp, return_counts=True)))})")
+    return launches
+
+
+def run_sample_parity(tmp, prefix, dprefix):
+    """Phase 17f: plink_torch.testing.SR_RUNS, the cases of
+    tests/test_torch_sample_reports.py, on the parity panel (2,000 x 1,200;
+    its chr1/X/Y/MT copy with every .scount allele class; a copy with 40
+    founders) and the dosage parity panel (4,500 x 600), CUDA against CPU:
+    reports byte-identical, but SR_ORDER_DEPENDENT's (the f64 .vscore.bin,
+    last bits; `single-prec`'s f32 sums) held within their tolerance x 2
+    sum |weight| of the CPU run; the guard's refusals the same message on
+    both; two card runs byte-identical."""
+    import numpy as np
+
+    from plink_torch import cli
+    from plink_torch.testing import (SR_ERRORS, SR_ORDER_DEPENDENT, SR_RUNS,
+                                     write_sample_report_inputs)
+
+    d = os.path.join(tmp, "sr")
+    os.makedirs(d)
+    os.environ["PLINK_TORCH_DEVICE"] = "cpu"
+    try:  # the .afreq for --read-freq and a 40-sample panel for the guard
+        assert cli.main(["--pfile", prefix, "--freq", "--out",
+                         os.path.join(d, "f"), "--silent"]) == 0
+        assert cli.main(["--dummy", "40", "100", "0.05", "--seed", "3", "--out",
+                         os.path.join(d, "tiny"), "--silent"]) == 0
+    finally:
+        os.environ.pop("PLINK_TORCH_DEVICE")
+    write_sample_report_inputs(d, prefix, dprefix, os.path.join(d, "f.afreq"))
+    filesets = {"p": prefix, "dp": dprefix, "sx": os.path.join(d, "sx"),
+                "fam": os.path.join(d, "fam"), "tiny": os.path.join(d, "tiny")}
+    with open(os.path.join(d, "vs.txt")) as f:
+        scale = 2 * np.abs(np.array([[float(x) for x in ln.split()[1:]]
+                                     for ln in f.readlines()[1:]])).sum(0)
+    os.environ["PLINK_TORCH_VB"] = "256"
+    try:
+        for run, (fs, flags, exts) in SR_RUNS.items():
+            argv = ["--pfile", filesets[fs]] + [a.format(d=d) for a in flags]
+            outs, secs, errs = {}, {}, {}
+            for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"), ("cuda2", "cuda")):
+                os.environ["PLINK_TORCH_DEVICE"] = devname
+                outs[tag] = os.path.join(d, f"{tag}_{run}")
+                t0 = time.perf_counter()
+                if run in SR_ERRORS:
+                    try:
+                        cli.main(argv + ["--out", outs[tag], "--silent"])
+                    except ValueError as e:
+                        errs[tag] = str(e)
+                    assert "decent allele frequencies" in errs.get(tag, ""), \
+                        (run, tag, "the frequency guard did not refuse")
+                else:
+                    rc = cli.main(argv + ["--out", outs[tag], "--silent"])
+                    assert rc == 0, (run, tag, rc)
+                secs[tag] = time.perf_counter() - t0
+            assert len(set(errs.values())) <= 1, (run, errs)
+            tols = []
+            for ext in exts:
+                a, b, c2 = (outs[t] + ext for t in ("cuda1", "cpu", "cuda2"))
+                assert filecmp.cmp(a, c2, shallow=False), ("two CUDA runs differ",
+                                                           run, ext)
+                tol = SR_ORDER_DEPENDENT.get((run, ext))
+                if tol is None:
+                    assert filecmp.cmp(a, b, shallow=False), (run, ext)
+                    continue
+                tols.append(ext)
+                if ext.endswith(".bin"):
+                    x, y = np.fromfile(a, "<f8"), np.fromfile(b, "<f8")
+                    fmt = 0.0
+                else:
+                    ra, rb = read_report(a)[1], read_report(b)[1]
+                    assert [r[:5] for r in ra] == [r[:5] for r in rb], (run, ext)
+                    x = np.array([[float(v) for v in r[5:]] for r in ra])
+                    y = np.array([[float(v) for v in r[5:]] for r in rb])
+                    fmt = 5e-6
+                dv = (np.abs(x - y) - fmt * np.abs(y)).reshape(-1, len(scale))
+                assert (dv <= tol * scale).all(), (run, ext, float(dv.max()))
+            same = [e for e in exts if e not in tols]
+            said = ([f"{' '.join(same)} byte for byte"] if same else []) \
+                + ([f"{' '.join(tols)} within its tolerance"] if tols else []) \
+                + ([f"refused alike: {errs['cpu'][:60]}"] if errs else [])
+            log(f"parity sample reports {run}: CUDA = CPU ({'; '.join(said)}), two "
+                f"CUDA runs byte-identical (CUDA {secs['cuda1']:.1f}s, CPU "
+                f"{secs['cpu']:.1f}s)")
+    finally:
+        os.environ.pop("PLINK_TORCH_VB", None)
+        os.environ.pop("PLINK_TORCH_DEVICE", None)
+
+
 def joint_panel(tmp):
     """The joint-model paths' panel: 500,000 x JOINT_VARIANTS, made as the
     main panel (seed 42, its covariates and QT1)."""
@@ -4531,6 +5095,9 @@ def main(argv=None):
         rows += check_modifier_kernels(torch, dev, prefix)
         torch.cuda.empty_cache()
         phase_secs["modifier kernels"] = time.perf_counter() - t0
+        t0 = stamp("weighted plane kernels")
+        rows += check_weighted_kernels(torch, dev, prefix)
+        phase_secs["weighted plane kernels"] = time.perf_counter() - t0
         stamp("logistic main path")
         paths = {"logistic": run_main_path(torch, prefix, os.path.join(tmp, "main"),
                                            card, args.variants)}
@@ -4551,6 +5118,14 @@ def main(argv=None):
         xm = run_xm1_paths(torch, prefix, tmp, card, args.variants)
         paths["xm1_logistic"], paths["xm1_linear"] = xm["logistic"], xm["linear"]
         phase_secs["--xchr-model 1 paths"] = time.perf_counter() - t0
+        t0 = stamp("sample-report path")
+        paths["sample_reports"] = run_sample_report_path(torch, dev, prefix, tmp, card)
+        phase_secs["sample-report path"] = time.perf_counter() - t0
+        t0 = stamp("--check-sex path")
+        paths["check_sex"] = run_check_sex_path(torch, dev, prefix, tmp, card,
+                                                args.variants)
+        torch.cuda.empty_cache()
+        phase_secs["--check-sex path"] = time.perf_counter() - t0
         t0 = stamp("joint-model paths")
         jprefix = joint_panel(tmp)
         paths.update(run_joint_paths(torch, jprefix, tmp, card, JOINT_VARIANTS))
@@ -4634,8 +5209,11 @@ def main(argv=None):
         t0 = stamp("permutation parity")
         run_perm_parity(tmp, os.path.join(tmp, "small"), *SMALL[:2])
         phase_secs["permutation parity"] = time.perf_counter() - t0
+        t0 = stamp("sample-report parity")
+        run_sample_parity(tmp, os.path.join(tmp, "small"), os.path.join(tmp, "dsmall"))
+        phase_secs["sample-report parity"] = time.perf_counter() - t0
         stamp("done")
-        log("slice-6/7/8/9 phases: " + ", ".join(f"{k} {v:.1f}s"
+        log("slice-6/7/8/9/10 phases: " + ", ".join(f"{k} {v:.1f}s"
                                                  for k, v in phase_secs.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

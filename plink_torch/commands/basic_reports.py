@@ -11,9 +11,10 @@ Sex-chromosome conventions (matching the reference):
 - chrX: females contribute 2 alleles, males 1 (het male X = "hethap",
   treated as missing); chrY: only males, haploid; MT: haploid for all.
 
-Dosage tracks enter only the --glm A1 choice (`alt_allele_freqs(...,
-dosage=True)`).  Not yet ported (each raises NotPortedError): dosage tracks
-in the reports and filters, and the --freq machr2/minimac3r2 columns.
+Dosage tracks enter only the --glm A1 choice and the sample reports'
+frequencies (`alt_allele_freqs(..., dosage=True)`).  Not yet ported (each
+raises NotPortedError): dosage tracks in the reports and filters, and the
+--freq machr2/minimac3r2 columns.
 """
 
 from __future__ import annotations
@@ -85,10 +86,13 @@ def _refuse_dosage(ds: Dataset) -> None:
 def alt_allele_freqs(ds: Dataset, founders_only: bool = True,
                      dosage: bool = False) -> np.ndarray:
     """ALT allele frequencies (founders by default, the reference's
-    MAF-filter convention).  With `dosage` (the --glm A1 choice), variants
+    MAF-filter convention).  With `dosage` (the --glm A1 choice and the
+    sample reports: --het, --check-sex, --score, --variant-score), variants
     carrying a dosage track take their frequency from the dosages, as
     plink_tpu's alt_allele_freqs does; the other callers (filters, KING,
-    GRM, PCA, LD) refuse a dosage fileset until their slice is ported."""
+    GRM, PCA, LD) refuse a dosage fileset until their slice is ported.
+    --read-freq's frequencies (`ds.freq_override`) replace the computed
+    ones wherever they are finite."""
     if not dosage:
         _refuse_dosage(ds)
     alt, obs = allele_counts_and_obs(ds, founders_only)
@@ -96,7 +100,11 @@ def alt_allele_freqs(ds: Dataset, founders_only: bool = True,
         for v, (a_, o_) in dosage_counts_and_obs(ds, founders_only).items():
             alt[v], obs[v] = a_, o_
     with np.errstate(invalid="ignore", divide="ignore"):
-        return np.where(obs > 0, alt / obs, np.nan)
+        out = np.where(obs > 0, alt / obs, np.nan)
+    fo = ds.freq_override
+    if fo is not None:
+        out = np.where(np.isfinite(fo), fo, out)
+    return out
 
 
 def dosage_counts_and_obs(ds: Dataset, founders_only: bool):

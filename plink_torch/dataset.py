@@ -38,6 +38,9 @@ class Dataset:
     device: torch.device
     block_size: int = DEFAULT_BLOCK
     _counts_cache: dict = field(default_factory=dict)
+    # --read-freq: ALT frequencies [M] (NaN = not loaded) that replace the
+    # computed ones (commands/basic_reports.py alt_allele_freqs)
+    freq_override: np.ndarray | None = None
 
     @property
     def sample_ct(self) -> int:

@@ -11,7 +11,7 @@ launches made by the wrappers in ``ops/counts.py``, ``ops/glm.py``,
 ``ops/pairwise.py``, ``ops/pca.py`` and ``ops/ld.py``; it is the only module
 state the port keeps besides the loaded libraries.  An entry point lives in
 ``csrc/<name>.cu`` unless ``_SOURCE`` names another file (K9 and K10 share
-one; so do K11-K13, K17-K18 and K19-K20); every source may include any
+one; so do K11-K13, K17-K18, K19-K20 and K21-K22); every source may include any
 ``csrc/*.cuh``.
 """
 
@@ -78,6 +78,10 @@ _ENTRY = {
                                                _I, _P, _P, _P, _L, _P, _P, _P]),
     "linear_perm_stat": ("pt_linear_perm_stat", [_P, _P, _P, _P, _P, _I, _I, _I,
                                                  _I, _I, _P, _P]),
+    "sample_plane_weighted": ("pt_sample_plane_weighted",
+                              [_P, _L, _I, _P, _I, _I, _I, _P, _P, _P]),
+    "variant_plane_weighted": ("pt_variant_plane_weighted",
+                               [_P, _L, _I, _P, _I, _I, _I, _P, _P, _P]),
 }
 # kernel modes counted apart from their entry point's default mode: name ->
 # entry point (K2 scaled; K3 scaled and residualized share glm_irls_x; K3
@@ -93,7 +97,9 @@ _MODE_ONLY = ("glm_irls_x", "glm_wide")
 _SOURCE = {"pca_x": "pca_apply", "pca_xt": "pca_apply", "ld_band_bits": "ld_band",
            "ld_band_stats": "ld_band", "ld_gram_pair": "ld_band",
            "glm_dense_moments": "glm_dense", "glm_dense_irls": "glm_dense",
-           "linear_perm_xty": "linear_perm", "linear_perm_stat": "linear_perm"}
+           "linear_perm_xty": "linear_perm", "linear_perm_stat": "linear_perm",
+           "sample_plane_weighted": "plane_weighted",
+           "variant_plane_weighted": "plane_weighted"}
 _SOURCES = sorted({_SOURCE.get(k, k) for k in _ENTRY})
 
 LAUNCHES: dict[str, int] = dict.fromkeys(

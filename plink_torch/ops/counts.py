@@ -1,5 +1,6 @@
-"""Genotype counting: kernels K1 (`csrc/geno_counts.cu`) and K5
-(`csrc/sample_counts.cu`) with their plain versions.
+"""Genotype counting: kernels K1 (`csrc/geno_counts.cu`), K5
+(`csrc/sample_counts.cu`) and K21 / K22 (`csrc/plane_weighted.cu`) with
+their plain versions.
 
 - K1: per-variant (hom-REF, het, hom-ALT, missing) counts for up to three
   sample masks in one pass over the packed genotypes (plink_tpu/ops/counts.py
@@ -8,10 +9,15 @@
 - K5: per-sample missing, or (het, hom-ALT, missing), counts over the
   variants of one or two variant masks (`_sample_miss_counts` /
   `_sample_het_hom_counts`).
+- K21 / K22: per-sample and per-variant weighted sums of the genotype
+  planes for K weight sets in one launch (`_sample_plane_weighted` /
+  `_variant_plane_weighted`), in f64 or f32; --het, --check-sex,
+  --score, --sample-counts and --variant-score call them.
 
-All counts are exact.  The host-facing functions take either the host
+K1 / K5 counts are exact.  Their host-facing functions take either the host
 numpy matrix (panels of at most HOST_SMALL_GENOTYPES genotypes, counted in
-numpy as plink_tpu does) or the device-resident one (one kernel launch).
+numpy as plink_tpu does) or the device-resident one (one kernel launch);
+K21 / K22's take the device-resident one.
 """
 
 from __future__ import annotations
@@ -196,3 +202,163 @@ def sample_het_hom_counts(packed: torch.Tensor, sample_ct: int,
     out = sample_counts(packed, _vmask_tensor([vmask], packed.device),
                         het_hom=True)
     return out[0, :, :sample_ct].cpu().numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# K21 / K22: weighted plane sums
+# ---------------------------------------------------------------------------
+
+# elements of one [rows, samples(, K)] temporary of the plain versions
+_PLAIN_ELEMS = 1 << 24
+# K21 in f32: variants one split sums in f32 before the splits are added in
+# f64, so 0/1 selector sums are exact integers at any variant count (as
+# plink_tpu's f32 blocks added on the host)
+F32_SPLIT_ROWS = 1 << 24
+
+
+def _planes4(codes: torch.Tensor, dtype) -> tuple:
+    """(hom-REF, het, hom-ALT, missing) 0/1 planes of codes, as plink_tpu's
+    _sample_plane_weighted forms them."""
+    b0 = (codes & 1).to(dtype)
+    b1 = ((codes >> 1) & 1).to(dtype)
+    miss = b0 * b1
+    return 1.0 - b0 - b1 + miss, b0 - miss, b1 - miss, miss
+
+
+def sample_plane_weighted_plain(packed: torch.Tensor,
+                                wts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K21: packed uint8 [V, NB], wts [V, 4, K] (f64 or f32)
+    -> float64 [K, 4*NB]: sum over variants and planes of the weight times
+    the 0/1 plane (a product, so a non-finite weight makes its column NaN
+    wherever its plane is 0, as plink_tpu's dots do), chunked over
+    variants.  f32 weights sum in f32 within splits of F32_SPLIT_ROWS
+    variants, the splits added in f64."""
+    V, nb = packed.shape
+    K = wts.shape[2]
+    out = torch.zeros((K, 4 * nb), dtype=torch.float64, device=packed.device)
+    split = max(1, V if wts.dtype == torch.float64 else F32_SPLIT_ROWS)
+    step = max(1, min(split, _PLAIN_ELEMS // max(4 * nb, 1)))
+    for s0 in range(0, V, split):
+        acc = torch.zeros((K, 4 * nb), dtype=wts.dtype, device=packed.device)
+        for r0 in range(s0, min(V, s0 + split), step):
+            r1 = min(r0 + step, s0 + split)
+            planes = _planes4(unpack_codes(packed[r0:r1]), wts.dtype)
+            w = wts[r0:r1]
+            for k in range(K):
+                for p, plane in enumerate(planes):
+                    acc[k] += (w[:, p, k, None] * plane).sum(dim=0)
+        out += acc
+    return out
+
+
+def sample_plane_weighted(packed: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
+    """K21: packed uint8 [V, NB], wts [V, 4, K] float64 or float32 (weights
+    of the hom-REF, het, hom-ALT and missing planes for K weight sets) ->
+    float64 [K, 4*NB] per-sample sums, accumulated in the weights' type (f32
+    within splits of at most F32_SPLIT_ROWS variants, added in f64).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if packed.dtype != torch.uint8 or packed.dim() != 2:
+        raise ValueError("sample_plane_weighted: packed must be uint8 [V, NB]")
+    V, nb = packed.shape
+    if wts.dtype not in (torch.float64, torch.float32) or wts.dim() != 3 \
+            or wts.shape[0] != V or wts.shape[1] != 4 or wts.shape[2] < 1:
+        raise ValueError("sample_plane_weighted: wts must be float64/float32 "
+                         "[V, 4, K]")
+    if wts.device != packed.device:
+        raise ValueError("sample_plane_weighted: packed and wts on different "
+                         "devices")
+    if not (packed.is_contiguous() and wts.is_contiguous()):
+        raise ValueError("sample_plane_weighted: inputs must be contiguous")
+    if packed.device.type == "cpu":
+        return sample_plane_weighted_plain(packed, wts)
+    if packed.device.type != "cuda":
+        raise ValueError(f"sample_plane_weighted: unsupported device {packed.device}")
+    K = wts.shape[2]
+    # variant splits so that ~8 blocks of 256 byte-threads per SM are in flight
+    splits = max(1, min(-(-V // 64), -(-1056 // max(1, -(-nb // 256)))))
+    f64 = wts.dtype == torch.float64
+    if not f64:
+        splits = max(splits, -(-V // F32_SPLIT_ROWS))
+    out = torch.empty((K, 4 * nb), dtype=torch.float64, device=packed.device)
+    part = torch.empty((splits, K, 4 * nb), dtype=wts.dtype,
+                       device=packed.device) if splits > 1 or not f64 else None
+    _cuda.launch("sample_plane_weighted", packed.data_ptr(), nb, V,
+                 wts.data_ptr(), K, int(f64), splits, _cuda.ptr(part),
+                 out.data_ptr())
+    return out
+
+
+def variant_plane_weighted_plain(packed: torch.Tensor,
+                                 w: torch.Tensor) -> torch.Tensor:
+    """Plain version of K22: packed uint8 [V, NB], w [4*NB, K] (f64 or f32)
+    -> [V, K, 3] sums of the (het, hom-ALT, valid) planes times the sample
+    weights (products, as plink_tpu's dots), chunked over variants."""
+    V, nb = packed.shape
+    K = w.shape[1]
+    out = torch.empty((V, K, 3), dtype=w.dtype, device=packed.device)
+    step = max(1, _PLAIN_ELEMS // max(4 * nb * K, 1))
+    for r0 in range(0, V, step):
+        _, het, alt, miss = _planes4(unpack_codes(packed[r0:r0 + step]), w.dtype)
+        for q, plane in enumerate((het, alt, 1.0 - miss)):
+            out[r0:r0 + step, :, q] = (plane[:, :, None] * w[None]).sum(dim=1)
+    return out
+
+
+def variant_plane_weighted(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K22: packed uint8 [V, NB], w [4*NB, K] float64 or float32 sample
+    weights (0 on pad samples) -> [V, K, 3] per-variant sums over the het,
+    hom-ALT and valid planes, in the weights' type.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if packed.dtype != torch.uint8 or packed.dim() != 2:
+        raise ValueError("variant_plane_weighted: packed must be uint8 [V, NB]")
+    V, nb = packed.shape
+    if w.dtype not in (torch.float64, torch.float32) or w.dim() != 2 \
+            or w.shape[0] != 4 * nb or w.shape[1] < 1:
+        raise ValueError("variant_plane_weighted: w must be float64/float32 "
+                         "[4*NB, K]")
+    if w.device != packed.device:
+        raise ValueError("variant_plane_weighted: packed and w on different "
+                         "devices")
+    if not (packed.is_contiguous() and w.is_contiguous()):
+        raise ValueError("variant_plane_weighted: inputs must be contiguous")
+    if packed.device.type == "cpu":
+        return variant_plane_weighted_plain(packed, w)
+    if packed.device.type != "cuda":
+        raise ValueError(f"variant_plane_weighted: unsupported device {packed.device}")
+    K = w.shape[1]
+    wt = w.t().contiguous()  # [K, 4*NB]: a lane's four samples in one vector load
+    # sample splits so that ~8 blocks of 8 warps per SM are in flight
+    splits = max(1, min(-(-nb // 1024), -(-1056 // max(1, -(-V // 32)))))
+    out = torch.empty((V, K, 3), dtype=w.dtype, device=packed.device)
+    part = torch.empty((splits, V, K, 3), dtype=w.dtype,
+                       device=packed.device) if splits > 1 else None
+    _cuda.launch("variant_plane_weighted", packed.data_ptr(), nb, V, wt.data_ptr(),
+                 K, int(w.dtype == torch.float64), splits, _cuda.ptr(part),
+                 out.data_ptr())
+    return out
+
+
+def weighted_sample_sums(packed: torch.Tensor, sample_ct: int, wts: np.ndarray,
+                         f64: bool = True) -> np.ndarray:
+    """Per-sample weighted plane sums over the device-resident [V, NB]
+    matrix (plink_tpu's sample_plane_weighted, for K weight sets in one
+    K21 launch): wts [V, 4, K] -> float64 [K, sample_ct].  `f64=False`
+    rounds the weights to float32 and sums in float32 (within splits of
+    F32_SPLIT_ROWS variants, added in float64), as plink_tpu's cast and its
+    host sum of the blocks do."""
+    w = torch.from_numpy(np.ascontiguousarray(
+        wts, dtype=np.float64 if f64 else np.float32))
+    out = sample_plane_weighted(packed, w.to(packed.device))
+    return out[:, :sample_ct].cpu().numpy()
+
+
+def weighted_variant_sums(packed: torch.Tensor, sample_ct: int, w: np.ndarray,
+                          f64: bool = True) -> np.ndarray:
+    """Per-variant (het, hom-ALT, valid) weighted sums over the
+    device-resident [V, NB] matrix (plink_tpu's variant_plane_weighted, one
+    K22 launch): w [sample_ct, K] sample weights -> float64 [V, K, 3]."""
+    wpad = np.zeros((packed.shape[1] * 4, w.shape[1]),
+                    dtype=np.float64 if f64 else np.float32)
+    wpad[:sample_ct] = w
+    out = variant_plane_weighted(packed, torch.from_numpy(wpad).to(packed.device))
+    return out.cpu().numpy().astype(np.float64)

@@ -4,9 +4,10 @@ fileset (or write and load a --dummy one), apply --pheno, the sample
 filters (keep/remove, founders, --mind), the variant filters
 (extract/exclude, chr), the counts-based reports and
 their filters (freq, geno-counts, missing, --geno, hardy, --hwe,
---maf/--mac), the relationship commands (KING, then GRM / PCA),
+--maf/--mac), the relationship commands (KING, then GRM / PCA), the sample
+reports (--het, --sample-counts, then --check-sex / --impute-sex),
 --indep-pairwise, --indep-pairphase, the --r2/--r tables and matrices,
---ld, then --glm, and --clump last.
+--ld, --variant-score, --score, then --glm, and --clump last.
 
 Every other flag raises NotPortedError before anything runs; the run never
 falls back to plink_tpu.
@@ -54,6 +55,10 @@ _PORTED_FIELDS = {
     "ld_window_kb", "ld_window_r2", "ld", "clump", "clump_p1", "clump_p2",
     "clump_r2", "clump_kb", "clump_id_field", "clump_p_field", "clump_range",
     "clump_range_border", "clump_bins", "clump_allow_overlap",
+    # sample reports and scoring, and the frequencies they read
+    "het", "het_small_sample", "sample_counts", "check_sex", "impute_sex",
+    "score", "score_list", "score_col_nums", "q_score_range", "variant_score",
+    "vscore_col_nums", "read_freq", "bad_freqs",
 }
 
 
@@ -84,26 +89,76 @@ def _load(cfg: Config, device, log):
 
 
 def _degenerate_data_checks(cfg: Config, ds) -> None:
-    """The LD guard of plink_tpu's degenerate-data checks (ref
+    """plink_tpu's degenerate-data checks as far as the port runs them (ref
     2.0/plink2.cc:2065-2105): LD-estimating commands with < 50 founders
-    error unless --bad-ld."""
+    error unless --bad-ld; commands that need decent allele frequencies
+    (--score, --check-sex, --impute-sex, --het) with < 50 founders (or
+    samples) error unless --read-freq or --bad-freqs."""
+    founder_ct = int(ds.founder_mask.sum())
+    sample_ct = ds.raw_sample_ct
     ld_needed = bool(cfg.indep_pairwise or cfg.indep_pairphase or cfg.ld)
-    if not ld_needed or cfg.bad_ld or int(ds.founder_mask.sum()) >= 50:
-        return
-    if ds.raw_sample_ct < 50:
+    if ld_needed and founder_ct < 50 and not cfg.bad_ld:
+        if sample_ct < 50:
+            raise ValueError(
+                "This run estimates linkage disequilibrium between "
+                "variants, but there are less than 50 samples to estimate "
+                "from.  You should perform this operation on a larger "
+                "dataset.\n(Strictly speaking, you can also override this "
+                "error with --bad-ld, but this is almost always a bad "
+                "idea.)")
         raise ValueError(
-            "This run estimates linkage disequilibrium between "
-            "variants, but there are less than 50 samples to estimate "
-            "from.  You should perform this operation on a larger "
-            "dataset.\n(Strictly speaking, you can also override this "
-            "error with --bad-ld, but this is almost always a bad "
-            "idea.)")
-    raise ValueError(
-        "This run estimates linkage disequilibrium between variants, "
-        "but there are less than 50 founders to estimate from.  "
-        "--make-founders may help.\n(Strictly speaking, you can also "
-        "override this error with --bad-ld, but this is almost always "
-        "a bad idea.)")
+            "This run estimates linkage disequilibrium between variants, "
+            "but there are less than 50 founders to estimate from.  "
+            "--make-founders may help.\n(Strictly speaking, you can also "
+            "override this error with --bad-ld, but this is almost always "
+            "a bad idea.)")
+    decent_needed = bool(cfg.score or cfg.score_list or cfg.check_sex
+                         or cfg.impute_sex or cfg.het)
+    if decent_needed and not cfg.read_freq and not cfg.bad_freqs and (
+            sample_ct < 50
+            or (not cfg.nonfounders and founder_ct < 50)):
+        if not cfg.nonfounders and sample_ct >= 50:
+            raise ValueError(
+                "This run requires decent allele frequencies, but they "
+                "aren't being loaded with --read-freq, and less than 50 "
+                "founders are available to impute them from.  Possible "
+                "solutions:\n* You can use --nonfounders to include "
+                "nonfounders when imputing allele\n  frequencies.\n* You "
+                "can generate (with --freq) or obtain an allele frequency "
+                "file based on a\n  larger similar-population reference "
+                "dataset, and load it with --read-freq.\n* (Not "
+                "recommended) You can override this error with "
+                "--bad-freqs.")
+        raise ValueError(
+            "This run requires decent allele frequencies, but they aren't "
+            "being loaded with --read-freq, and less than 50 samples are "
+            "available to impute them from.\nYou should generate (with "
+            "--freq) or obtain an allele frequency file based on a larger "
+            "similar-population reference dataset, and load it with "
+            "--read-freq.")
+
+
+def _read_freq(cfg: Config, ds, log) -> None:
+    """--read-freq: the ALT_FREQS column of a .afreq-style file, by variant
+    ID, replaces the computed frequencies wherever they are read
+    (ds.freq_override; plink_tpu/pipeline.py:838-857)."""
+    ov = {}
+    with open(cfg.read_freq) as f:
+        hdr = f.readline().lstrip("#").split()
+        idc = hdr.index("ID")
+        fc = hdr.index("ALT_FREQS")
+        for ln in f:
+            t = ln.split()
+            try:
+                ov[t[idc]] = float(t[fc])
+            except ValueError:
+                pass
+    fo = np.full(ds.raw_variant_ct, np.nan)
+    for i, vid_ in enumerate(ds.vi.vid):
+        if str(vid_) in ov:
+            fo[i] = ov[str(vid_)]
+    ds.freq_override = fo
+    log.log(f"--read-freq: {int(np.isfinite(fo).sum())} frequencies loaded.")
 
 
 def _filter_and_report(ds, cfg: Config, log) -> None:
@@ -186,6 +241,8 @@ def run_pipeline(cfg: Config, device) -> int:
         if cfg.output_chr != "MT":
             ds.vi.chr_info.set_output_chr(cfg.output_chr)
         _degenerate_data_checks(cfg, ds)
+        if cfg.read_freq:
+            _read_freq(cfg, ds, log)
         if cfg.pheno:
             # 2.0 psam input: --pheno APPENDS to the psam phenotype columns;
             # they are only dropped when --pheno-name is also given (ref
@@ -218,6 +275,21 @@ def run_pipeline(cfg: Config, device) -> int:
 
             with log.phase("--make-grm/--pca"):
                 run_grm_pca(ds, cfg, log)
+        if cfg.het:
+            from .commands.het import write_het
+
+            with log.phase("--het"):
+                write_het(ds, cfg.out, log, small_sample=cfg.het_small_sample)
+        if cfg.sample_counts:
+            from .commands.sample_counts import write_sample_counts
+
+            with log.phase("--sample-counts"):
+                write_sample_counts(ds, cfg.out, log)
+        if cfg.check_sex is not None or cfg.impute_sex is not None:
+            from .commands.check_sex import run_check_sex
+
+            with log.phase("--check-sex/--impute-sex"):
+                run_check_sex(ds, cfg, log, impute=cfg.impute_sex is not None)
         if cfg.indep_pairwise:
             from .commands.ld import indep_pairwise
 
@@ -238,6 +310,16 @@ def run_pipeline(cfg: Config, device) -> int:
 
             with log.phase("--ld"):
                 run_ld_console(ds, cfg, log)
+        if cfg.variant_score:
+            from .commands.vscore import run_vscore
+
+            with log.phase("--variant-score"):
+                run_vscore(ds, cfg, log)
+        if cfg.score or cfg.score_list:
+            from .commands.score import score_report
+
+            with log.phase("--score"):
+                score_report(ds, cfg, log)
         if cfg.glm:
             from .commands.glm import run_glm
 

@@ -1,6 +1,7 @@
 """Comparison rules for the relationship outputs (KING, GRM, .rel, PCA), the
---glm permutation reports and the --adjust report, and the f64 logistic /
-Firth reference fit of the GLM checks.
+--glm permutation reports and the --adjust report, the f64 logistic /
+Firth reference fit of the GLM checks, and the sample reports' cases and
+their inputs (SR_RUNS, write_sample_report_inputs).
 
 One place for the rules that the CPU tests (plink_torch against plink_tpu)
 and chip_smoke.py (the card against the CPU) hold two runs' files to:
@@ -220,3 +221,177 @@ def f64_logit(X, y, off=0.0, firth=False, slack=None):
     if conv:
         pick.append(k + 1)
     return [(its[i][0], np.sqrt(np.diag(its[i][1])), its[i][1]) for i in pick]
+
+
+# ---------------------------------------------------------------------------
+# The sample reports' cases: tests/test_torch_sample_reports.py runs them on
+# the CPU against plink_tpu, chip_smoke.py's phase 17f on the card against
+# the CPU.  Filesets: p (a hard-call panel), sx (its chr1/X/Y/MT copy with
+# SR_ALLELES), dp (a dosage panel), fam (p with all but 40 samples
+# nonfounders), tiny (40 samples: the guard's fewer than 50 samples).
+# `{d}` stands for the directory of write_sample_report_inputs's files.
+# ---------------------------------------------------------------------------
+
+SR_CHECK = ["max-female-xf=0.1", "min-male-xf=0.05", "max-female-yrate=0.45",
+            "min-male-yrate=0.4"]
+# run: (fileset, flags, reports that must be byte-identical)
+SR_RUNS = {
+    "het": ("p", ["--het", "--sample-counts"], (".het", ".scount")),
+    "het_small": ("p", ["--het", "small-sample"], (".het",)),
+    "scount": ("sx", ["--sample-counts"], (".scount",)),
+    "check_sex": ("sx", ["--check-sex", *SR_CHECK, "cols=+ycount,+yobs"],
+                  (".sexcheck",)),
+    "check_default": ("sx", ["--check-sex"], (".sexcheck",)),
+    # --het runs before --impute-sex (plink_tpu's order), --variant-score and
+    # --score after it, on the imputed sexes
+    "impute": ("sx", ["--impute-sex", "max-female-xf=0.02", "min-male-xf=0.02",
+                      "--het", "--variant-score", "{d}/vs.txt",
+                      "--xchr-model", "1", "--score", "{d}/s.txt", "header"],
+               (".sexcheck", ".het", ".vscore", ".sscore")),
+    "score": ("p", ["--score", "{d}/s.txt", "1", "2", "3", "header-read",
+                    "list-variants", "--score-col-nums", "3-5"],
+              (".sscore", ".sscore.vars")),
+    "score_center": ("p", ["--score", "{d}/s.txt", "header", "center",
+                           "no-mean-imputation"], (".sscore",)),
+    "score_vstd": ("p", ["--score", "{d}/s.txt", "header", "variance-standardize",
+                         "--score-col-nums", "3,5"], (".sscore",)),
+    "score_dominant": ("p", ["--score", "{d}/s.txt", "header", "dominant"],
+                       (".sscore",)),
+    "score_recessive": ("p", ["--score", "{d}/s.txt", "header", "recessive",
+                              "no-mean-imputation"], (".sscore",)),
+    "score_list": ("p", ["--score-list", "{d}/list.txt", "1", "2", "3", "header",
+                         "--score-col-nums", "3-4"], (".sscore",)),
+    "q_score_range": ("p", ["--score", "{d}/s.txt", "header", "--q-score-range",
+                            "{d}/ranges.txt", "{d}/pvals.txt"],
+                      (".low.sscore", ".mid.sscore", ".all.sscore")),
+    "read_freq": ("p", ["--read-freq", "{d}/moved.afreq", "--score", "{d}/s.txt",
+                        "header", "--het", "--variant-score", "{d}/vs.txt"],
+                  (".sscore", ".het", ".vscore")),
+    "vscore": ("p", ["--variant-score", "{d}/vs.txt", "--vscore-col-nums", "2-3"],
+               (".vscore",)),
+    "vscore_bin": ("p", ["--variant-score", "{d}/vs.txt", "bin"],
+                   (".vscore.bin", ".vscore.cols", ".vscore.vars")),
+    "vscore_bin4": ("p", ["--variant-score", "{d}/vs.txt", "bin4"],
+                    (".vscore.bin", ".vscore.cols", ".vscore.vars")),
+    "vscore_single": ("p", ["--variant-score", "{d}/vs.txt", "single-prec"],
+                      (".vscore",)),
+    "vscore_x0": ("sx", ["--variant-score", "{d}/vs.txt", "--xchr-model", "0"],
+                  (".vscore",)),
+    "vscore_x1": ("sx", ["--variant-score", "{d}/vs.txt", "--xchr-model", "1"],
+                  (".vscore",)),
+    "vscore_x2": ("sx", ["--variant-score", "{d}/vs.txt", "--xchr-model", "2"],
+                  (".vscore",)),
+    "dosage": ("dp", ["--score", "{d}/ds.txt", "header", "--variant-score",
+                      "{d}/vsd.txt", "--het", "--sample-counts"],
+               (".sscore", ".vscore", ".het", ".scount")),
+    "dosage_dominant": ("dp", ["--score", "{d}/ds.txt", "header", "dominant",
+                               "no-mean-imputation"], (".sscore",)),
+    # the frequency guard: < 50 founders of >= 50 samples, < 50 samples; and
+    # what lifts it
+    "guard_founders": ("fam", ["--het"], ()),
+    "guard_samples": ("tiny", ["--score", "{d}/s.txt", "header"], ()),
+    "guard_nonfounders": ("fam", ["--het", "--nonfounders", "--check-sex"],
+                          (".het", ".sexcheck")),
+    "guard_bad_freqs": ("tiny", ["--het", "--bad-freqs"], (".het",)),
+    "guard_read_freq": ("fam", ["--read-freq", "{d}/moved.afreq", "--impute-sex"],
+                        (".sexcheck",)),
+}
+# runs the guard refuses (ValueError, "decent allele frequencies")
+SR_ERRORS = ("guard_founders", "guard_samples")
+# reports of float sums whose bytes depend on the summation order, with the
+# tolerance relative to sum |weight x dosage| of a sum: the f64 .vscore.bin
+# (last bits) and the f32 sums of `single-prec` (~200 x f32 eps)
+SR_ORDER_DEPENDENT = {("vscore_bin", ".vscore.bin"): 1e-12,
+                      ("vscore_single", ".vscore"): 1e-5}
+# the sx copy's alleles, one per variant in turn: transitions,
+# transversions, a non-SNP and a symbolic ALT (every .scount class)
+SR_ALLELES = (("A", "G"), ("C", "T"), ("G", "T"), ("A", "C"), ("AT", "A"),
+              ("C", "<DEL>"), ("T", "C"))
+
+
+def _variants(prefix: str) -> list[list[str]]:
+    """(ID, REF, ALT) of each variant of <prefix>.pvar."""
+    with open(prefix + ".pvar") as f:
+        return [ln.rstrip("\n").split("\t")[2:5] for ln in f if not ln.startswith("#")]
+
+
+def _samples(prefix: str) -> tuple[list[str], list[list[str]]]:
+    with open(prefix + ".psam") as f:
+        hdr = f.readline().lstrip("#").rstrip("\n").split("\t")
+        return hdr, [ln.rstrip("\n").split("\t") for ln in f]
+
+
+def write_sample_report_inputs(d: str, p: str, dp: str, afreq: str) -> None:
+    """The inputs of SR_RUNS in directory d, from the hard-call fileset p,
+    the dosage fileset dp and an .afreq of p: the sx and fam filesets;
+    score files (every third variant of p, A1 alternately REF and ALT, every
+    41st neither, one ID not in p; every fifth; every second of dp), a
+    --score-list, --q-score-range ranges (one not numeric) and p-values,
+    3-column sample weights for p (vs.txt) and dp (vsd.txt), each without
+    the last sample, and moved.afreq (every ALT frequency moved)."""
+    import os
+    import shutil
+
+    rng = np.random.default_rng(17)
+    sx, fam = os.path.join(d, "sx"), os.path.join(d, "fam")
+    for ext in (".pgen", ".psam"):
+        shutil.copy(p + ext, sx + ext)
+    with open(p + ".pvar") as f, open(sx + ".pvar", "w") as g:
+        g.write(f.readline())
+        lines = f.readlines()
+        m = len(lines)
+        for i, ln in enumerate(lines):
+            t = ln.rstrip("\n").split("\t")
+            chrom = "1" if i < m * 2 // 3 else "X" if i < m * 5 // 6 \
+                else "Y" if i < m * 11 // 12 else "MT"
+            ref, alt = SR_ALLELES[i % len(SR_ALLELES)]
+            g.write("\t".join([chrom, t[1], t[2], ref, alt]) + "\n")
+    hdr, rows = _samples(p)
+    iid, sex = hdr.index("IID"), hdr.index("SEX")
+    pheno = hdr.index("PHENO1") if "PHENO1" in hdr else None
+    iids = [r[iid] for r in rows]
+    for ext in (".pgen", ".pvar"):
+        shutil.copy(p + ext, fam + ext)
+    with open(fam + ".psam", "w") as f:
+        f.write("#FID\tIID\tPAT\tMAT\tSEX" + ("\tPHENO1" if pheno else "") + "\n")
+        for i, r in enumerate(rows):
+            par = ("0", "0") if i < 40 else (iids[i % 20], iids[20 + i % 20])
+            f.write(f"f{i % 20}\t{r[iid]}\t{par[0]}\t{par[1]}\t{r[sex]}"
+                    + (f"\t{r[pheno]}" if pheno else "") + "\n")
+    pv, dv = _variants(p), _variants(dp)
+    with open(os.path.join(d, "s.txt"), "w") as f:
+        f.write("ID\tA1\tBETA\tOR\tW3\n")
+        for i, (vid, ref, alt) in enumerate(pv[::3]):
+            a = "Q" if i % 41 == 0 else alt if i % 2 else ref
+            w = rng.normal(size=3)
+            f.write(f"{vid}\t{a}\t{w[0]:.5f}\t{w[1]:.5f}\t{w[2]:.5f}\n")
+        f.write("nosuch1\tA\t1\t1\t1\n")
+    with open(os.path.join(d, "s2.txt"), "w") as f:
+        f.write("ID\tA1\tBETA\tOR\n")
+        for vid, _, alt in pv[1::5]:
+            f.write(f"{vid}\t{alt}\t{rng.normal():.5f}\t{rng.normal():.5f}\n")
+    with open(os.path.join(d, "list.txt"), "w") as f:
+        f.write(f"{os.path.join(d, 's.txt')}\n{os.path.join(d, 's2.txt')}\n")
+    with open(os.path.join(d, "ranges.txt"), "w") as f:
+        f.write("low 0 0.1\nmid 0.1 0.6\nbad x y\nall 0 1\n")
+    with open(os.path.join(d, "pvals.txt"), "w") as f:
+        f.writelines(f"{v[0]}\t{rng.random():.4f}\n" for v in pv[::2])
+    with open(os.path.join(d, "ds.txt"), "w") as f:
+        f.write("ID\tA1\tW\n")
+        for i, (vid, ref, alt) in enumerate(dv[::2]):
+            f.write(f"{vid}\t{alt if i % 3 else ref}\t{rng.normal():.5f}\n")
+    for name, src in (("vs.txt", p), ("vsd.txt", dp)):
+        h, rs = _samples(src)
+        with open(os.path.join(d, name), "w") as f:
+            f.write("#IID\tV1\tV2\tV3\n")
+            for r in rs[:-1]:
+                w = rng.normal(size=3)
+                f.write(f"{r[h.index('IID')]}\t{w[0]:.5f}\t{w[1]:.5f}\t{w[2]:.5f}\n")
+    with open(afreq) as f, open(os.path.join(d, "moved.afreq"), "w") as g:
+        head = f.readline()
+        g.write(head)
+        fc = head.lstrip("#").split().index("ALT_FREQS")
+        for ln in f:
+            t = ln.rstrip("\n").split("\t")
+            t[fc] = f"{min(1.0, float(t[fc]) * 0.8 + 0.05):.6g}"
+            g.write("\t".join(t) + "\n")

@@ -7,9 +7,10 @@ with two genotype columns (K2 / K3) and with G x covariate columns (K15 /
 K16), the dosage kernels K17 / K18 (and K15 / K16's dense mode above 16
 covariate columns), and matrix sizes past every shared-memory layout of
 chol_small (d = 250 works in device memory) and of K15 / K16 (d = 128
-splits a variant's tiles over CTAs), and the permuted linear scan's K19 /
+splits a variant's tiles over CTAs), the permuted linear scan's K19 /
 K20 at every design (P = 1, two columns, G x covariate columns, scaled)
-and batches of 5, 70 and 256 permutations.
+and batches of 5, 70 and 256 permutations, and the weighted plane sums
+K21 / K22 (f64, f32 selectors, non-finite weights; 1 to 17 weight sets).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card, from the
 repository root (the repo's conftest imports jax, which that machine lacks):
@@ -877,3 +878,97 @@ def test_linear_perm_kernels(dev, n, vb, dc, design, B):
     assert float(((k - p).abs() / p.abs().clamp(min=1.0))[good].max()) <= 1e-5
     again = linear_perm_stat(inv, xty, yy, nm, dc, q, inv0)
     assert torch.equal(k.view(torch.int32), again.view(torch.int32))  # NaN too
+
+
+def _nonfinite_spw(rng, V, K):
+    wts = rng.normal(size=(V, 4, K))
+    wts[V // 2, 3, K - 1] = np.nan  # one set all NaN
+    if K > 2:
+        wts[1, 2, 1] = np.inf       # Inf where hom-ALT, NaN elsewhere
+    return wts
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 10, 17])
+@pytest.mark.parametrize("n,vb,dc", SHAPES + [(2001, 600, 2)])
+def test_sample_plane_weighted_kernel(dev, n, vb, dc, K):
+    """K21 against its plain version: f64 within 1e-12 of the sum of |terms|,
+    f32 0/1 selectors exact, NaN / Inf where the plain version has them;
+    two runs identical."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.counts import sample_plane_weighted, sample_plane_weighted_plain
+
+    packed, _, _ = _inputs(n, vb, dc, 61)
+    pk = torch.from_numpy(packed).to(dev)
+    rng = np.random.default_rng(K)
+    for wts in (rng.normal(size=(vb, 4, K)), _nonfinite_spw(rng, vb, K)):
+        w = torch.from_numpy(wts).to(dev)
+        before = _cuda.LAUNCHES["sample_plane_weighted"]
+        k = sample_plane_weighted(pk, w)
+        assert _cuda.LAUNCHES["sample_plane_weighted"] == before + 1
+        p = sample_plane_weighted_plain(pk, w)
+        a = sample_plane_weighted_plain(pk, torch.nan_to_num(w.abs()))
+        assert torch.equal(torch.isnan(k), torch.isnan(p))
+        assert torch.equal(torch.isinf(k), torch.isinf(p))
+        fin = torch.isfinite(p)
+        assert torch.equal(k[~fin & ~torch.isnan(p)], p[~fin & ~torch.isnan(p)])
+        err = ((k - p).abs() / a.clamp(min=1e-300))[fin]  # empty if all non-finite
+        assert err.numel() == 0 or float(err.max()) <= 1e-12
+        assert torch.equal(k.view(torch.int64), sample_plane_weighted(pk, w).view(torch.int64))
+    sel = torch.from_numpy((rng.random((vb, 4, K)) < 0.5).astype(np.float32)).to(dev)
+    k = sample_plane_weighted(pk, sel)
+    assert k.dtype == torch.float64
+    assert torch.equal(k, sample_plane_weighted_plain(pk, sel))
+
+
+def test_sample_plane_weighted_kernel_f32_past_2_24(dev, monkeypatch):
+    """K21 in f32 with the split cap lowered to 4 variants: weights of 2^22
+    on 8 variants and 1 on 3 sum to 2^25 + 3 exactly for every sample (f32
+    splits added in f64)."""
+    from plink_torch.ops import counts as C
+
+    monkeypatch.setattr(C, "F32_SPLIT_ROWS", 4)
+    packed, _, _ = _inputs(2001, 11, 2, 63)
+    pk = torch.from_numpy(packed).to(dev)
+    wts = np.ones((11, 4, 1), np.float32)
+    wts[:8] = 2.0 ** 22
+    k = C.sample_plane_weighted(pk, torch.from_numpy(wts).to(dev))
+    assert k.dtype == torch.float64 and bool((k == 2.0 ** 25 + 3).all())
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 6, 9])
+@pytest.mark.parametrize("n,vb,dc", SHAPES + [(2001, 600, 2)])
+def test_variant_plane_weighted_kernel(dev, n, vb, dc, K):
+    """K22 against its plain version: f64 within 1e-12 of the sum of |terms|,
+    f32 0/1 weights exact, NaN / Inf where the plain version has them; two
+    runs identical."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.counts import variant_plane_weighted, variant_plane_weighted_plain
+
+    packed, _, _ = _inputs(n, vb, dc, 62)
+    pk = torch.from_numpy(packed).to(dev)
+    npad = pk.shape[1] * 4
+    rng = np.random.default_rng(K)
+    w = np.zeros((npad, K))
+    w[:n] = rng.normal(size=(n, K))
+    bad = w.copy()
+    bad[n // 2, K - 1] = np.nan
+    bad[n // 3, 0] = np.inf
+    for wv in (w, bad):
+        wt = torch.from_numpy(wv).to(dev)
+        before = _cuda.LAUNCHES["variant_plane_weighted"]
+        k = variant_plane_weighted(pk, wt)
+        assert _cuda.LAUNCHES["variant_plane_weighted"] == before + 1
+        p = variant_plane_weighted_plain(pk, wt)
+        a = variant_plane_weighted_plain(pk, torch.nan_to_num(wt.abs()))
+        assert torch.equal(torch.isnan(k), torch.isnan(p))
+        assert torch.equal(torch.isinf(k), torch.isinf(p))
+        fin = torch.isfinite(p)
+        err = ((k - p).abs() / a.clamp(min=1e-300))[fin]  # empty if all non-finite
+        assert err.numel() == 0 or float(err.max()) <= 1e-12
+        assert torch.equal(k.view(torch.int64), variant_plane_weighted(pk, wt).view(torch.int64))
+    sel = np.zeros((npad, K), np.float32)
+    sel[:n] = rng.random((n, K)) < 0.5
+    st = torch.from_numpy(sel).to(dev)
+    k = variant_plane_weighted(pk, st)
+    assert k.dtype == torch.float32
+    assert torch.equal(k, variant_plane_weighted_plain(pk, st))
