@@ -77,11 +77,11 @@ Slice 6 (the --glm modifiers) adds, in the order they run:
      seeded offset; logistic and firth2) against their plain versions in
      f32 and f64, and K14 `xm1_stats` exactly, on block 0 of phase 4's panel;
   4b. `--glm cc-residualize hide-covar` on phase 4's panel (K2 and the
-     residualized K3 launched; 32 rows, FIRTH?=Y first, against numpy f64
+     residualized K3 launched; 16 rows, FIRTH?=Y first, against numpy f64
      fits of the centred dosage with the null model's offset; traced);
   5b. `--xchr-model 1` on a copy whose variants n/2.. sit on chrX:
      logistic (`no-x-sex`: the .cov holds SEX; K14 and the scaled K2 / K3)
-     and linear on QT1 (K6 three times on chrX), 32 chrX rows of each
+     and linear on QT1 (K6 three times on chrX), 16 chrX rows of each
      against numpy f64 fits with the males' dosages halved;
   17b. the modifiers on the parity panel, CUDA against CPU: the transforms,
      allow-no-covars + pheno-ids, sex, cc- + qt-residualize,
@@ -97,7 +97,7 @@ Slice 7 (the --glm joint models) adds, in the order they run:
      4's panel;
   4c. on a 500,000 x 2,048 panel: `--glm genotypic hide-covar`, `--glm
      interaction`, `--glm dominant hide-covar --condition-list` (three
-     variants) and `--glm genotypic cc-residualize hide-covar`, 32 rows
+     variants) and `--glm genotypic cc-residualize hide-covar`, 8 rows
      (N_JOINT_ROWS) of each report against numpy f64 fits (GENO_2DF from the f64 joint
      test); `--glm genotypic interaction hide-covar --condition-list` of
      five (d = 51: K4's block mode); the interaction path traced;
@@ -119,7 +119,7 @@ run:
   4d. `--glm hide-covar --covar` (logistic-hybrid) and the linear `--glm
      hide-covar` on QT1 over the 500,000 x 512 dosage panel: K17, K18 and
      K4 must have launched (K17 for the linear), every one of their
-     launches is kept and run again against its plain version, 32 rows of
+     launches is kept and run again against its plain version, 16 rows of
      each report against numpy f64 fits of the dosage design; the logistic
      path traced;
   17d. the dosage --glm on a 4,500 x 600 dosage panel, CUDA against CPU
@@ -138,13 +138,13 @@ the order they run:
      same inputs; two runs identical; each timed beside its bound and one
      library call;
   4e. on the joint-model panel (500,000 x 2,048): the linear `--glm
-     hide-covar mperm=1000 --seed 1` and `aperm --aperm 6 268` on a QT
-     with two planted variants, and `--glm firth hide-covar mperm=66` on
+     hide-covar mperm=536 --seed 1` and `aperm --aperm 6 268` on a QT
+     with two planted variants, and `--glm firth hide-covar mperm=33` on
      PHENO1: K19, K20, K2 and K4 (K3 for Firth) launched, every K19 / K20
      launch kept and held to its plain version, 64 linear and 8 Firth
      (variant, permutation) statistics of the first batch against numpy
      f64 fits of the rebuilt permuted phenotype, the planted variants at
-     the EMP floor; the linear path traced on two batches;
+     the EMP floor; the linear path traced on one batch;
   17e. permutation, --adjust and local-covariate cases on the parity
      panel, CUDA against CPU by plink_torch.testing's rules (the EMP
      columns byte-identical in >= 98% of the rows, within 3 / (N + 1)
@@ -175,6 +175,28 @@ they run:
      and the dosage parity panel, CUDA against CPU (byte for byte; the f64
      .vscore.bin and the f32 sums of `single-prec` within their
      tolerances; the frequency guard's refusals alike); two card runs
+     byte-identical.
+
+Slice 11 (the pair-count commands: --distance, --genome, --cluster /
+--neighbour / --mds-plot, --ibs-test, --groupdist, --regress-distance)
+adds, in the order they run:
+  11b. K23 `wmiss_gram` on the diagonal tile and the ragged last row tile of
+     the --distance layout of indep_10k (2,048-sample tiles, npad 10,240)
+     with the path's own weights, torch.equal to its plain version (f64 on
+     the card), two runs identical, timed beside its bound (the lesser of
+     K23's AND words at the INT32 rate and four u8 limb products on the
+     int8 tensor cores) and one f64 torch.matmul;
+  11c. `--distance triangle bin4` on indep_10k at full width: K7 (counters)
+     and K23 launched 15 times each, every K23 launch kept and held to its
+     plain version, 64 .dist.bin entries against numpy (f64 from the codes
+     and the weights in the reference's order, rounded to f32) and the
+     .dist.id; traced;
+  17g. plink_torch.testing.PD_RUNS (the cases of
+     tests/test_torch_pair_reports.py) on a 300 x 600 panel (2% missing,
+     seed 1), its chr1/X/Y/MT copy, a .bed copy with the test's pedigree
+     and a 300 x 600 dosage panel (the port's --dummy), each cut by --keep
+     to 250 samples, in 64-sample tiles, CUDA against CPU: outputs byte for
+     byte, the .log result lines equal, the refusals alike; two card runs
      byte-identical.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -237,12 +259,14 @@ XM1_KERNELS = ("glm_moments", "glm_irls", "glm_moments_scaled", "glm_irls_scaled
                "chol_small", "xm1_stats")
 XM1_LINEAR_KERNELS = ("linear_sums",)
 # report rows of the cc-residualize, --xchr-model 1 and dosage paths held to
-# numpy f64 fits: cut 64 -> 32 in slice 10 to make room for its phases
-N_CHECK_ROWS = 32
+# numpy f64 fits: cut 64 -> 32 in slice 10 and 32 -> 16 in slice 11 to make
+# room for their phases
+N_CHECK_ROWS = 16
 # rows of each joint-model report (4c) held to numpy f64 fits: cut 64 -> 16
-# to make room for slice 10's phases in the script's time (each row's f64
-# fit at 500,000 samples is ~0.5-2 s of host time)
-N_JOINT_ROWS = 16
+# in slice 10 and 16 -> 8 in slice 11 to make room for their phases in the
+# script's time (each row's f64 fit at 500,000 samples is ~0.5-2 s of host
+# time)
+N_JOINT_ROWS = 8
 JOINT_VARIANTS = 2_048  # variants of the joint-model paths' panel (one block)
 JOINT_F64_ROWS = 256  # rows of each joint-model kernel check also held to f64
 # the dosage paths (slice 8): the port's own --dummy writes a 500,000-sample
@@ -269,6 +293,10 @@ KING_FILTER = "0.044"
 KING_GOLDEN = "#IID1\tIID2\tNSNP\tHETHET\tIBS0\tKINSHIP\n"
 GRM_GOLDEN = os.path.join(HERE, "bench_golden", "o_grm.samples.npz")
 INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+# H100 SXM 32-bit integer operations outside the tensor cores: 132 SMs x
+# 64 INT32 lanes x 1.98 GHz (half the FP32 lanes; FP32_FLOP_PER_S counts
+# an FMA as two)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # K8 against its plain version and the plain version in f64, normalised as
 # above: full-f32 products summed in <= 2,048-variant f32 runs measure
 # 4.8e-7 from f64 at 50,000 x 32,768; the same runs with TF32 inputs must
@@ -3296,6 +3324,17 @@ def run_modifier_parity(tmp, prefix, n, m):
         os.environ.pop("PLINK_TORCH_DEVICE", None)
 
 
+# each parity case runs on the card, on the CPU and on the card again
+PARITY_RUNS = (("cuda1", "cuda"), ("cpu", "cpu"), ("cuda2", "cuda"))
+
+
+def same_again(outs, *exts):
+    """Assert a parity case's two card runs wrote byte-identical outputs."""
+    for ext in exts:
+        assert filecmp.cmp(outs["cuda1"] + ext, outs["cuda2"] + ext,
+                           shallow=False), ("two CUDA runs differ", ext)
+
+
 def run_parity(tmp):
     """Phase 8: the 2,000 x 1,200 panel through the port on the card and on
     the CPU (plain versions): hybrid, firth, the QC + linear path, and the
@@ -3319,19 +3358,20 @@ def run_parity(tmp):
     try:
         for label, argv_of, glm_exts, exact_exts in cases:
             outs = {}
-            for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"),
-                                 ("cuda2", "cuda")):
+            for tag, devname in PARITY_RUNS:
                 os.environ["PLINK_TORCH_DEVICE"] = devname
                 outs[tag] = os.path.join(tmp, f"{tag}_{label}")
+                t0 = time.perf_counter()
                 rc = cli.main(argv_of(outs[tag]))
                 assert rc == 0, (label, tag, rc)
+                outs[tag + "_s"] = time.perf_counter() - t0
             for ext in exact_exts:
                 assert filecmp.cmp(outs["cuda1"] + ext, outs["cpu"] + ext,
                                    shallow=False), (label, ext)
             for ext in glm_exts:
-                a, b, c2 = (f"{outs[t]}.{ext}" for t in ("cuda1", "cpu", "cuda2"))
+                a, b = (f"{outs[t]}.{ext}" for t in ("cuda1", "cpu"))
                 worst = compare_reports(a, b)
-                assert filecmp.cmp(a, c2, shallow=False), "two CUDA runs differ"
+                same_again(outs, "." + ext)
                 hdr, rows = read_report(a)
                 firth_y = 0
                 if "FIRTH?" in hdr:
@@ -3340,12 +3380,13 @@ def run_parity(tmp):
                 log(f"parity {label} {ext} [{n}x{m}]: CUDA = CPU (exact columns"
                     f"{' and ' + ' '.join(exact_exts) if exact_exts else ''}, "
                     f"floats within {worst:.2f} of their tolerance), two CUDA "
-                    f"runs byte-identical, {len(rows)} rows, FIRTH?=Y rows {firth_y}")
+                    f"runs byte-identical, "
+                    f"{len(rows)} rows, FIRTH?=Y rows {firth_y} (CUDA "
+                    f"{outs['cuda1_s']:.1f}s, CPU {outs['cpu_s']:.1f}s)")
         os.environ["PLINK_TORCH_TILE"] = "512"
         for label, flags, exts in REL_PARITY:
             outs = {}
-            for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"),
-                                 ("cuda2", "cuda")):
+            for tag, devname in PARITY_RUNS:
                 os.environ["PLINK_TORCH_DEVICE"] = devname
                 outs[tag] = os.path.join(tmp, f"{tag}_{label}")
                 t0 = time.perf_counter()
@@ -3354,10 +3395,10 @@ def run_parity(tmp):
                 assert rc == 0, (label, tag, rc)
                 outs[tag + "_s"] = time.perf_counter() - t0
             for ext in exts:
-                a, b, c2 = (outs[t] + ext for t in ("cuda1", "cpu", "cuda2"))
+                a, b = (outs[t] + ext for t in ("cuda1", "cpu"))
                 assert relationship_output_close(ext, b, a, text_floor=1.0), \
                     (label, ext)
-                assert filecmp.cmp(a, c2, shallow=False), ("two CUDA runs differ", ext)
+            same_again(outs, *exts)
             with open(outs["cuda1"] + ".log") as f:
                 said = [ln.strip() for ln in f if "relationships reported" in ln]
             log(f"parity {label} [{n}x{m}, tile 512]: CUDA = CPU ({' '.join(exts)}"
@@ -3371,8 +3412,7 @@ def run_parity(tmp):
         gen_panel(panels["structured"], n, m, seed=7, k=5)
         for label, panel, flags, exts in PCA_LD_PARITY:
             outs = {}
-            for tag, devname in (("cuda1", "cuda"), ("cpu", "cpu"),
-                                 ("cuda2", "cuda")):
+            for tag, devname in PARITY_RUNS:
                 os.environ["PLINK_TORCH_DEVICE"] = devname
                 outs[tag] = os.path.join(tmp, f"{tag}_{label}")
                 t0 = time.perf_counter()
@@ -3381,9 +3421,9 @@ def run_parity(tmp):
                 assert rc == 0, (label, tag, rc)
                 outs[tag + "_s"] = time.perf_counter() - t0
             for ext in exts:
-                a, b, c2 = (outs[t] + ext for t in ("cuda1", "cpu", "cuda2"))
+                a, b = (outs[t] + ext for t in ("cuda1", "cpu"))
                 assert relationship_output_close(ext, b, a), (label, ext)
-                assert filecmp.cmp(a, c2, shallow=False), ("two CUDA runs differ", ext)
+            same_again(outs, *exts)
             with open(outs["cuda1"] + ".log") as f:
                 said = [ln.strip() for ln in f if "variants removed" in ln]
             log(f"parity {label} [{n}x{m}, {panel}]: CUDA = CPU ({' '.join(exts)}"
@@ -4058,6 +4098,9 @@ def run_dosage_parity_case(tmp, label, args, exts, must, refit_of, held):
 PERM_B = 134  # permutations a linear batch at 500,000 samples: plink_tpu's
 # max(16, min(256, 2^26 // n)); the Firth batch is max(4, min(64, 2^24 // n))
 PERM_EFFECT = 0.05  # planted QT effect a genotype copy (t ~ 20 at 500,000)
+PERM_MPERM = 536  # the linear mperm path: 4 batches of PERM_B (1,000 = 8
+# batches until slice 11, cut for the script's time)
+PERM_FIRTH_MPERM = 33  # the Firth path: one batch (66 = two until slice 11)
 PERM_N_LINEAR = 64  # (variant, permutation) pairs held to numpy f64 OLS
 PERM_N_FIRTH = 8  # (variant, permutation) pairs held to numpy f64 Firth (and
 # the Firth path's variants: 16 -> 8 in slice 10, ~0.6 s of host refit each)
@@ -4238,9 +4281,10 @@ def perm_argvs(prefix, permqt, firth_rows):
     host (as plink_tpu does), ~0.25 s a row."""
     base = ["--pfile", prefix, "--covar", prefix + ".cov"]
     lin = base + ["--pheno", permqt, "--glm", "hide-covar"]
-    return {"linear_mperm": lin + ["mperm=1000", "--seed", "1"],
+    return {"linear_mperm": lin + [f"mperm={PERM_MPERM}", "--seed", "1"],
             "linear_aperm": lin + ["aperm", "--aperm", "6", "268", "--seed", "1"],
-            "firth_mperm": base + ["--glm", "firth", "hide-covar", "mperm=66",
+            "firth_mperm": base + ["--glm", "firth", "hide-covar",
+                                   f"mperm={PERM_FIRTH_MPERM}",
                                    "--extract", firth_rows, "--seed", "1"]}
 
 
@@ -4318,10 +4362,11 @@ def check_perm_firth_pairs(prefix, stats, y, pairs, a1_alt):
 def run_perm_paths(torch, prefix, tmp, card):
     """Phase 4e: the permutation paths on the joint-model panel (500,000 x
     2,048: one block; SEX + 10 PCs): the linear `--glm hide-covar
-    mperm=1000 --seed 1` and the same with `aperm --aperm 6 268` (two
+    mperm=536 --seed 1` (PERM_MPERM) and the same with `aperm --aperm 6
+    268` (two
     batches: the planted variants run to the maximum) on QTP =
     QT1 + PERM_EFFECT x the ALT count of two common variants (the planted
-    ones), and `--glm firth hide-covar mperm=66 --seed 1` on PHENO1 (the
+    ones), and `--glm firth hide-covar mperm=33 --seed 1` on PHENO1 (the
     Firth IRLS at 500,000 samples on a path; on the PERM_N_FIRTH variants
     of `--extract`, see perm_argvs).  K19, K20, K2 and K4 (K3 for the Firth
     path) must have launched; every K19 / K20 launch of the
@@ -4382,7 +4427,7 @@ def run_perm_paths(torch, prefix, tmp, card):
         a1_alt = {int(r[col["ID"]][3:]): r[col["A1"]] == r[col["ALT"]] for r in rows}
         note = ""
         if label.startswith("linear"):
-            n_perm = 268 if "aperm" in label else 1000
+            n_perm = 268 if "aperm" in label else PERM_MPERM
             floor = g6(1.0 / (n_perm + 1))  # no permutation reached the original
             for v in planted:
                 r = rows[v]
@@ -4426,7 +4471,7 @@ def run_perm_paths(torch, prefix, tmp, card):
             pairs = [(v, (7 * i) % stats.shape[0]) for i, v in enumerate(firth_vars)]
             assert len(pairs) == PERM_N_FIRTH
             worst = check_perm_firth_pairs(prefix, stats, y, pairs, a1_alt)
-            per_perm = launches["glm_irls"] / 66.0
+            per_perm = launches["glm_irls"] / PERM_FIRTH_MPERM
             note = (f"; {PERM_N_FIRTH} (variant, permutation) |z| = numpy f64 Firth "
                     f"within {worst:.3f} of their tolerance; K3 {per_perm:.1f} "
                     f"launches a permutation (logistic + firth2 each iteration)")
@@ -5029,6 +5074,239 @@ def run_sample_parity(tmp, prefix, dprefix):
         os.environ.pop("PLINK_TORCH_DEVICE", None)
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the pair-count commands (--distance, --genome, --cluster and the
+# IBS permutation / jackknife tests; K23 and K7's counters)
+# ---------------------------------------------------------------------------
+
+# the --distance cell: plink 1.9's IBS distance matrix (its default weighted
+# missingness) on indep_10k at full width, in 2,048-sample tiles: 5 a side,
+# 15 lower tiles, each one K7 counters launch and one K23 launch
+DIST_ARGS = ["--distance", "triangle", "bin4"]
+DIST_TILES = 15
+N_DIST_PAIRS = 64  # .dist.bin entries held to numpy
+# the pair-report parity: plink_torch.testing.PD_RUNS on a panel of its own
+# (2% missing calls; seed 1, the parity panel's) and a dosage `--dummy`
+# panel of the same width, each cut by a --keep to PD_KEEP samples (the
+# compaction on the card), in tiles of PD_TILE samples (4 a side, the last
+# ragged): the --genome / --cluster / permutation hosts loop per pair, and
+# on the parity panel's 2,000 x 1,200 the CPU's plain versions of K7 and K8
+# take 6.7 s over its 10 lower tiles of 512 (the king_grm parity case)
+PD_PANEL = (300, 600, 1)  # samples, variants, seed
+PD_KEEP = 250
+PD_TILE = 64
+
+def distance_inputs(torch, dev, prefix):
+    """indep_10k as --distance lays it out (PackedDevice.for_pairs: 2,048-
+    sample tiles, npad 10,240) and the path's own weights
+    (distance_weights of the founders' ALT frequencies)."""
+    import numpy as np
+
+    from plink_torch.commands.basic_reports import alt_allele_freqs
+    from plink_torch.dataset import load_dataset
+    from plink_torch.ops.pairwise import PackedDevice, distance_weights
+
+    ds = load_dataset(prefix, dev)
+    vmask = ds.variant_mask & ds.vi.chr_info.is_autosomal(ds.vi.chrom)
+    pd = PackedDevice.for_pairs(ds, vmask)
+    wi, wsum = distance_weights(alt_allele_freqs(ds, dosage=True), vmask)
+    wt = torch.zeros(pd.nblocks * pd.vb, dtype=torch.int64)
+    wt[: wi.size] = torch.from_numpy(wi)
+    return pd, wt.to(dev), wsum
+
+
+def check_wmiss_kernel(torch, dev, prefix):
+    """K23 on the diagonal tile (0, 0) and the ragged last row tile (npad -
+    2,048, 0) of the --distance layout of indep_10k, with the path's own
+    weights: torch.equal to its plain version (f64 on the card, exact:
+    the weights sum below 2^32), two runs identical; timed beside its bound
+    and one f64 torch.matmul of the decoded weighted missing plane by the
+    missing plane."""
+    from plink_torch.ops import pairwise as P
+
+    pd, wt, wsum = distance_inputs(torch, dev, prefix)
+    s, npad, V = pd.tile, pd.npad, pd.variant_ct
+    assert (s, npad) == (2048, 10240), (s, npad)
+    joint = []
+    for r0, c0 in ((0, 0), (npad - s, 0)):
+        k = P.wmiss_gram(pd.packed, pd.vmask, wt, r0, c0, s, s)
+        assert torch.equal(k, P.wmiss_gram_plain(pd.packed, pd.vmask, wt, r0, c0, s, s)), \
+            ("K23 differs from its plain version", r0, c0)
+        assert torch.equal(k, P.wmiss_gram(pd.packed, pd.vmask, wt, r0, c0, s, s)), \
+            "K23 is not deterministic"
+        joint.append(int((k > 0).sum()))
+    ms = time_ms(torch, lambda: P.wmiss_gram(pd.packed, pd.vmask, wt, 0, 0, s, s), 5)
+    pms = time_ms(torch, lambda: P.wmiss_gram_plain(pd.packed, pd.vmask, wt, 0, 0, s, s), 1)
+    flat = pd.packed.reshape(-1, pd.packed.shape[2])[:, : s // 4]
+    miss = torch.empty((flat.shape[0], s), dtype=torch.float64, device=dev)
+    for v0 in range(0, flat.shape[0], 2048):
+        miss[v0 : v0 + 2048] = (unpack_codes(flat[v0 : v0 + 2048]) == 3).double()
+    miss *= (pd.vmask.reshape(-1, 1) != 0).double()
+    joint_bits = int((miss.sum(1) ** 2).sum())  # jointly missing (pair, variant)
+    wmiss = miss * wt.double()[:, None]
+    lib = time_ms(torch, lambda: torch.matmul(wmiss.t(), miss), 3)
+    del miss, wmiss
+    # the least work of a correct formulation, whichever is less: the
+    # products of four u8 limbs of the weights by the 0/1 missing plane on
+    # the int8 tensor cores (IMMA takes u8; exact in int32 below 2^23
+    # variants), or K23's own: one 32-bit AND a pair and 32-variant word,
+    # and one add a jointly missing (pair, variant)
+    nbytes = V * (2 * s // 4 + 1 + 8) + 8 * s * s
+    and_words = s * s * (-(-V // 32))
+    limbs = _bound(4 * 2 * s * s * V, nbytes, INT8_OPS_PER_S)
+    words = _bound(and_words + joint_bits, nbytes, INT32_OPS_PER_S)
+    bound = min(limbs, words, key=lambda b: b["bound_ms"])
+    log(f"K23 wmiss_gram [{s}x{s} tile, V={V}]: = plain on the diagonal and the "
+        f"last ragged row tile (pairs jointly missing: {joint}), two runs "
+        f"identical; {ms:.3f} ms, plain {pms:.1f} ms, f64 matmul {lib:.3f} ms, "
+        f"bound {bound['bound_ms']:.3f} ms: {and_words} AND words + "
+        f"{joint_bits} adds at the INT32 rate {words['bound_ms']:.3f} ms, four "
+        f"u8 limb products {limbs['bound_ms']:.3f} ms")
+    return [dict(name="wmiss_gram", source="plink_torch/csrc/wmiss_gram.cu",
+                 replaces="plink_tpu/ops/pairwise.py:89",
+                 also_replaces="plink_tpu/ops/pairwise.py:128",
+                 max_abs_err=0.0, tol=0.0, and_words=and_words,
+                 joint_bits=joint_bits, limb_bound_ms=limbs["bound_ms"], ms=ms,
+                 plain_ms=pms, **bound, library_ms=lib)]
+
+
+def dist_argv(prefix, out):
+    return ["--pfile", prefix, *DIST_ARGS, "--out", out, "--silent"]
+
+
+def check_dist_pairs(prefix, out):
+    """N_DIST_PAIRS seeded pairs of the triangle .dist.bin against numpy:
+    the allele differences over the jointly called variants, rescaled by
+    wsum / (wsum - wmiss_i - wmiss_j + wjoint_ij) with the reference's
+    order of f64 operations, rounded to f32; and the .dist.id.  The weights
+    are computed here from the codes, sharing no code with the path: w =
+    p(1 - p)(p^2 - p + 1) of the ALT frequency p (1 where p is 0 or 1),
+    scaled by (2^32 - V) / sum w and rounded half up."""
+    import numpy as np
+
+    n, V = IND_PANEL[:2]
+    codes = pgen_codes(prefix, np.arange(V))
+    miss = codes == 3
+    alt = np.where(miss, 0, codes).sum(1, dtype=np.int64)
+    p = alt / (2.0 * (~miss).sum(1))  # every sample a founder
+    w = np.where((p <= 0.0) | (p >= 1.0), 1.0, p * (1.0 - p) * (p * p - p + 1.0))
+    wi = np.floor(w * ((4294967296.0 - V) / w.sum()) + 0.5).astype(np.int64)
+    wsum = int(wi.sum())
+    got = np.fromfile(out + ".dist.bin", np.float32)
+    assert got.size == n * (n - 1) // 2, got.size
+    rng = np.random.default_rng(11)
+    worst = 0.0
+    for _ in range(N_DIST_PAIRS):
+        i, j = sorted(rng.choice(n, 2, replace=False))[::-1]
+        both = ~miss[:, i] & ~miss[:, j]
+        idist = int(np.abs(codes[both, i].astype(np.int64) - codes[both, j]).sum())
+        denom = (wsum - int(wi[miss[:, i]].sum()) - int(wi[miss[:, j]].sum())
+                 + int(wi[miss[:, i] & miss[:, j]].sum()))
+        want = np.float32(idist * (wsum / float(denom)))
+        have = got[i * (i - 1) // 2 + j]
+        assert have == want, (i, j, have, want)
+        worst = max(worst, abs(float(have) - float(want)))
+    with open(out + ".dist.id") as f:
+        assert f.read() == "".join(f"0\tper{i}\n" for i in range(n)), ".dist.id"
+    return worst
+
+
+def run_distance_path(torch, prefix, out, card):
+    """The --distance path on indep_10k: K7 (counters) and K23 launched
+    DIST_TILES times each; every K23 launch of the path kept and held to
+    its plain version; N_DIST_PAIRS entries of the .dist.bin against
+    numpy."""
+    from plink_torch.commands import distance as D
+    from plink_torch.ops import pairwise as P
+
+    with spying("wmiss_gram", D) as (calls, real):
+        wall, launches = drive(torch, dist_argv(prefix, out), out)
+    assert launches["wmiss_gram"] == launches["king_gram"] == DIST_TILES, launches
+    note = check_calls(torch, calls, real, P.wmiss_gram_plain, "K23")
+    del calls
+    check_dist_pairs(prefix, out)
+    log(f"--distance path {IND_PANEL[0]}x{IND_PANEL[1]} ({' '.join(DIST_ARGS)}): "
+        f"{wall:.2f}s wall on {card}; {note}; {N_DIST_PAIRS} .dist.bin entries "
+        f"= numpy (f64 from the codes and weights, rounded to f32), .dist.id "
+        f"exact; launches {dict((k, v) for k, v in launches.items() if v)}")
+    os.remove(out + ".dist.bin")
+    return launches
+
+
+def run_pair_parity(tmp):
+    """plink_torch.testing.PD_RUNS, the cases of
+    tests/test_torch_pair_reports.py, on the PD_PANEL panel, its
+    chr1/X/Y/MT copy, a .bed copy with the test's pedigree and a dosage
+    panel (the port's --dummy), each run with a --keep of the first
+    PD_KEEP samples, in tiles of PD_TILE samples, CUDA against CPU: every
+    output byte for byte (a .gz by its text), the .log's result lines
+    equal, the refusals' messages equal; a second card run the same."""
+    from plink_torch import cli
+    from plink_torch.bench_gen import gen_panel
+    from plink_torch.testing import (PD_ERRORS, PD_RUNS, pair_log_lines,
+                                     pair_output_same, write_bed_copy,
+                                     write_pair_report_inputs, write_pedigree_fam)
+
+    d = os.path.join(tmp, "pd")
+    os.makedirs(d)
+    n, m, seed = PD_PANEL
+    prefix, dprefix = os.path.join(d, "p"), os.path.join(d, "dp")
+    gen_panel(prefix, n, m, miss_rate=0.02, seed=seed)
+    os.environ["PLINK_TORCH_DEVICE"] = "cpu"
+    try:
+        assert cli.main(["--pfile", prefix, "--freq", "--out", os.path.join(d, "f"),
+                         "--silent"]) == 0
+        assert cli.main(["--dummy", str(n), str(m), "0.02", "dosage-freq=0.7",
+                         "--seed", str(seed), "--out", dprefix, "--silent"]) == 0
+    finally:
+        os.environ.pop("PLINK_TORCH_DEVICE")
+    write_pair_report_inputs(d, prefix, os.path.join(d, "f.afreq"))
+    write_bed_copy(prefix, os.path.join(d, "pedb"))
+    write_pedigree_fam(os.path.join(d, "pedb.fam"))
+    keep = os.path.join(d, "keep.txt")
+    with open(keep, "w") as f:
+        f.writelines(f"per{i}\n" for i in range(PD_KEEP))
+    filesets = {"p": prefix, "sx": os.path.join(d, "sx"), "dp": dprefix,
+                "pedb": os.path.join(d, "pedb")}
+    os.environ["PLINK_TORCH_VB"] = "256"
+    os.environ["PLINK_TORCH_TILE"] = str(PD_TILE)
+    secs = {"cuda": 0.0, "cpu": 0.0, "cuda2": 0.0}
+    try:
+        for label, fs, flags, exts in PD_RUNS:
+            inp = "--bfile" if fs == "pedb" else "--pfile"
+            argv = [inp, filesets[fs], *(a.format(d=d) for a in flags), "--keep", keep]
+            outs, errs = {}, {}
+            for tag in ("cuda", "cpu", "cuda2"):
+                os.environ["PLINK_TORCH_DEVICE"] = tag.rstrip("2")
+                outs[tag] = os.path.join(d, f"{tag}_{label}")
+                t0 = time.perf_counter()
+                try:
+                    rc = cli.main(argv + ["--out", outs[tag], "--silent"])
+                    assert rc == 0, (label, tag, rc)
+                except ValueError as e:  # FlagError is one
+                    errs[tag] = str(e)
+                secs[tag] += time.perf_counter() - t0
+            if label in PD_ERRORS:
+                assert (errs.get("cuda") == errs.get("cpu") == errs.get("cuda2")
+                        == PD_ERRORS[label]), (label, errs)
+            else:
+                assert not errs, (label, errs)
+            for ext in exts:
+                assert pair_output_same(outs["cpu"] + ext, outs["cuda"] + ext), (label, ext)
+                assert pair_output_same(outs["cuda2"] + ext, outs["cuda"] + ext), \
+                    ("two CUDA runs differ", label, ext)
+            lines = pair_log_lines(outs["cuda"])
+            assert lines and lines == pair_log_lines(outs["cpu"]), label
+            assert lines == pair_log_lines(outs["cuda2"]), ("two CUDA runs differ", label)
+        log(f"pair-report parity [{PD_KEEP} of {n}x{m}, tile {PD_TILE}]: "
+            f"{len(PD_RUNS)} runs of testing.PD_RUNS CUDA = CPU (outputs byte for "
+            f"byte, .log result lines, {len(PD_ERRORS)} refusals alike), two CUDA "
+            f"runs byte-identical; CUDA {secs['cuda']:.1f}s, CPU {secs['cpu']:.1f}s")
+    finally:
+        for k in ("PLINK_TORCH_VB", "PLINK_TORCH_TILE", "PLINK_TORCH_DEVICE"):
+            os.environ.pop(k, None)
+
+
 def joint_panel(tmp):
     """The joint-model paths' panel: 500,000 x JOINT_VARIANTS, made as the
     main panel (seed 42, its covariates and QT1)."""
@@ -5178,6 +5456,17 @@ def main(argv=None):
         stamp("LD report kernels")
         rows += check_ld_report_kernels(torch, dev, p2)
         torch.cuda.empty_cache()
+        t0 = stamp("K23 wmiss_gram")
+        rows += check_wmiss_kernel(torch, dev, p2)
+        torch.cuda.empty_cache()
+        phase_secs["K23 check"] = time.perf_counter() - t0
+        t0 = stamp("--distance path")
+        paths["distance"] = run_distance_path(torch, p2, os.path.join(tmp, "dist"),
+                                              card)
+        trace_path(torch, dist_argv(p2, os.path.join(tmp, "dist_traced")), "--distance")
+        os.remove(os.path.join(tmp, "dist_traced.dist.bin"))
+        torch.cuda.empty_cache()
+        phase_secs["--distance path"] = time.perf_counter() - t0
         stamp("LD table, unphased")
         paths["r2_unphased"] = run_vcor_table(torch, p2, os.path.join(tmp, "r2u"),
                                               card, phased=False)
@@ -5212,9 +5501,12 @@ def main(argv=None):
         t0 = stamp("sample-report parity")
         run_sample_parity(tmp, os.path.join(tmp, "small"), os.path.join(tmp, "dsmall"))
         phase_secs["sample-report parity"] = time.perf_counter() - t0
+        t0 = stamp("pair-report parity")
+        run_pair_parity(tmp)
+        phase_secs["pair-report parity"] = time.perf_counter() - t0
         stamp("done")
-        log("slice-6/7/8/9/10 phases: " + ", ".join(f"{k} {v:.1f}s"
-                                                 for k, v in phase_secs.items()))
+        log("slice-6/7/8/9/10/11 phases: " + ", ".join(f"{k} {v:.1f}s"
+                                                    for k, v in phase_secs.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lib_names = {"glm_irls_pass": "glm_irls"}

@@ -82,6 +82,8 @@ _ENTRY = {
                               [_P, _L, _I, _P, _I, _I, _I, _P, _P, _P]),
     "variant_plane_weighted": ("pt_variant_plane_weighted",
                                [_P, _L, _I, _P, _I, _I, _I, _P, _P, _P]),
+    "wmiss_gram": ("pt_wmiss_gram", [_P, _L, _L, _P, _P, _L, _I, _L, _I, _P,
+                                     _P, _P]),
 }
 # kernel modes counted apart from their entry point's default mode: name ->
 # entry point (K2 scaled; K3 scaled and residualized share glm_irls_x; K3

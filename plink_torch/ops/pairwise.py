@@ -1,9 +1,11 @@
 """Pairwise sample x sample work: KING-robust kinship (kernel K7,
-`csrc/king_gram.cu`) and the GRM (kernel K8, `csrc/grm_gram.cu`), with
-their plain PyTorch versions, the host helpers of plink_tpu/ops/pairwise.py
-and the device-resident packed genotype blocks (`PackedDevice`).
+`csrc/king_gram.cu`), the GRM (kernel K8, `csrc/grm_gram.cu`) and the
+weighted joint-missing Gram of `--distance` (kernel K23,
+`csrc/wmiss_gram.cu`), with their plain PyTorch versions, the host helpers
+of plink_tpu/ops/pairwise.py and the device-resident packed genotype blocks
+(`PackedDevice`).
 
-Both kernels take a [nb, vb, NB] uint8 packed tensor, an int8 [nb, vb]
+The kernels take a [nb, vb, NB] uint8 packed tensor, an int8 [nb, vb]
 variant mask, and one sample tile [row0, row0 + s) x [col0, col0 + t)
 inside the packed rows, and sum over every variant in one launch.  The
 wrappers run the plain version for CPU tensors and launch the kernel for
@@ -397,3 +399,70 @@ def grm_gram(packed, coef, vmask, miss, mv: int, row0: int, col0: int, s: int,
                  coef.data_ptr(), miss.data_ptr(), int(mv), row0, s, col0, c,
                  mode, val.data_ptr(), cnt.data_ptr())
     return val, cnt
+
+
+# ---------------------------------------------------------------------------
+# K23: the weighted joint-missing Gram of one tile (--distance)
+# ---------------------------------------------------------------------------
+
+
+def distance_weights(freqs: np.ndarray, vmask: np.ndarray) -> tuple[np.ndarray, int]:
+    """--distance's per-variant missingness weights (plink_tpu
+    commands/distance.py:66-79; 1.9/plink_calc.c:7718-7768): w = p(1 - p)
+    (p^2 - p + 1) of the ALT frequency p (NaN read as 0.5), 1.0 at a
+    monomorphic variant, 0 outside vmask, scaled to sum to just under 2^32
+    (by (2^32 - M) / sum w over the M variants of vmask) and rounded.
+    Returns (int64 [len(freqs)] uint32 values, their sum)."""
+    vmask = np.asarray(vmask, bool)
+    p = np.asarray(freqs, np.float64).copy()
+    p[~np.isfinite(p)] = 0.5  # no-observation markers (ref default)
+    w = np.where((p <= 0.0) | (p >= 1.0), 1.0, p * (1.0 - p) * (p * p - p + 1.0))
+    w = np.where(vmask, w, 0.0)
+    dyy = (4294967296.0 - int(vmask.sum())) / w.sum()
+    wi = np.floor(w * dyy + 0.5).astype(np.int64)
+    return wi, int(wi.sum())
+
+
+def wmiss_gram_plain(packed, vmask, weights, row0: int, col0: int, s: int,
+                     t: int):
+    """Plain version of K23: per variant block, the masked missing planes of
+    the tile's rows and columns, (miss_r * w)^T miss_c summed over the
+    blocks: in int64 on the CPU; in f64 on the card (exact while the sum of
+    the weights stays below 2^53)."""
+    dt = torch.int64 if packed.device.type == "cpu" else torch.float64
+    acc = torch.zeros((s, t), dtype=dt, device=packed.device)
+    w = weights.reshape(packed.shape[:2])
+
+    def miss(pk, vm, a0, width):
+        codes = unpack_codes(pk[:, a0 // 4 : (a0 + width) // 4])
+        return ((codes == 3) & (vm != 0)[:, None]).to(dt)
+
+    for b in range(packed.shape[0]):
+        mr = miss(packed[b], vmask[b], row0, s) * w[b].to(dt)[:, None]
+        acc += mr.t() @ miss(packed[b], vmask[b], col0, t)
+    return acc.to(torch.int64)
+
+
+def wmiss_gram(packed, vmask, weights, row0: int, col0: int, s: int, t: int):
+    """K23: int64 [s, t], sum over the variants of packed [nb, vb, NB] under
+    vmask int8 [nb, vb] of w_m miss_{m,i} miss_{m,j} for the sample tile
+    [row0, row0 + s) x [col0, col0 + t) (miss = code 3; weights int64
+    [nb * vb] holding uint32 values; plink_tpu's `wmiss_gram_tile` with its
+    five limb blocks recombined).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    _check_pairs("wmiss_gram", packed, vmask, row0, col0, s, t)
+    nvar = packed.shape[0] * packed.shape[1]
+    if weights.dtype != torch.int64 or tuple(weights.shape) != (nvar,) \
+            or not weights.is_contiguous() or weights.device != packed.device:
+        raise ValueError("wmiss_gram: weights must be contiguous int64 "
+                         "[nb * vb] on packed's device")
+    if packed.device.type == "cpu":
+        return wmiss_gram_plain(packed, vmask, weights, row0, col0, s, t)
+    s64, t64 = -(-s // 64) * 64, -(-t // 64) * 64
+    planes = torch.empty((-(-nvar // 32)) * (s64 + t64), dtype=torch.int32,
+                         device=packed.device)
+    out = torch.empty((s, t), dtype=torch.int64, device=packed.device)
+    _cuda.launch("wmiss_gram", packed.data_ptr(), packed.shape[2], nvar,
+                 vmask.data_ptr(), weights.data_ptr(), row0, s, col0, t,
+                 planes.data_ptr(), out.data_ptr())
+    return out

@@ -7,7 +7,9 @@ their filters (freq, geno-counts, missing, --geno, hardy, --hwe,
 --maf/--mac), the relationship commands (KING, then GRM / PCA), the sample
 reports (--het, --sample-counts, then --check-sex / --impute-sex),
 --indep-pairwise, --indep-pairphase, the --r2/--r tables and matrices,
---ld, --variant-score, --score, then --glm, and --clump last.
+--ld, --variant-score, --score, then --glm, the pair-count commands
+(--genome, --distance, --cluster / --neighbour / --mds-plot, --ibs-test,
+--groupdist, --regress-distance), and --clump last.
 
 Every other flag raises NotPortedError before anything runs; the run never
 falls back to plink_tpu.
@@ -20,7 +22,7 @@ import dataclasses
 import numpy as np
 
 from . import NotPortedError
-from .cli import Config
+from .cli import Config, FlagError
 from .dataset import load_dataset
 from .utils.logging import RunLogger, set_logger
 
@@ -59,6 +61,12 @@ _PORTED_FIELDS = {
     "het", "het_small_sample", "sample_counts", "check_sex", "impute_sex",
     "score", "score_list", "score_col_nums", "q_score_range", "variant_score",
     "vscore_col_nums", "read_freq", "bad_freqs",
+    # the pair-count commands: IBS distance, IBD, clustering / MDS and the
+    # IBS permutation / jackknife tests
+    "genome", "genome_mods", "distance", "distance_matrix", "ibs_matrix",
+    "cluster", "cluster_k", "cluster_mc", "cluster_mcc", "cluster_ppc",
+    "cluster_ibm", "ppc_gap", "neighbour", "mds_plot", "ibs_test",
+    "groupdist", "regress_distance",
 }
 
 
@@ -325,6 +333,38 @@ def run_pipeline(cfg: Config, device) -> int:
 
             with log.phase("--glm"):
                 run_glm(ds, cfg, log)
+        if cfg.genome:
+            from .commands.genome import run_genome
+
+            with log.phase("--genome"):
+                run_genome(ds, cfg, log)
+        if cfg.distance is not None or cfg.distance_matrix or cfg.ibs_matrix:
+            from .commands.distance import run_distance
+
+            with log.phase("--distance"):
+                run_distance(ds, cfg, log)
+        if cfg.cluster is not None or cfg.neighbour is not None:
+            from .commands.cluster import run_cluster
+
+            with log.phase("--cluster"):
+                run_cluster(ds, cfg, log)
+        elif cfg.mds_plot is not None:
+            raise FlagError("--mds-plot must be used with --cluster.")
+        if cfg.ibs_test is not None:
+            from .commands.ibs_test import run_ibs_test
+
+            with log.phase("--ibs-test"):
+                run_ibs_test(ds, cfg, log)
+        if cfg.groupdist is not None:
+            from .commands.groupdist import run_groupdist
+
+            with log.phase("--groupdist"):
+                run_groupdist(ds, cfg, log)
+        if cfg.regress_distance is not None:
+            from .commands.groupdist import run_regress_distance
+
+            with log.phase("--regress-distance"):
+                run_regress_distance(ds, cfg, log)
         if cfg.clump:
             from .commands.clump import run_clump
 

@@ -1,7 +1,9 @@
 """Comparison rules for the relationship outputs (KING, GRM, .rel, PCA), the
 --glm permutation reports and the --adjust report, the f64 logistic /
-Firth reference fit of the GLM checks, and the sample reports' cases and
-their inputs (SR_RUNS, write_sample_report_inputs).
+Firth reference fit of the GLM checks, the sample reports' cases and
+their inputs (SR_RUNS, write_sample_report_inputs), and the pair-count
+commands' cases, inputs and rules (PD_RUNS, write_pair_report_inputs,
+pair_output_same, pair_log_lines).
 
 One place for the rules that the CPU tests (plink_torch against plink_tpu)
 and chip_smoke.py (the card against the CPU) hold two runs' files to:
@@ -321,19 +323,25 @@ def _samples(prefix: str) -> tuple[list[str], list[list[str]]]:
         return hdr, [ln.rstrip("\n").split("\t") for ln in f]
 
 
-def write_sample_report_inputs(d: str, p: str, dp: str, afreq: str) -> None:
-    """The inputs of SR_RUNS in directory d, from the hard-call fileset p,
-    the dosage fileset dp and an .afreq of p: the sx and fam filesets;
-    score files (every third variant of p, A1 alternately REF and ALT, every
-    41st neither, one ID not in p; every fifth; every second of dp), a
-    --score-list, --q-score-range ranges (one not numeric) and p-values,
-    3-column sample weights for p (vs.txt) and dp (vsd.txt), each without
-    the last sample, and moved.afreq (every ALT frequency moved)."""
-    import os
+def _write_moved_afreq(afreq: str, dst: str) -> None:
+    """A copy of .afreq file `afreq` with every ALT frequency moved (x 0.8 +
+    0.05, at most 1)."""
+    with open(afreq) as f, open(dst, "w") as g:
+        head = f.readline()
+        g.write(head)
+        fc = head.lstrip("#").split().index("ALT_FREQS")
+        for ln in f:
+            t = ln.rstrip("\n").split("\t")
+            t[fc] = f"{min(1.0, float(t[fc]) * 0.8 + 0.05):.6g}"
+            g.write("\t".join(t) + "\n")
+
+
+def write_sx_copy(p: str, sx: str) -> None:
+    """The chr1/X/Y/MT copy sx of fileset p: the same genotypes and samples,
+    its first 2/3 of the variants on chr1, then chrX, chrY and MT, with
+    SR_ALLELES's alleles in turn."""
     import shutil
 
-    rng = np.random.default_rng(17)
-    sx, fam = os.path.join(d, "sx"), os.path.join(d, "fam")
     for ext in (".pgen", ".psam"):
         shutil.copy(p + ext, sx + ext)
     with open(p + ".pvar") as f, open(sx + ".pvar", "w") as g:
@@ -346,6 +354,22 @@ def write_sample_report_inputs(d: str, p: str, dp: str, afreq: str) -> None:
                 else "Y" if i < m * 11 // 12 else "MT"
             ref, alt = SR_ALLELES[i % len(SR_ALLELES)]
             g.write("\t".join([chrom, t[1], t[2], ref, alt]) + "\n")
+
+
+def write_sample_report_inputs(d: str, p: str, dp: str, afreq: str) -> None:
+    """The inputs of SR_RUNS in directory d, from the hard-call fileset p,
+    the dosage fileset dp and an .afreq of p: the sx and fam filesets;
+    score files (every third variant of p, A1 alternately REF and ALT, every
+    41st neither, one ID not in p; every fifth; every second of dp), a
+    --score-list, --q-score-range ranges (one not numeric) and p-values,
+    3-column sample weights for p (vs.txt) and dp (vsd.txt), each without
+    the last sample, and moved.afreq (every ALT frequency moved)."""
+    import os
+    import shutil
+
+    rng = np.random.default_rng(17)
+    fam = os.path.join(d, "fam")
+    write_sx_copy(p, os.path.join(d, "sx"))
     hdr, rows = _samples(p)
     iid, sex = hdr.index("IID"), hdr.index("SEX")
     pheno = hdr.index("PHENO1") if "PHENO1" in hdr else None
@@ -387,11 +411,178 @@ def write_sample_report_inputs(d: str, p: str, dp: str, afreq: str) -> None:
             for r in rs[:-1]:
                 w = rng.normal(size=3)
                 f.write(f"{r[h.index('IID')]}\t{w[0]:.5f}\t{w[1]:.5f}\t{w[2]:.5f}\n")
-    with open(afreq) as f, open(os.path.join(d, "moved.afreq"), "w") as g:
-        head = f.readline()
-        g.write(head)
-        fc = head.lstrip("#").split().index("ALT_FREQS")
-        for ln in f:
-            t = ln.rstrip("\n").split("\t")
-            t[fc] = f"{min(1.0, float(t[fc]) * 0.8 + 0.05):.6g}"
-            g.write("\t".join(t) + "\n")
+    _write_moved_afreq(afreq, os.path.join(d, "moved.afreq"))
+
+
+# ---------------------------------------------------------------------------
+# The pair-count commands' cases (--distance, --genome, --cluster /
+# --neighbour / --mds-plot, --ibs-test, --groupdist, --regress-distance):
+# tests/test_torch_pair_reports.py runs them on the CPU against plink_tpu,
+# chip_smoke.py's pair-report parity on the card against the CPU.
+# Filesets: p (a hard-call panel with a case/control PHENO1), sx (its
+# chr1/X/Y/MT copy), dp (a dosage panel), pedb (a .bed copy of p whose .fam
+# holds PD_PEDIGREE: two trios, a sib pair, a half-sib pair, unrelated
+# samples).  `{d}` stands for the directory of write_pair_report_inputs's
+# files.  Every output is byte-identical but a .gz (its header names the
+# file: the text inside) and the .log (`pair_log_lines`); the permutation
+# and jackknife tests write their results to the .log only.
+# ---------------------------------------------------------------------------
+
+PD_CLUSTER = (".cluster1", ".cluster2", ".cluster3")
+# (label, fileset, flags, outputs)
+PD_RUNS = (
+    ("dist", "p", ["--distance"], (".dist", ".dist.id")),
+    ("dist_square_gz", "p", ["--distance", "square", "gz"], (".dist.gz",)),
+    ("dist_square0_ibs", "p", ["--distance", "square0", "ibs", "1-ibs"],
+     (".mibs", ".mibs.id", ".mdist", ".mdist.id")),
+    ("dist_flat", "p", ["--distance", "flat-missing"], (".dist",)),
+    ("dist_bin", "p", ["--distance", "bin"], (".dist.bin", ".dist.id")),
+    ("dist_bin4_ibs", "p", ["--distance", "triangle", "bin4", "ibs", "1-ibs"],
+     (".mibs.bin", ".mdist.bin")),
+    ("dist_bin4_alct", "p", ["--distance", "square", "bin4", "allele-ct"],
+     (".dist.bin",)),
+    ("dist_plink1", "p", ["--distance-matrix", "--ibs-matrix"],
+     (".mdist", ".mdist.id", ".mibs", ".mibs.id")),
+    ("dist_remove", "p", ["--remove", "{d}/remove.txt", "--distance"],
+     (".dist", ".dist.id")),
+    ("dist_read_freq", "p", ["--read-freq", "{d}/moved.afreq", "--distance"],
+     (".dist",)),
+    ("dist_nonfounders", "pedb", ["--distance", "--nonfounders"], (".dist",)),
+    ("dist_sx", "sx", ["--distance", "square"], (".dist",)),
+    ("dist_dosage", "dp", ["--distance"], (".dist",)),
+    ("err_modifier", "p", ["--distance", "squared"], ()),
+    ("err_shapes", "p", ["--distance", "square", "triangle"], ()),
+    ("err_ibs_matrix", "p", ["--distance", "ibs", "--ibs-matrix"], ()),
+    ("err_parallel", "p", ["--distance", "--parallel", "1", "2"], ()),
+    ("genome", "pedb", ["--genome"], (".genome",)),
+    ("genome_gap", "pedb", ["--genome", "--ppc-gap", "0.05"], (".genome",)),
+    ("cluster", "p", ["--cluster", "--neighbour", "1", "5", "--mds-plot", "4"],
+     PD_CLUSTER + (".nearest", ".mds")),
+    ("cluster_cc_avg", "p", ["--cluster", "cc", "group-avg"], PD_CLUSTER),
+    ("cluster_missing", "p", ["--cluster", "missing"],
+     (".cluster1", ".cluster2", ".cluster3.missing", ".mdist.missing")),
+    ("cluster_only2", "p", ["--cluster", "only2", "old-tiebreaks"], (".cluster2",)),
+    ("cluster_k_mc", "p", ["--cluster", "--K", "3", "--mc", "5"], PD_CLUSTER),
+    ("cluster_mcc", "p", ["--cluster", "--mcc", "2", "3"], PD_CLUSTER),
+    ("cluster_ppc_ibm", "p", ["--cluster", "--ppc", "0.05", "--ppc-gap", "0.05",
+                              "--ibm", "0.9", "--neighbour", "1", "3"],
+     PD_CLUSTER + (".nearest",)),
+    ("cluster_mds_eig", "p", ["--cluster", "--K", "20", "--mds-plot", "3",
+                              "eigendecomp", "eigvals", "by-cluster"],
+     PD_CLUSTER + (".mds", ".mds.eigvals")),
+    ("err_mds", "p", ["--mds-plot", "4"], ()),
+    ("ibs_test", "p", ["--ibs-test", "1024", "--seed", "11", "--threads", "1"], ()),
+    ("groupdist", "p", ["--groupdist", "1200", "--seed", "21", "--threads", "2"], ()),
+    ("regress", "p", ["--regress-distance", "1000", "--seed", "7", "--threads", "1",
+                      "--pheno", "{d}/qt.txt", "--pheno-name", "QT"], ()),
+    ("ibs_groupdist", "p", ["--ibs-test", "1024", "--groupdist", "1200", "--seed",
+                            "5"], ()),
+    ("few_cases", "p", ["--ibs-test", "1024", "--groupdist", "1200", "--pheno",
+                        "{d}/cc1.txt", "--pheno-name", "CC1"], ()),
+    ("few_controls", "p", ["--ibs-test", "1024", "--groupdist", "1200", "--pheno",
+                           "{d}/cc2.txt", "--pheno-name", "CC2"], ()),
+)
+# runs that are refused: label -> the message (ValueError, or FlagError for
+# --mds-plot without --cluster)
+PD_ERRORS = {
+    "err_modifier": "Invalid --distance parameter 'squared'.",
+    "err_shapes": "--distance 'square' and 'triangle' modifiers cannot coexist.",
+    "err_ibs_matrix": '--ibs-matrix cannot be used with "--distance ibs".',
+    "err_parallel": "--parallel is not yet supported with --distance.",
+    "err_mds": "--mds-plot must be used with --cluster.",
+}
+# the pedigree of pedb: sample index -> (FID, PAT, MAT) by sample index
+# (None = "0"); the other samples are founders of families of their own
+PD_PEDIGREE = {0: ("fa", None, None), 1: ("fa", None, None), 2: ("fa", 0, 1),
+               3: ("fa", 0, 1), 4: ("fb", None, None), 5: ("fb", None, None),
+               6: ("fb", 4, 5), 7: ("fc", None, None), 8: ("fc", None, None),
+               9: ("fc", None, None), 10: ("fc", 7, 8), 11: ("fc", 7, 9)}
+# .log lines that are the run's own (banner, command line, timings)
+_LOG_SKIP = ("PLINK-", "Options in effect", "  plink2t ", "[phase]", "[timing]",
+             "End of run", "End time")
+
+
+def pair_log_lines(prefix: str) -> list[str]:
+    """The lines of <prefix>.log that report exclusions, settings, results,
+    warnings and errors (every line but the banner, the command line and
+    the timings), with the output prefix replaced by <out>."""
+    with open(prefix + ".log") as f:
+        return [ln.replace(prefix, "<out>") for ln in f
+                if not ln.startswith(_LOG_SKIP)]
+
+
+def pair_output_same(ref: str, got: str) -> bool:
+    """Whether pair-report output file `got` equals `ref`: a .gz by its
+    decompressed text, every other file byte for byte."""
+    import gzip
+
+    if ref.endswith(".gz"):
+        with gzip.open(ref, "rb") as a, gzip.open(got, "rb") as b:
+            return a.read() == b.read()
+    return filecmp.cmp(ref, got, shallow=False)
+
+
+def write_pedigree_fam(path: str) -> None:
+    """Give the .fam at `path` PD_PEDIGREE's families (IID, SEX and the
+    phenotype kept; the other samples founders of families of their own)."""
+    with open(path) as f:
+        rows = [ln.split() for ln in f]
+    iids = [r[1] for r in rows]
+    with open(path, "w") as f:
+        for i, r in enumerate(rows):
+            fid, pat, mat = PD_PEDIGREE.get(i, (f"u{i}", None, None))
+            par = [iids[x] if x is not None else "0" for x in (pat, mat)]
+            f.write("\t".join([fid, r[1], *par, r[4], r[5]]) + "\n")
+
+
+def write_bed_copy(p: str, dst: str) -> None:
+    """A .bed / .bim / .fam copy of the .pgen fileset p, as plink_tpu's
+    `--make-bed` writes it (the port has no --make-bed yet)."""
+    import torch
+
+    from .dataset import load_dataset
+    from .io.pgen_write import write_bed
+    from .io.pvar import write_bim
+
+    ds = load_dataset(p, torch.device("cpu"))
+    write_bed(dst + ".bed", ds.all_packed(), sample_ct=ds.raw_sample_ct)
+    write_bim(dst + ".bim", ds.vi)
+    si = ds.si
+    pheno = next(iter(si.phenos.values())) if si.phenos else None
+    with open(dst + ".fam", "w") as f:
+        for i in range(ds.raw_sample_ct):
+            pat = si.pat[i] if si.pat is not None else "0"
+            mat = si.mat[i] if si.mat is not None else "0"
+            if pheno is None or not pheno.nonmiss[i]:
+                ph = "-9"
+            elif pheno.kind == "cc":
+                ph = str(int(pheno.data[i]) + 1)
+            else:
+                ph = f"{pheno.data[i]:g}"
+            f.write(f"{si.fid[i]}\t{si.iid[i]}\t{pat}\t{mat}\t{int(si.sex[i])}\t{ph}\n")
+
+
+def write_pair_report_inputs(d: str, p: str, afreq: str) -> None:
+    """PD_RUNS's files in directory d, from the hard-call fileset p and an
+    .afreq of p: the sx copy, remove.txt (every 7th sample), moved.afreq
+    (every ALT frequency moved), qt.txt (a Gaussian QT, numpy seed 19) and
+    cc1.txt / cc2.txt (a case/control phenotype with one case / one
+    control).  The pedb fileset is a .bed copy of p: `write_bed_copy` (or
+    plink_tpu's --make-bed) and then `write_pedigree_fam`."""
+    import os
+
+    write_sx_copy(p, os.path.join(d, "sx"))
+    hdr, rows = _samples(p)
+    iids = [r[hdr.index("IID")] for r in rows]
+    rng = np.random.default_rng(19)
+    with open(os.path.join(d, "remove.txt"), "w") as f:
+        f.writelines(f"{x}\n" for x in iids[::7])
+    with open(os.path.join(d, "qt.txt"), "w") as f:
+        f.write("#IID\tQT\n")
+        f.writelines(f"{x}\t{v:.5f}\n" for x, v in zip(iids, rng.normal(size=len(iids))))
+    for name, one in (("CC1", "2"), ("CC2", "1")):
+        other = "1" if one == "2" else "2"
+        with open(os.path.join(d, name.lower() + ".txt"), "w") as f:
+            f.write(f"#IID\t{name}\n")
+            f.writelines(f"{x}\t{one if i == 3 else other}\n" for i, x in enumerate(iids))
+    _write_moved_afreq(afreq, os.path.join(d, "moved.afreq"))

@@ -595,8 +595,83 @@ def dtoa_g_wxp2(x: float, width: int) -> str:
                           (0.4999999999995, 0.5000000000005), 2)
 
 
+_BR10 = (0.49999999995, 0.50000000005)
+
+
+def _bround10(v: float) -> int:
+    """1.9's double_bround with banker_round10 (plink_common.c:1540):
+    half-to-even with a 5e-11 epsilon absorbing binary representation
+    error, so e.g. 0.24375 (stored as ...749999) prints 0.2438."""
+    i = int(v)
+    return i + int((v - i) + _BR10[i & 1])
+
+
 def dtoa_g_wxp4(x: float, width: int) -> str:
     """1.9 dtoa_g_wxp4 (plink_common.c:2992): 4-sig-fig shortest form
-    with banker_round10, right-aligned to `width`."""
-    return _g_wxp_generic(x, width, "9.9994999999999",
-                          (0.49999999995, 0.50000000005), 4)
+    with banker_round10, right-aligned to `width`.  A digit carried by the
+    rounding starts the next decade (1.9995 -> "2"), as in plink_tpu's
+    commands/assoc19.py `_g4`, the version plink_tpu's callers use."""
+    if not np.isfinite(x):
+        if x != x:
+            return "nan".rjust(width)
+        return ("inf" if x > 0 else "-inf").rjust(width)
+    neg = x < 0
+    x = abs(x)
+    if x < 9.9994999999999e-5:
+        if x == 0.0:
+            s = "0"
+        else:
+            xp10 = 0
+            while x < 9.9994999999999e-1:
+                x *= 10
+                xp10 += 1
+            q = _bround10(x * 1000)
+            whole, frac = divmod(q, 1000)
+            s = str(whole)
+            fs = f"{frac:03d}".rstrip("0")
+            if fs:
+                s += "." + fs
+            s += f"e-{xp10:02d}"
+    elif x >= 9999.4999999999:
+        xp10 = 0
+        while x >= 9.9994999999999:
+            x /= 10
+            xp10 += 1
+        q = _bround10(x * 1000)
+        whole, frac = divmod(q, 1000)
+        s = str(whole)
+        fs = f"{frac:03d}".rstrip("0")
+        if fs:
+            s += "." + fs
+        s += f"e+{xp10:02d}"
+    elif x >= 0.99994999999999:
+        # dtoa_so4: 4 sig figs in fixed notation
+        if x >= 999.94999999999:
+            s = str(_bround10(x))
+        elif x >= 99.994999999999:
+            q = _bround10(x * 10)
+            whole, frac = divmod(q, 10)
+            s = str(whole) + (f".{frac}" if frac else "")
+        elif x >= 9.9994999999999:
+            q = _bround10(x * 100)
+            whole, frac = divmod(q, 100)
+            fs = f"{frac:02d}".rstrip("0")
+            s = str(whole) + (f".{fs}" if fs else "")
+        else:
+            q = _bround10(x * 1000)
+            whole, frac = divmod(q, 1000)
+            fs = f"{frac:03d}".rstrip("0")
+            s = str(whole) + (f".{fs}" if fs else "")
+    else:
+        prefix = "0."
+        if x < 9.9994999999999e-3:
+            x *= 100
+            prefix += "00"
+        if x < 9.9994999999999e-2:
+            x *= 10
+            prefix += "0"
+        q = _bround10(x * 10000)
+        s = prefix + f"{q:04d}".rstrip("0")
+    if neg:
+        s = "-" + s
+    return s.rjust(width)

@@ -9,8 +9,11 @@ covariate columns), and matrix sizes past every shared-memory layout of
 chol_small (d = 250 works in device memory) and of K15 / K16 (d = 128
 splits a variant's tiles over CTAs), the permuted linear scan's K19 /
 K20 at every design (P = 1, two columns, G x covariate columns, scaled)
-and batches of 5, 70 and 256 permutations, and the weighted plane sums
-K21 / K22 (f64, f32 selectors, non-finite weights; 1 to 17 weight sets).
+and batches of 5, 70 and 256 permutations, the weighted plane sums
+K21 / K22 (f64, f32 selectors, non-finite weights; 1 to 17 weight sets),
+and the weighted joint-missing Gram K23 on every lower tile of ragged
+layouts (tiles not a multiple of 64, weights 2^32 - 1, a sample missing at
+every variant).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card, from the
 repository root (the repo's conftest imports jax, which that machine lacks):
@@ -972,3 +975,41 @@ def test_variant_plane_weighted_kernel(dev, n, vb, dc, K):
     k = variant_plane_weighted(pk, st)
     assert k.dtype == torch.float32
     assert torch.equal(k, variant_plane_weighted_plain(pk, st))
+
+
+WMISS_SHAPES = [(150, 5, 64, 100), (1001, 3, 700, 260), (2300, 2, 2048, 1024)]
+
+
+@pytest.mark.parametrize("n,nb,vb,tile", WMISS_SHAPES)
+def test_wmiss_gram_kernel(dev, n, nb, vb, tile):
+    """K23 equals its plain version (f64 on the card, exact below 2^53)
+    exactly on every lower tile of a layout padded to whole tiles (sides
+    not multiples of 64, a ragged last tile), with weights up to 2^32 - 1
+    and sample 5 missing at every variant; two launches identical, one
+    launch counted a call."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.pairwise import (iter_lower_tiles, pairwise_inputs_from_numpy,
+                                          wmiss_gram, wmiss_gram_plain)
+
+    packed, vmask, _ = _pair_inputs(n, nb, vb, 23)
+    packed[..., 1] |= 0b1100  # sample 5: code 3 everywhere
+    npad = -(-n // tile) * tile
+    packed = np.pad(packed, ((0, 0), (0, 0), (0, npad // 4 - packed.shape[2])))
+    rng = np.random.default_rng(29)
+    w = rng.integers(0, 1 << 32, size=nb * vb, dtype=np.int64)
+    w[::3] = (1 << 32) - 1
+    pk, vm = pairwise_inputs_from_numpy(packed, vmask, device=dev)
+    wt = torch.from_numpy(w).to(dev)
+    for r0, c0 in iter_lower_tiles(npad, tile):
+        before = _cuda.LAUNCHES["wmiss_gram"]
+        k = wmiss_gram(pk, vm, wt, r0, c0, tile, tile)
+        assert _cuda.LAUNCHES["wmiss_gram"] == before + 1
+        assert k.dtype == torch.int64
+        assert torch.equal(k, wmiss_gram_plain(pk, vm, wt, r0, c0, tile, tile)), (r0, c0)
+        assert torch.equal(k, wmiss_gram(pk, vm, wt, r0, c0, tile, tile))
+        if r0 == c0 == 0:
+            assert int(k[5, 5]) == int(w[vmask.reshape(-1) != 0].sum())
+    # a tile whose sides differ and are not multiples of 64
+    s, t = tile - 8, tile - 36
+    k = wmiss_gram(pk, vm, wt, npad - s, 4, s, t)
+    assert torch.equal(k, wmiss_gram_plain(pk, vm, wt, npad - s, 4, s, t))

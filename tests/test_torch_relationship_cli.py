@@ -16,6 +16,9 @@ which chip_smoke.py's card-vs-CPU parity shares):
 - .eigenval within 1e-4 relative, .eigenvec columns within 1e-4 after
   matching each column's sign;
 - the .log lines that report what was filtered, excluded or used equal.
+The "sx" run takes KING, the GRM list and PCA on the panel's chr1/X/Y/MT
+copy (plink_torch.testing.write_sx_copy), where KING excludes the
+non-autosomes.
 """
 
 import os
@@ -23,6 +26,8 @@ import subprocess
 import sys
 
 import pytest
+
+from plink_torch.testing import write_sx_copy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBSET = "#IID1\tIID2\nper3\tper1\nper10\tper150\nnobody\tper2\nper7\tper9\n"
@@ -52,9 +57,17 @@ RUNS = {
     # after "king": resumes --king-cutoff from plink_tpu's triangle .king.bin
     "resume": (["--king-cutoff", "{d}/plink_tpu_king", "0.05"],
                (".king.cutoff.in.id", ".king.cutoff.out.id")),
+    # on the chr1/X/Y/MT copy (testing.write_sx_copy): KING excludes the
+    # non-autosomes, the GRM and PCA keep chrX
+    "sx": (["--make-king-table", "--make-king", "square", "--make-grm-list",
+            "--pca", "4"],
+           (".kin0", ".king", ".king.id", ".grm", ".grm.id", ".eigenval",
+            ".eigenvec")),
 }
+# runs on the chr1/X/Y/MT copy of the panel (the others run on the panel)
+SX_RUNS = ("sx",)
 CASES = [(run, ext) for run, (_, exts) in RUNS.items() for ext in exts + (".log",)]
-LOG_KEYS = ("relationships reported", "Excluded", "variants used in GRM",
+LOG_KEYS = ("relationships reported", "Excluded", "non-autosomes", "variants used in GRM",
             "removed", "skipped", "written to", "PCs")
 
 
@@ -87,12 +100,14 @@ def runs(tmp_path_factory):
     _wait(_start("plink_tpu", ["--dummy", "200", "600", "0.05", "--seed", "7"],
                  prefix))
     (d / "subset.txt").write_text(SUBSET)
+    write_sx_copy(prefix, str(d / "sx"))
     out = {}
 
     def launch(names):
         procs = []
         for run in names:
-            args = ["--pfile", prefix] + [a.format(d=d) for a in RUNS[run][0]]
+            fileset = str(d / "sx") if run in SX_RUNS else prefix
+            args = ["--pfile", fileset] + [a.format(d=d) for a in RUNS[run][0]]
             out[run] = tuple(str(d / f"{pkg}_{run}")
                              for pkg in ("plink_tpu", "plink_torch"))
             procs += [_start(pkg, args, o)
@@ -120,8 +135,11 @@ def test_output_matches_plink_tpu(runs, run, ext):
     if ext == ".log":
         lines = _log_lines(runs[run][1])
         assert lines and lines == _log_lines(runs[run][0])
+        if run in SX_RUNS:  # the copy's non-autosomes were excluded from KING
+            assert any("from KING-robust calculation" in ln for ln in lines)
         return
     assert relationship_output_close(ext, ref, got), ext
     if ext == ".grm":
         with open(got) as f:
             assert sum(1 for _ in f) == 200 * 201 // 2
+
