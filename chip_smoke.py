@@ -52,7 +52,7 @@ Phases, each of which raises on failure (nothing is caught):
      equal to its plain version, timed beside its bound and a bf16 matmul;
  12. LD tables on indep_10k: `--r2-unphased --ld-window-kb 0.2
      --ld-window-r2 0.001` (K12; then under torch.profiler) and
-     `--r2-phased --ld-window-kb 0.01 --ld-window-r2 0.001` (K12, K13),
+     `--r2-phased --ld-window-kb 0.005 --ld-window-r2 0.001` (K12, K13),
      64 rows of each against numpy;
  13. LD matrix: `--r-unphased square bin4 --extract bed1` of variants
      1..8,192 of indep_10k (K13), 64 rows against numpy's f64 r;
@@ -95,7 +95,7 @@ Slice 7 (the --glm joint models) adds, in the order they run:
      d = 24 and 36, K4 at d = 36 and 64, each against its plain version in
      f32 (every row) and f64 (JOINT_F64_ROWS rows), on block 0 of phase
      4's panel;
-  4c. on a 500,000 x 2,048 panel: `--glm genotypic hide-covar`, `--glm
+  4c. on a 500,000 x 1,024 panel: `--glm genotypic hide-covar`, `--glm
      interaction`, `--glm dominant hide-covar --condition-list` (three
      variants) and `--glm genotypic cc-residualize hide-covar`, 8 rows
      (N_JOINT_ROWS) of each report against numpy f64 fits (GENO_2DF from the f64 joint
@@ -107,7 +107,7 @@ Slice 7 (the --glm joint models) adds, in the order they run:
 
 Slice 8 (the dosage --glm, --dummy, widths past 96) adds, in the order they
 run:
-  3d. the port's own `--dummy 500000 512 0.02 dosage-freq=0.7 --seed 42`
+  3d. the port's own `--dummy 500000 256 0.02 dosage-freq=0.7 --seed 42`
      writes the dosage panel (SEX + 10 PCs .cov, seed 43; QT1, seed 44; the
      generator's time printed apart); K17 (dosage moments) and K18
      (logistic at the OLS start, firth2 at beta = 0) on its first 512
@@ -117,7 +117,7 @@ run:
      phase 4's panel and K4 at d = 128 and 250 (the device-memory
      workspace), against their plain versions;
   4d. `--glm hide-covar --covar` (logistic-hybrid) and the linear `--glm
-     hide-covar` on QT1 over the 500,000 x 512 dosage panel: K17, K18 and
+     hide-covar` on QT1 over the 500,000 x 256 dosage panel: K17, K18 and
      K4 must have launched (K17 for the linear), every one of their
      launches is kept and run again against its plain version, 16 rows of
      each report against numpy f64 fits of the dosage design; the logistic
@@ -137,8 +137,8 @@ the order they run:
      (JOINT_F64_ROWS rows), K20 against its plain version in f64 on the
      same inputs; two runs identical; each timed beside its bound and one
      library call;
-  4e. on the joint-model panel (500,000 x 2,048): the linear `--glm
-     hide-covar mperm=536 --seed 1` and `aperm --aperm 6 268` on a QT
+  4e. on the joint-model panel (500,000 x 1,024): the linear `--glm
+     hide-covar mperm=268 --seed 1` and `aperm --aperm 6 268` on a QT
      with two planted variants, and `--glm firth hide-covar mperm=33` on
      PHENO1: K19, K20, K2 and K4 (K3 for Firth) launched, every K19 / K20
      launch kept and held to its plain version, 64 linear and 8 Firth
@@ -198,6 +198,34 @@ adds, in the order they run:
      to 250 samples, in 64-sample tiles, CUDA against CPU: outputs byte for
      byte, the .log result lines equal, the refusals alike; two card runs
      byte-identical.
+
+Slice 12 (--fast-epistasis, --assoc / --model and --fst) adds, in the
+order they run:
+  4g. `--assoc --model --allow-no-sex` on phase 4's panel: K1 launched; 64
+     variants of the .assoc and .model against numpy (allele and genotype
+     counts exact, CHISQ / P / OR within 1e-12 relative as printed); traced;
+  11d. K24 `epi_joint_counts` (and its packing pass) on indep_10k's first
+     4,096 variants with PHENO1's cases and controls: the first row block
+     of 256, a ragged block of 200, a boost block of 96 and a case-only
+     block (one group), each torch.equal to its plain version, two runs
+     identical; timed beside its bound (the lesser of its own popcounts and
+     B8's int8 product) and torch._int_mm of the int8 split planes;
+  12c. `--fast-epistasis --allow-no-sex` over variants 1..4,096 of
+     indep_10k (`--extract bed1`; 8.4e6 pairs), then `--fast-epistasis
+     boost` over 1..2,048: K1 and K24 launched (16 and 22 K24 launches,
+     one packing pass each), every K24 launch kept and held to its plain
+     version, 64 .epi.cc STATs against numpy f64 Ueki statistics of
+     numpy's tables and 64 .summary N_TOT against M - 1; the default run
+     traced;
+  12d. `--fst POP method=hudson report-variants`, then `method=wc`, on
+     indep_10k with a 5-category POP column (numpy seed 61): each
+     .fst.summary and 64 rows of one .fst.var against numpy f64 of the
+     per-population counts;
+  17h. plink_torch.testing.EPI_RUNS and A19_RUNS (the cases of
+     tests/test_torch_epistasis.py and tests/test_torch_assoc19.py) on a
+     200 x 600 panel, its chr1 / chr2 and chr1/X/Y/MT copies and a 65,536 x
+     128 panel, CUDA against CPU: outputs byte for byte, the .log result
+     lines equal, the refusals alike; two card runs byte-identical.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
@@ -267,17 +295,21 @@ N_CHECK_ROWS = 16
 # script's time (each row's f64 fit at 500,000 samples is ~0.5-2 s of host
 # time)
 N_JOINT_ROWS = 8
-JOINT_VARIANTS = 2_048  # variants of the joint-model paths' panel (one block)
+# variants of the joint-model and permutation paths' panel (one block): 2,048
+# until slice 12, cut for the script's time (the genotypic paths' host
+# rechecks and the permutation counts grow with the variants)
+JOINT_VARIANTS = 1_024
 JOINT_F64_ROWS = 256  # rows of each joint-model kernel check also held to f64
 # the dosage paths (slice 8): the port's own --dummy writes a 500,000-sample
 # panel with dosage tracks on 70% of the calls; variants cut 16,384 -> 512,
 # one block of the path (the generator and the host's per-variant dosage
-# decode set the time: at 1,024 variants the script ran past 1,000 s); the
-# kernel checks take that block
-DOSAGE_VARIANTS = 512
+# decode set the time: at 1,024 variants the script ran past 1,000 s), and
+# 512 -> 256 in slice 12 for the script's time; the kernel checks take that
+# block
+DOSAGE_VARIANTS = 256
 DOSAGE_DUMMY = ["--dummy", str(N_SAMPLES), str(DOSAGE_VARIANTS), "0.02",
                 "dosage-freq=0.7", "--seed", "42"]
-DOSAGE_BLOCK = 512  # variants a block of the dosage path at 500,000 samples
+DOSAGE_BLOCK = 256  # variants a block of the dosage path at 500,000 samples
 DOSAGE_KERNELS = ("geno_counts", "glm_dense_moments", "glm_dense_irls",
                   "chol_small")
 DOSAGE_PARITY = (4_500, 600, 7)  # samples (>= 4,096: device rows), variants, seed
@@ -355,12 +387,13 @@ PCA_LD_PARITY = (
 # w / 1000 is a window of w variants): the unphased table at width 200
 # (plink 1.9's `--r2 --ld-window 200`; r^2 >= 0.001 keeps ~0.2% of iid
 # pairs, so the filter and the writer both run), the phased table at width
-# 10 (plink 1.9's default --ld-window), the r matrix of a fine-mapping
+# 5 (plink 1.9's default --ld-window is 10: cut in slice 12 for the script's
+# time, each phased pair one host phased_r2), the r matrix of a fine-mapping
 # region (variants 1..8,192: 16 x 17 / 2 = 136 chunk pairs of 512), --ld on
 # one pair, and --indep-pairphase on a phased copy of the whole panel
 VCOR_TABLE_ARGS = {
     False: ["--r2-unphased", "--ld-window-kb", "0.2", "--ld-window-r2", "0.001"],
-    True: ["--r2-phased", "--ld-window-kb", "0.01", "--ld-window-r2", "0.001"],
+    True: ["--r2-phased", "--ld-window-kb", "0.005", "--ld-window-r2", "0.001"],
 }
 REGION_VARIANTS = 8_192
 VCOR_MATRIX_ARGS = ["--r-unphased", "square", "bin4", "--extract", "bed1"]
@@ -2335,7 +2368,7 @@ def check_table_rows(prefix, rows, phased, window):
 
 def run_vcor_table(torch, prefix, out, card, phased):
     """The --r2 table on indep_10k (unphased at width 200, phased at width
-    10) and N_LD_ROWS of its rows against numpy; K12 launched once (one
+    5) and N_LD_ROWS of its rows against numpy; K12 launched once (one
     subcontig); the phased table also launches K13 on each 256-variant chunk
     with itself and with the next (LdJointBand)."""
     from plink_torch.commands import vcor as VC
@@ -4098,8 +4131,9 @@ def run_dosage_parity_case(tmp, label, args, exts, must, refit_of, held):
 PERM_B = 134  # permutations a linear batch at 500,000 samples: plink_tpu's
 # max(16, min(256, 2^26 // n)); the Firth batch is max(4, min(64, 2^24 // n))
 PERM_EFFECT = 0.05  # planted QT effect a genotype copy (t ~ 20 at 500,000)
-PERM_MPERM = 536  # the linear mperm path: 4 batches of PERM_B (1,000 = 8
-# batches until slice 11, cut for the script's time)
+PERM_MPERM = 268  # the linear mperm path: 2 batches of PERM_B (1,000 = 8
+# batches until slice 11 and 536 = 4 until slice 12, cut for the script's
+# time)
 PERM_FIRTH_MPERM = 33  # the Firth path: one batch (66 = two until slice 11)
 PERM_N_LINEAR = 64  # (variant, permutation) pairs held to numpy f64 OLS
 PERM_N_FIRTH = 8  # (variant, permutation) pairs held to numpy f64 Firth (and
@@ -4362,7 +4396,7 @@ def check_perm_firth_pairs(prefix, stats, y, pairs, a1_alt):
 def run_perm_paths(torch, prefix, tmp, card):
     """Phase 4e: the permutation paths on the joint-model panel (500,000 x
     2,048: one block; SEX + 10 PCs): the linear `--glm hide-covar
-    mperm=536 --seed 1` (PERM_MPERM) and the same with `aperm --aperm 6
+    mperm=268 --seed 1` (PERM_MPERM) and the same with `aperm --aperm 6
     268` (two
     batches: the planted variants run to the maximum) on QTP =
     QT1 + PERM_EFFECT x the ALT count of two common variants (the planted
@@ -4457,7 +4491,7 @@ def run_perm_paths(torch, prefix, tmp, card):
                     f"{e20:.2e})")
             if label == "linear_mperm":
                 stat = scalls[0][2].cpu().numpy()
-                variants = planted + [v for v in range(100, JOINT_VARIANTS, 260)
+                variants = planted + [v for v in range(100, JOINT_VARIANTS, 130)
                                       if 0.05 <= freq_of(prefix, v) <= 0.95][:6]
                 perms = list(range(0, PERM_B, PERM_B // 8))[:8]
                 assert len(variants) * len(perms) == PERM_N_LINEAR
@@ -5307,6 +5341,467 @@ def run_pair_parity(tmp):
             os.environ.pop(k, None)
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: --fast-epistasis (K24), --assoc / --model and --fst over K1
+# ---------------------------------------------------------------------------
+
+# the --fast-epistasis cells on indep_10k (10,000 samples, PHENO1's cases and
+# controls as the two groups): the CASSI Ueki statistic over variants
+# 1..EPI_VARIANTS (8.4e6 pairs; the host's f64 statistics at ~1 us a pair set
+# the wall), and boost over 1..EPI_BOOST_VARIANTS; K24 launches once a row
+# block of 256 (96 with boost)
+EPI_VARIANTS = 4_096
+EPI_BOOST_VARIANTS = 2_048
+EPI_LAUNCHES = {"default": -(-EPI_VARIANTS // 256), "boost": -(-EPI_BOOST_VARIANTS // 96)}
+N_EPI_ROWS = 64  # .epi.cc STATs and .summary rows held to numpy
+# H100 SXM popcounts outside the tensor cores: 132 SMs x 16 a clock x 1.98 GHz
+POPC_PER_S = 132 * 16 * 1.98e9
+ASSOC_ARGS = ["--assoc", "--model", "--allow-no-sex"]
+N_ASSOC_ROWS = 64  # variants of the .assoc / .model held to numpy
+FST_SEED = 61  # the 5-category POP column of the --fst cells
+N_FST_ROWS = 64
+
+
+def _psam_cc(prefix):
+    """PHENO1 of a gen_panel .psam: (case, ctrl) boolean masks."""
+    import numpy as np
+
+    with open(prefix + ".psam") as f:
+        hdr = f.readline().rstrip("\n").split("\t")
+        ph = np.array([ln.rstrip("\n").split("\t")[hdr.index("PHENO1")] for ln in f])
+    return ph == "2", ph == "1"
+
+
+def _a1_is_alt(codes):
+    """1.9's A1 (the minor allele by the ALT frequency of the called
+    samples, every sample a founder): True where A1 = ALT."""
+    import numpy as np
+
+    called = codes != 3
+    alt = np.where(called, codes, 0).sum(1, dtype=np.int64)
+    return ~(alt / (2.0 * called.sum(1)) > 0.5)
+
+
+def check_epi_kernel(torch, dev, prefix):
+    """K24 on indep_10k's first EPI_VARIANTS variants (the path's kept
+    variants and A1 orientation, PHENO1's cases and controls): the first
+    row block of 256, a ragged block of 200, a boost block of 96 (two
+    groups) and a case-only block of 256 (one group), each torch.equal to
+    its plain version (float32 0/1 planes, one matmul a group: exact below
+    2^24 samples) and run twice alike; timed beside its bound (the lesser of
+    K24's own popcounts and B8's int8 product on the tensor cores) and one
+    torch._int_mm of the int8 split planes padded to multiples of 8."""
+    import numpy as np
+
+    from plink_torch.dataset import load_dataset
+    from plink_torch.ops import epistasis as E
+
+    ds = load_dataset(prefix, dev)
+    pk = ds.device_all_packed()
+    vidx = np.arange(EPI_VARIANTS)
+    a1 = _a1_is_alt(pgen_codes(prefix, vidx))
+    case, ctrl = _psam_cc(prefix)
+    groups = [np.flatnonzero(case), np.flatnonzero(ctrl)]
+    m = EPI_VARIANTS
+    planes = E.split_planes(pk, vidx, a1, groups)
+    dense = E.epi_planes_plain(pk, vidx, a1, groups)
+    one = E.split_planes(pk, vidx, a1, groups[:1])
+    dense1 = E.epi_planes_plain(pk, vidx, a1, groups[:1])
+    blocks = (("256", planes, dense, np.arange(256)),
+              ("ragged 200", planes, dense, np.arange(m - 200, m)),
+              ("boost 96", planes, dense, np.arange(96)),
+              ("case-only 256", one, dense1, np.arange(256)))
+    for label, pl, dn, rows in blocks:
+        k = E.joint_tables(pl, rows)
+        assert torch.equal(k, E.joint_tables_plain(dn, rows)), \
+            ("K24 differs from its plain version", label)
+        assert torch.equal(k, E.joint_tables(pl, rows)), ("K24 is not deterministic", label)
+    rows = np.arange(256)
+    ms = time_ms(torch, lambda: E.joint_tables(planes, rows), 5)
+    pack_ms = time_ms(torch, lambda: E.split_planes(pk, vidx, a1, groups), 3)
+    pms = time_ms(torch, lambda: E.joint_tables_plain(dense, rows), 3)
+    # the library yardstick: B8's own int8 product, one a group
+    ops8, libs = [], []
+    for p in dense.dense:
+        s8 = -(-p.shape[2] // 8) * 8
+        cols = torch.zeros((3 * m, s8), dtype=torch.int8, device=dev)
+        cols[:, : p.shape[2]] = p.reshape(3 * m, -1).to(torch.int8)
+        r8 = cols.reshape(3, m, s8)[:, : rows.size].reshape(3 * rows.size, s8).contiguous()
+        libs.append((r8, cols.t().contiguous()))
+        ops8.append(2 * 3 * rows.size * 3 * m * p.shape[2])
+    lib = time_ms(torch, lambda: [torch._int_mm(a, b) for a, b in libs], 3)
+    del libs, dense, dense1
+    words = sum(-(-len(g) // 32) for g in groups)  # 32-sample words of both groups
+    out_bytes = 4 * 9 * rows.size * m * len(groups)
+    popc = 9 * rows.size * m * words
+    own = _bound(popc, 4 * 3 * words * (m + rows.size) + out_bytes, POPC_PER_S)
+    s_tot = sum(len(g) for g in groups)
+    int8 = _bound(sum(ops8), 3 * s_tot * (m + rows.size) + out_bytes, INT8_OPS_PER_S)
+    bound = min(own, int8, key=lambda b: b["bound_ms"])
+    log(f"K24 epi_joint_counts [{rows.size} x {m} pairs, groups "
+        f"{[len(g) for g in groups]}, {words} words]: = plain on blocks "
+        f"{', '.join(b[0] for b in blocks)}, two runs identical; {ms:.3f} ms, "
+        f"packing pass {pack_ms:.3f} ms, plain {pms:.2f} ms, torch._int_mm "
+        f"{lib:.3f} ms, bound {bound['bound_ms']:.3f} ms: {popc} popcounts "
+        f"{own['bound_ms']:.3f} ms, int8 product {int8['bound_ms']:.3f} ms")
+    return [dict(name="epi_joint_counts", source="plink_torch/csrc/epi_counts.cu",
+                 replaces="plink_tpu/commands/epistasis.py:596", max_abs_err=0.0,
+                 tol=0.0, popcounts=popc, popcount_bound_ms=own["bound_ms"],
+                 int8_bound_ms=int8["bound_ms"], pack_ms=pack_ms, ms=ms,
+                 plain_ms=pms, **bound, library_ms=lib)]
+
+
+def epi_argv(prefix, out, region, mods=()):
+    return ["--pfile", prefix, "--extract", "bed1", region, "--fast-epistasis",
+            *mods, "--allow-no-sex", "--out", out, "--silent"]
+
+
+def _ueki_z2(tabs):
+    """CASSI's Ueki-adjusted z^2 (1.9 fepi_counts_to_stats) of a pair from
+    its two 3 x 3 tables [hom A1, het, hom A2], in numpy f64."""
+    import numpy as np
+
+    lor, var = 0.0, 0.0
+    for sign, n in ((1.0, tabs[0]), (-1.0, tabs[1])):
+        n = n.astype(np.float64)
+        c = [4 * n[0] + 2 * (n[1] + n[3]) + n[4], 4 * n[2] + 2 * (n[1] + n[5]) + n[4],
+             4 * n[6] + 2 * (n[3] + n[7]) + n[4], 4 * n[8] + 2 * (n[5] + n[7]) + n[4]]
+        adj = 0.0 if (n != 0).all() else 4.5
+        r = [1.0 / (x + adj) for x in c]
+        h = 0.0 if adj == 0.0 else 0.5
+        b2, b3, b5 = r[0] - r[1], r[0] - r[2], r[0] - r[1] - r[2] + r[3]
+        b6, b8 = r[3] - r[1], r[3] - r[2]
+        lor += sign * math.log((c[0] + adj) * (c[3] + adj) * r[1] * r[2])
+        var += (4 * (4 * (r[0] ** 2 * (n[0] + h) + r[1] ** 2 * (n[2] + h)
+                          + r[2] ** 2 * (n[6] + h) + r[3] ** 2 * (n[8] + h))
+                     + b2 * b2 * (n[1] + h) + b3 * b3 * (n[3] + h)
+                     + b6 * b6 * (n[5] + h) + b8 * b8 * (n[7] + h))
+                + b5 * b5 * (n[4] + h))
+    return lor * lor / var
+
+
+def check_epi_rows(prefix, out, m):
+    """N_EPI_ROWS rows of the .epi.cc (spread over the file): STAT within the
+    printed 6 digits of numpy's f64 Ueki z^2 of the pair's tables, counted
+    from numpy's codes; N_EPI_ROWS rows of the .summary: N_TOT = M - 1 over
+    the M variants that are not monomorphic (the Ueki statistic is finite
+    for every pair) and N_SIG <= N_TOT."""
+    import numpy as np
+
+    codes = pgen_codes(prefix, np.arange(m))
+    case, ctrl = _psam_cc(prefix)
+    both = codes[:, case | ctrl]
+    kept = int((((both == 1) | (both == 2)).any(1) & ((both == 0) | (both == 1)).any(1))
+               .sum())
+    del both
+    a1 = _a1_is_alt(codes)
+    eff = np.where(a1[:, None], codes, np.where(codes == 3, 3, 2 - codes))
+    planes = np.stack([eff == 2, eff == 1, eff == 0])  # [3, m, n]
+    with open(out + ".epi.cc") as f:
+        rows = [ln.split() for ln in f][1:]
+    assert len(rows) >= N_EPI_ROWS, len(rows)
+    worst = 0.0
+    for r in (rows[k] for k in np.linspace(0, len(rows) - 1, N_EPI_ROWS).astype(int)):
+        i, j = int(r[1][3:]), int(r[3][3:])
+        tabs = [np.array([(planes[a, i, g] & planes[b, j, g]).sum()
+                          for a in range(3) for b in range(3)]) for g in (case, ctrl)]
+        want = _ueki_z2(tabs)
+        err = abs(float(r[4]) - want) / want
+        assert err <= 6e-6, (r, want)  # 6 printed digits
+        worst = max(worst, err)
+    with open(out + ".epi.cc.summary") as f:
+        summ = [ln.split() for ln in f][1:]
+    assert len(summ) == kept, (len(summ), kept)
+    for r in (summ[k] for k in np.linspace(0, kept - 1, N_EPI_ROWS).astype(int)):
+        assert int(r[3]) == kept - 1 and int(r[2]) <= kept - 1, r
+    return len(rows), worst
+
+
+def run_epi_paths(torch, prefix, tmp, card):
+    """12c: `--fast-epistasis` (the CASSI Ueki statistic) over variants
+    1..EPI_VARIANTS of indep_10k by `--extract bed1`, then `--fast-epistasis
+    boost` over 1..EPI_BOOST_VARIANTS: K1 (the monomorphic screen and the A1
+    frequencies) and K24 launched, K24 once a row block (EPI_LAUNCHES) and
+    its packing pass once a run; every K24 launch kept and held to its plain
+    version; N_EPI_ROWS STATs and .summary rows against numpy; the default
+    run traced."""
+    import numpy as np
+
+    from plink_torch.commands import epistasis as EC
+    from plink_torch.ops import epistasis as E
+
+    paths = {}
+    for label, m, mods in (("default", EPI_VARIANTS, ()),
+                           ("boost", EPI_BOOST_VARIANTS, ("boost",))):
+        region = os.path.join(tmp, f"epi_{label}.bed")
+        with open(region, "w") as f:
+            f.write(f"1\t1\t{m}\n")
+        out = os.path.join(tmp, f"epi_{label}")
+        with spying("split_planes", EC) as (packs, _), \
+                spying("joint_tables", EC) as (calls, real):
+            wall, launches = drive(torch, epi_argv(prefix, out, region, mods), out)
+        assert launches["epi_joint_counts"] == len(calls) == EPI_LAUNCHES[label], launches
+        assert launches["epi_split_planes"] == len(packs) == 1, launches
+        assert launches["geno_counts"] > 0, launches
+        dense = E.epi_planes_plain(*packs[0])
+        for planes, rows in calls:
+            assert torch.equal(real(planes, rows), E.joint_tables_plain(dense, rows)), \
+                ("K24 differs from its plain version on the path", label, rows[0])
+        del calls, packs, dense
+        if label == "default":
+            n_rows, worst = check_epi_rows(prefix, out, m)
+            note = (f"{n_rows} rows past --epi1; {N_EPI_ROWS} STATs = numpy f64 "
+                    f"(relative error <= {worst:.1e}), {N_EPI_ROWS} .summary rows "
+                    f"N_TOT = M - 1")
+        else:
+            with open(out + ".epi.cc") as f:
+                hdr = f.readline().split()
+                rows = [ln.split() for ln in f]
+            assert hdr[4:6] == ["STAT", "DF"] and all(
+                math.isfinite(float(r[4])) for r in rows), hdr
+            with open(out + ".epi.cc.summary") as f:
+                assert 0.9 * m < sum(1 for _ in f) <= m + 1
+            note = f"{len(rows)} rows, finite STAT and DF"
+        pairs = m * (m - 1) // 2
+        log(f"--fast-epistasis {label} path {IND_PANEL[0]} samples x {m} variants "
+            f"({pairs} pairs): {wall:.2f}s wall on {card}, {pairs / wall:.3g} pairs/s; "
+            f"K24 {launches['epi_joint_counts']} launches, each = plain; {note}; "
+            f"launches {dict((k, v) for k, v in launches.items() if v)}")
+        paths[f"epistasis_{label}"] = launches
+    region = os.path.join(tmp, "epi_default.bed")
+    trace_path(torch, epi_argv(prefix, os.path.join(tmp, "epi_traced"), region),
+               "--fast-epistasis")
+    return paths
+
+
+def _g4_near(printed, x):
+    """The 4-digit .assoc / .model field `printed` is the port's rendering
+    of a value within 1e-12 relative of numpy's x."""
+    from plink_torch.utils.fmt import dtoa_g_wxp4
+
+    return printed in {dtoa_g_wxp4(v, 12).strip()
+                       for v in (x * (1 - 1e-12), x, x * (1 + 1e-12))}
+
+
+def check_assoc_rows(prefix, out, n_variants):
+    """N_ASSOC_ROWS variants of the .assoc and .model against numpy: the
+    allele and genotype counts exact (F_A / F_U and every AFF / UNAFF
+    count), CHISQ / P / OR of the .assoc and CHISQ / P of the ALLELIC and
+    TREND rows within 1e-12 relative of numpy f64 (as printed)."""
+    import numpy as np
+
+    from plink_torch.utils.fmt import dtoa_g_wxp4
+
+    with open(out + ".assoc") as f:
+        arows = [ln.split() for ln in f][1:]
+    with open(out + ".model") as f:
+        mrows = [ln.split() for ln in f][1:]
+    assert len(arows) == n_variants and len(mrows) == 5 * n_variants
+    vs = np.linspace(0, n_variants - 1, N_ASSOC_ROWS).astype(int)
+    codes = pgen_codes(prefix, vs)
+    a1 = _a1_is_alt(codes)
+    case, ctrl = _psam_cc(prefix)
+    for k, v in enumerate(vs):
+        g = codes[k] if a1[k] else np.where(codes[k] == 3, 3, 2 - codes[k])
+        cls = [[int((g[s] == c).sum()) for c in (2, 1, 0)] for s in (case, ctrl)]
+        (uoo, unn, umm), (ukk, ujj, uii) = cls  # hom A1, het, hom A2
+        a, b = 2.0 * uoo + unn, 2.0 * umm + unn
+        c, d = 2.0 * ukk + ujj, 2.0 * uii + ujj
+        r = arows[v]
+        assert r[1] == f"snp{v}" and r[4] == dtoa_g_wxp4(a / (a + b), 8).strip() \
+            and r[5] == dtoa_g_wxp4(c / (c + d), 8).strip(), (r, a, b, c, d)
+        n = a + b + c + d
+        chisq = n * (a * d - b * c) ** 2 / ((a + b) * (c + d) * (a + c) * (b + d))
+        assert _g4_near(r[7], chisq) and _g4_near(r[8], math.erfc(math.sqrt(chisq / 2))) \
+            and _g4_near(r[9], (a * d) / (c * b)), (r, chisq)
+        m5 = mrows[5 * v : 5 * v + 5]
+        want = {"GENO": (f"{uoo}/{unn}/{umm}", f"{ukk}/{ujj}/{uii}"),
+                "TREND": (f"{int(a)}/{int(b)}", f"{int(c)}/{int(d)}"),
+                "ALLELIC": (f"{int(a)}/{int(b)}", f"{int(c)}/{int(d)}"),
+                "DOM": (f"{uoo + unn}/{umm}", f"{ukk + ujj}/{uii}"),
+                "REC": (f"{uoo}/{unn + umm}", f"{ukk}/{ujj + uii}")}
+        for row in m5:
+            assert row[1] == f"snp{v}" and (row[5], row[6]) == want[row[4]], (row, want)
+        # the trend test (1.9 ca_trend_evalx) on the A2 side, as 1.9 counts it
+        tot = uoo + unn + umm + ukk + ujj + uii
+        case_ct, het, homdom = uoo + unn + umm, unn + ujj, umm + uii
+        dom = float(het + 2 * homdom)
+        cat = (2 * umm + unn) * float(tot) - dom * case_ct
+        dxx = (tot * float(het + 4 * homdom) - dom * dom) * (case_ct * float(tot - case_ct))
+        trend = cat * cat * tot / dxx
+        for row, x in ((m5[1], trend), (m5[2], chisq)):
+            assert _g4_near(row[7], x) and _g4_near(row[9], math.erfc(math.sqrt(x / 2))), \
+                (row, x)
+
+
+def run_assoc_path(torch, prefix, out, card, n_variants):
+    """4g: `--assoc --model --allow-no-sex` on phase 4's panel: K1 launched
+    (the case / control counts and the A1 frequencies); N_ASSOC_ROWS
+    variants of each report against numpy; traced."""
+    argv = ["--pfile", prefix, *ASSOC_ARGS, "--out", out, "--silent"]
+    wall, launches = drive(torch, argv, out)
+    assert launches["geno_counts"] > 0, launches
+    check_assoc_rows(prefix, out, n_variants)
+    log(f"--assoc --model path {N_SAMPLES}x{n_variants}: {wall:.2f}s wall on {card}; "
+        f"{N_ASSOC_ROWS} variants of .assoc and .model = numpy (counts exact, "
+        f"CHISQ / P / OR within 1e-12 as printed); launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+    trace_path(torch, argv[:-3] + ["--out", out + "_traced", "--silent"], "--assoc --model")
+    return launches
+
+
+def _fst_numpy(c1, c2, method):
+    """Per-variant (numer, denom, valid) of Hudson's or Weir-Cockerham's
+    Fst from two populations' genotype counts [V, 3] (hom-REF, het,
+    hom-ALT), in numpy f64 (2.0 FstThread)."""
+    import numpy as np
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if method == "hudson":
+            ref1, alt1 = 2 * c1[:, 0] + c1[:, 1], 2 * c1[:, 2] + c1[:, 1]
+            ref2, alt2 = 2 * c2[:, 0] + c2[:, 1], 2 * c2[:, 2] + c2[:, 1]
+            n1, n2 = ref1 + alt1, ref2 + alt2
+            n_diff = n1 * n2 - (ref1 * ref2 + alt1 * alt2)
+
+            def within(r, a, n):
+                return (n * (n - 1) / 2 - (r * r + a * a - n) / 2) / (n * (n - 1))
+
+            denom = n_diff / (n1 * n2)
+            numer = denom - within(ref1, alt1, n1) - within(ref2, alt2, n2)
+            return numer, denom, (n_diff > 0) & np.isfinite(numer) & (denom != 0)
+        n1, n2 = c1.sum(1), c2.sum(1)
+        nt = n1 + n2
+        p1, p2 = (2 * c1[:, 0] + c1[:, 1]) / (2 * n1), (2 * c2[:, 0] + c2[:, 1]) / (2 * n2)
+        pb = (2 * c1[:, 0] + c1[:, 1] + 2 * c2[:, 0] + c2[:, 1]) / (2 * nt)
+        nbar = nt / 2
+        nc = nt - (n1 * n1 + n2 * n2) / nt
+        s2 = (n1 * (p1 - pb) ** 2 + n2 * (p2 - pb) ** 2) * 2 / nt
+        hb = (c1[:, 1] + c2[:, 1]) / nt
+        pq = pb * (1 - pb)
+        a = nbar / nc * (s2 - (pq - s2 / 2 - hb / 4) / (nbar - 1))
+        b = nbar / (nbar - 1) * (pq - s2 / 2 - (0.5 - 0.5 / nt) * hb)
+        c = hb / 2
+        mono = (pb == 0) | (pb == 1)
+        a, b, c = (np.where(mono, 0.0, x) for x in (a, b, c))
+        denom = a + b + c
+        return a, denom, (denom != 0) & np.isfinite(a)
+
+
+def run_fst_paths(torch, prefix, tmp, card):
+    """12d: `--fst POP method=hudson report-variants`, then `method=wc`, on
+    indep_10k with a 5-category POP column (numpy seed FST_SEED): K1
+    launched (five masks: two launches); each .fst.summary (ten pairs)
+    within its printed 6 digits of numpy f64 from numpy's per-population
+    counts, and N_FST_ROWS rows of the first pair's .fst.var likewise."""
+    import numpy as np
+
+    from plink_torch.testing import FST_POPS
+
+    n, m = IND_PANEL[:2]
+    rng = np.random.default_rng(FST_SEED)
+    pop = rng.integers(0, len(FST_POPS), n)
+    popf = os.path.join(tmp, "pop.txt")
+    with open(popf, "w") as f:
+        f.write("#IID\tPOP\n")
+        f.writelines(f"per{i}\t{FST_POPS[k]}\n" for i, k in enumerate(pop))
+    codes = pgen_codes(prefix, np.arange(m))
+    cts = []
+    for k in range(len(FST_POPS)):
+        sub = codes[:, pop == k]
+        cts.append(np.stack([(sub == c).sum(1) for c in range(3)], 1).astype(np.float64))
+    del codes, sub
+    launches = {}
+    for method in ("hudson", "wc"):
+        out = os.path.join(tmp, f"fst_{method}")
+        wall, launches[method] = drive(torch, [
+            "--pfile", prefix, "--pheno", popf, "--fst", "POP", f"method={method}",
+            "report-variants", "--out", out, "--silent"], out)
+        assert launches[method]["geno_counts"] >= 2, launches[method]  # 3 + 2 masks
+        with open(out + ".fst.summary") as f:
+            summ = [ln.split() for ln in f][1:]
+        assert len(summ) == 10, summ
+        worst = 0.0
+        for a, b, v in summ:
+            num, den, ok = _fst_numpy(cts[FST_POPS.index(a)], cts[FST_POPS.index(b)],
+                                      method)
+            want = num[ok].sum() / den[ok].sum()
+            worst = max(worst, abs(float(v) - want) / abs(want))
+        a, b = summ[0][:2]
+        num, den, ok = _fst_numpy(cts[FST_POPS.index(a)], cts[FST_POPS.index(b)], method)
+        with open(f"{out}.{a}.{b}.fst.var") as f:
+            var = [ln.split() for ln in f][1:]
+        assert len(var) == m
+        for k in np.linspace(0, m - 1, N_FST_ROWS).astype(int):
+            got = var[k][-1]
+            if not ok[k]:
+                assert got == "nan", var[k]
+                continue
+            worst = max(worst, abs(float(got) - num[k] / den[k]) / abs(num[k] / den[k]))
+        assert worst <= 6e-6, worst  # 6 printed digits
+        log(f"--fst POP method={method} report-variants {n}x{m}: {wall:.2f}s wall on "
+            f"{card}; 10 pair summaries and {N_FST_ROWS} .fst.var rows = numpy f64 "
+            f"(relative error <= {worst:.1e}); launches "
+            f"{dict((k, v) for k, v in launches[method].items() if v)}")
+    return {"fst_hudson": launches["hudson"], "fst_wc": launches["wc"]}
+
+
+def run_epi_assoc_parity(tmp):
+    """17h: plink_torch.testing.EPI_RUNS and A19_RUNS, the cases of
+    tests/test_torch_epistasis.py and tests/test_torch_assoc19.py, on a
+    200 x 600 panel (seed 91), its chr1 / chr2 and chr1/X/Y/MT copies and a
+    65,536 x 128 panel, CUDA against CPU: every output byte for byte, the
+    .log result lines equal, the refusals alike (FlagError messages; exit
+    code 2 for the runs not yet ported); a second card run the same."""
+    from plink_torch import cli
+    from plink_torch.bench_gen import gen_panel
+    from plink_torch.testing import (A19_NOT_PORTED, A19_RUNS, EPI_ERRORS, EPI_RUNS,
+                                     pair_log_lines, pair_output_same, write_epi_inputs)
+
+    d = os.path.join(tmp, "epi")
+    os.makedirs(d)
+    gen_panel(os.path.join(d, "p"), 200, 600, miss_rate=0.05, seed=91)
+    gen_panel(os.path.join(d, "wide"), 65_536, 128, miss_rate=0.02, seed=5)
+    write_epi_inputs(d, os.path.join(d, "p"))
+    os.environ["PLINK_TORCH_VB"] = "64"
+    secs = {"cuda": 0.0, "cpu": 0.0, "cuda2": 0.0}
+    n_runs = 0
+    try:
+        for runs, errors in ((EPI_RUNS, EPI_ERRORS), (A19_RUNS, {})):
+            for label, fs, flags, exts in runs:
+                argv = (["--pfile", os.path.join(d, fs), *(a.format(d=d) for a in flags)]
+                        + ([] if label == "sx_sexed" else ["--allow-no-sex"]))
+                outs, errs = {}, {}
+                for tag in ("cuda", "cpu", "cuda2"):
+                    os.environ["PLINK_TORCH_DEVICE"] = tag.rstrip("2")
+                    outs[tag] = os.path.join(d, f"{tag}_{label}")
+                    t0 = time.perf_counter()
+                    try:
+                        errs[tag] = cli.main(argv + ["--out", outs[tag], "--silent"])
+                    except ValueError as e:  # FlagError is one
+                        errs[tag] = str(e)
+                    secs[tag] += time.perf_counter() - t0
+                want = errors.get(label, 2 if label in A19_NOT_PORTED else 0)
+                assert errs["cuda"] == errs["cpu"] == errs["cuda2"] == want, (label, errs)
+                for ext in exts:
+                    assert pair_output_same(outs["cpu"] + ext, outs["cuda"] + ext), \
+                        (label, ext)
+                    assert pair_output_same(outs["cuda2"] + ext, outs["cuda"] + ext), \
+                        ("two CUDA runs differ", label, ext)
+                if exts:
+                    lines = pair_log_lines(outs["cuda"])
+                    assert lines and lines == pair_log_lines(outs["cpu"]), label
+                    assert lines == pair_log_lines(outs["cuda2"]), label
+                n_runs += 1
+        log(f"epistasis / assoc parity: {n_runs} runs of testing.EPI_RUNS and "
+            f"A19_RUNS CUDA = CPU (outputs byte for byte, .log result lines, "
+            f"{len(EPI_ERRORS)} refusals and {len(A19_NOT_PORTED)} not-ported runs "
+            f"alike), two CUDA runs byte-identical; CUDA {secs['cuda']:.1f}s, CPU "
+            f"{secs['cpu']:.1f}s")
+    finally:
+        for k in ("PLINK_TORCH_VB", "PLINK_TORCH_DEVICE"):
+            os.environ.pop(k, None)
+
+
 def joint_panel(tmp):
     """The joint-model paths' panel: 500,000 x JOINT_VARIANTS, made as the
     main panel (seed 42, its covariates and QT1)."""
@@ -5404,6 +5899,10 @@ def main(argv=None):
                                                 args.variants)
         torch.cuda.empty_cache()
         phase_secs["--check-sex path"] = time.perf_counter() - t0
+        t0 = stamp("--assoc / --model path")
+        paths["assoc_model"] = run_assoc_path(torch, prefix, os.path.join(tmp, "assoc"),
+                                              card, args.variants)
+        phase_secs["--assoc / --model path"] = time.perf_counter() - t0
         t0 = stamp("joint-model paths")
         jprefix = joint_panel(tmp)
         paths.update(run_joint_paths(torch, jprefix, tmp, card, JOINT_VARIANTS))
@@ -5467,6 +5966,17 @@ def main(argv=None):
         os.remove(os.path.join(tmp, "dist_traced.dist.bin"))
         torch.cuda.empty_cache()
         phase_secs["--distance path"] = time.perf_counter() - t0
+        t0 = stamp("K24 epi_joint_counts")
+        rows += check_epi_kernel(torch, dev, p2)
+        torch.cuda.empty_cache()
+        phase_secs["K24 check"] = time.perf_counter() - t0
+        t0 = stamp("--fast-epistasis paths")
+        paths.update(run_epi_paths(torch, p2, tmp, card))
+        torch.cuda.empty_cache()
+        phase_secs["--fast-epistasis paths"] = time.perf_counter() - t0
+        t0 = stamp("--fst paths")
+        paths.update(run_fst_paths(torch, p2, tmp, card))
+        phase_secs["--fst paths"] = time.perf_counter() - t0
         stamp("LD table, unphased")
         paths["r2_unphased"] = run_vcor_table(torch, p2, os.path.join(tmp, "r2u"),
                                               card, phased=False)
@@ -5504,9 +6014,12 @@ def main(argv=None):
         t0 = stamp("pair-report parity")
         run_pair_parity(tmp)
         phase_secs["pair-report parity"] = time.perf_counter() - t0
+        t0 = stamp("epistasis / assoc parity")
+        run_epi_assoc_parity(tmp)
+        phase_secs["epistasis / assoc parity"] = time.perf_counter() - t0
         stamp("done")
-        log("slice-6/7/8/9/10/11 phases: " + ", ".join(f"{k} {v:.1f}s"
-                                                    for k, v in phase_secs.items()))
+        log("slice-6 to 12 phases: " + ", ".join(f"{k} {v:.1f}s"
+                                              for k, v in phase_secs.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lib_names = {"glm_irls_pass": "glm_irls"}

@@ -119,7 +119,7 @@ class Dataset:
     # -- cached whole-file counting ------------------------------------
     def counts(self, masks: list[np.ndarray]) -> list[np.ndarray]:
         """Per-variant (hom-REF, het, hom-ALT, missing) int64 [M, 4] over
-        each of up to three raw-sample masks, in one pass.  Cached per mask
+        each raw-sample mask (one K1 pass per three masks).  Cached per mask
         set, the way the reference computes LoadAlleleAndGenoCounts once and
         reuses it (plink2.cc:2280); sample filters call invalidate_counts."""
         key = tuple(np.packbits(np.asarray(m, bool)).tobytes() for m in masks)

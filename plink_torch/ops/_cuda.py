@@ -8,11 +8,11 @@ kernel is rebuilt and a stale library is never loaded.
 
 ``LAUNCHES`` counts, per kernel entry point and per mode in ``_MODES``, the
 launches made by the wrappers in ``ops/counts.py``, ``ops/glm.py``,
-``ops/pairwise.py``, ``ops/pca.py`` and ``ops/ld.py``; it is the only module
-state the port keeps besides the loaded libraries.  An entry point lives in
-``csrc/<name>.cu`` unless ``_SOURCE`` names another file (K9 and K10 share
-one; so do K11-K13, K17-K18, K19-K20 and K21-K22); every source may include any
-``csrc/*.cuh``.
+``ops/pairwise.py``, ``ops/pca.py``, ``ops/ld.py`` and ``ops/epistasis.py``;
+it is the only module state the port keeps besides the loaded libraries.
+An entry point lives in ``csrc/<name>.cu`` unless ``_SOURCE`` names another
+file (K9 and K10 share one; so do K11-K13, K17-K18, K19-K20, K21-K22 and
+K24's two kernels); every source may include any ``csrc/*.cuh``.
 """
 
 from __future__ import annotations
@@ -84,6 +84,10 @@ _ENTRY = {
                                [_P, _L, _I, _P, _I, _I, _I, _P, _P, _P]),
     "wmiss_gram": ("pt_wmiss_gram", [_P, _L, _L, _P, _P, _L, _I, _L, _I, _P,
                                      _P, _P]),
+    "epi_split_planes": ("pt_epi_split_planes", [_P, _L, _P, _P, _L, _P, _P, _I,
+                                                 _L, _P, _P]),
+    "epi_joint_counts": ("pt_epi_joint_counts", [_P, _L, _L, _P, _I, _P, _I, _P,
+                                                 _P]),
 }
 # kernel modes counted apart from their entry point's default mode: name ->
 # entry point (K2 scaled; K3 scaled and residualized share glm_irls_x; K3
@@ -101,7 +105,8 @@ _SOURCE = {"pca_x": "pca_apply", "pca_xt": "pca_apply", "ld_band_bits": "ld_band
            "glm_dense_moments": "glm_dense", "glm_dense_irls": "glm_dense",
            "linear_perm_xty": "linear_perm", "linear_perm_stat": "linear_perm",
            "sample_plane_weighted": "plane_weighted",
-           "variant_plane_weighted": "plane_weighted"}
+           "variant_plane_weighted": "plane_weighted",
+           "epi_split_planes": "epi_counts", "epi_joint_counts": "epi_counts"}
 _SOURCES = sorted({_SOURCE.get(k, k) for k in _ENTRY})
 
 LAUNCHES: dict[str, int] = dict.fromkeys(

@@ -116,17 +116,22 @@ def geno_counts(packed: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 
 
 def masked_geno_counts(packed, masks: list[np.ndarray]) -> list[np.ndarray]:
-    """Per-variant int64 [V, 4] counts for each of up to three raw-sample
-    masks (plink_tpu's GenoCounter / geno_counts): numpy for a host matrix,
-    else one K1 launch over the device-resident [V, NB] matrix."""
+    """Per-variant int64 [V, 4] counts for each raw-sample mask (plink_tpu's
+    GenoCounter / geno_counts / geno_counts_multimask): numpy for a host
+    matrix, else one K1 launch per three masks over the device-resident
+    [V, NB] matrix."""
     npad = packed.shape[1] * 4
     mm = np.zeros((npad, len(masks)), np.float32)
     for g, m in enumerate(masks):
         mm[: m.shape[0], g] = m
     if isinstance(packed, np.ndarray):
         return [_np_counts_masked(packed, mm[:, g]) for g in range(len(masks))]
-    out = geno_counts(packed, torch.from_numpy(mm).to(packed.device)).cpu().numpy()
-    return [out[g].astype(np.int64) for g in range(len(masks))]
+    out = []
+    for g0 in range(0, len(masks), 3):
+        cts = geno_counts(packed, torch.from_numpy(
+            np.ascontiguousarray(mm[:, g0 : g0 + 3])).to(packed.device))
+        out += [c.astype(np.int64) for c in cts.cpu().numpy()]
+    return out
 
 
 # ---------------------------------------------------------------------------

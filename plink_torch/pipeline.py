@@ -5,11 +5,13 @@ filters (keep/remove, founders, --mind), the variant filters
 (extract/exclude, chr), the counts-based reports and
 their filters (freq, geno-counts, missing, --geno, hardy, --hwe,
 --maf/--mac), the relationship commands (KING, then GRM / PCA), the sample
-reports (--het, --sample-counts, then --check-sex / --impute-sex),
+reports (--het, --sample-counts, --fst, then --check-sex / --impute-sex),
 --indep-pairwise, --indep-pairphase, the --r2/--r tables and matrices,
---ld, --variant-score, --score, then --glm, the pair-count commands
-(--genome, --distance, --cluster / --neighbour / --mds-plot, --ibs-test,
---groupdist, --regress-distance), and --clump last.
+--ld, --variant-score, --score, then --glm, --assoc / --model, the
+pair-count commands (--genome, --distance, --cluster / --neighbour /
+--mds-plot, --ibs-test, --groupdist, --regress-distance), --fast-epistasis,
+and --clump last.  1.9's --set / --make-set definitions are read after the
+QC filters.
 
 Every other flag raises NotPortedError before anything runs; the run never
 falls back to plink_tpu.
@@ -67,6 +69,13 @@ _PORTED_FIELDS = {
     "cluster", "cluster_k", "cluster_mc", "cluster_mcc", "cluster_ppc",
     "cluster_ibm", "ppc_gap", "neighbour", "mds_plot", "ibs_test",
     "groupdist", "regress_distance",
+    # plink 1.9's case/control association (--assoc / --model and their
+    # permutation tests), --fst, and --fast-epistasis with its set inputs
+    "assoc", "assoc_mods", "model", "model_mods", "allow_no_sex", "cell", "ci",
+    "fst", "fast_epistasis", "epi1", "epi2", "epi_gap", "je_cellmin",
+    "set_file", "make_set", "set_names_list", "subset_file", "make_set_border",
+    "make_set_collapse_group", "complement_sets", "set_collapse_all",
+    "make_set_complement_all", "gene_all", "gene_list",
 }
 
 
@@ -272,6 +281,13 @@ def run_pipeline(cfg: Config, device) -> int:
                 phenos[nm_] = _build_pheno(nm_, col)
             ds.si.phenos = phenos
         _filter_and_report(ds, cfg, log)
+        if cfg.set_file or cfg.make_set:
+            # 1.9's set definitions after the QC filters (--gene / --gene-all
+            # may narrow the variants); --fast-epistasis set-by-set /
+            # set-by-all defines them again, as plink_tpu does
+            from .commands.sets import define_sets
+
+            define_sets(ds, cfg, log)
         if cfg.make_king or cfg.make_king_table or cfg.king_cutoff is not None:
             from .commands.king import run_king
 
@@ -293,6 +309,11 @@ def run_pipeline(cfg: Config, device) -> int:
 
             with log.phase("--sample-counts"):
                 write_sample_counts(ds, cfg.out, log)
+        if cfg.fst:
+            from .commands.fst import run_fst
+
+            with log.phase("--fst"):
+                run_fst(ds, cfg, log)
         if cfg.check_sex is not None or cfg.impute_sex is not None:
             from .commands.check_sex import run_check_sex
 
@@ -333,6 +354,19 @@ def run_pipeline(cfg: Config, device) -> int:
 
             with log.phase("--glm"):
                 run_glm(ds, cfg, log)
+        if cfg.assoc or cfg.model:
+            from .commands import assoc19
+
+            with log.phase("--assoc/--model"):
+                if cfg.assoc:
+                    pc = next(iter(ds.si.phenos.values()), None)
+                    if pc is not None and pc.kind == "qt":
+                        raise NotPortedError(
+                            "--assoc on a quantitative phenotype is not yet "
+                            "ported to plink_torch.")
+                    assoc19.run_assoc(ds, cfg, log)
+                if cfg.model:
+                    assoc19.run_model(ds, cfg, log)
         if cfg.genome:
             from .commands.genome import run_genome
 
@@ -365,6 +399,11 @@ def run_pipeline(cfg: Config, device) -> int:
 
             with log.phase("--regress-distance"):
                 run_regress_distance(ds, cfg, log)
+        if cfg.fast_epistasis is not None:
+            from .commands.epistasis import run_fast_epistasis
+
+            with log.phase("--fast-epistasis"):
+                run_fast_epistasis(ds, cfg, log)
         if cfg.clump:
             from .commands.clump import run_clump
 

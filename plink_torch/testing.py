@@ -72,7 +72,8 @@ def relationship_output_close(ext: str, ref: str, got: str,
     if kind == ".rel":
         ra, rb = _rows(ref), _rows(got)
         return ([len(r) for r in ra] == [len(r) for r in rb]
-                and close_floats(sum(ra, []), sum(rb, []), text_rtol, text_floor))
+                and close_floats([x for r in ra for x in r], [x for r in rb for x in r],
+                                 text_rtol, text_floor))
     if kind == ".eigenval":
         return close_floats(np.loadtxt(ref), np.loadtxt(got), EIG_TOL)
     if kind in (".eigenvec", ".eigenvec.allele"):
@@ -586,3 +587,185 @@ def write_pair_report_inputs(d: str, p: str, afreq: str) -> None:
             f.write(f"#IID\t{name}\n")
             f.writelines(f"{x}\t{one if i == 3 else other}\n" for i, x in enumerate(iids))
     _write_moved_afreq(afreq, os.path.join(d, "moved.afreq"))
+
+
+# ---------------------------------------------------------------------------
+# plink 1.9's case/control family: --fast-epistasis (EPI_RUNS), --assoc /
+# --model and their permutation tests, and --fst (A19_RUNS).
+# tests/test_torch_epistasis.py and tests/test_torch_assoc19.py run them on
+# the CPU against plink_tpu, chip_smoke.py's 17h on the card against the
+# CPU.  Filesets: p (a hard-call panel with a case/control PHENO1), ep (its
+# copy on chr1 / chr2 at 150 kb spacing: write_epi_inputs), sx (its
+# chr1/X/Y/MT copy: write_sx_copy), wide (65,536 samples x 128 variants, so
+# that M * |group| >= 2^22 and plink_tpu takes its device dot for B8).
+# Every output is byte-identical, and so are the .log lines of
+# `pair_log_lines`.  `{d}` stands for the inputs' directory.
+# ---------------------------------------------------------------------------
+
+EPI_SPACING = 150_000  # bp between neighbouring variants of the ep copy
+EPI_SETS = {"setsA.txt": "1 100000 3000000 SETA\n",
+            "sets.txt": "1 100000 3000000 SETA\n1 4500000 9000000 SETB\n"}
+_EPI_CC = (".epi.cc", ".epi.cc.summary")
+_EPI_CO = (".epi.co", ".epi.co.summary")
+# (label, fileset, flags, outputs); every run adds --allow-no-sex
+EPI_RUNS = (
+    ("default", "ep", ["--fast-epistasis", "--epi1", "0.5"], _EPI_CC),
+    ("thresholds", "ep", ["--fast-epistasis", "--epi1", "0.5", "--epi2", "0.05"],
+     _EPI_CC),
+    ("no_ueki", "ep", ["--fast-epistasis", "no-ueki", "--epi1", "0.5"], _EPI_CC),
+    ("joint", "ep", ["--fast-epistasis", "joint-effects", "--je-cellmin", "2",
+                     "--epi1", "0.5"], _EPI_CC),
+    ("boost", "ep", ["--fast-epistasis", "boost", "--epi1", "0.01"], _EPI_CC),
+    ("nop", "ep", ["--fast-epistasis", "nop", "--epi1", "0.5"], _EPI_CC),
+    ("case_only_gap", "ep", ["--fast-epistasis", "case-only", "--gap", "500",
+                             "--epi1", "0.5"], _EPI_CO),
+    ("set_one", "ep", ["--fast-epistasis", "set-by-set", "--make-set",
+                       "{d}/setsA.txt", "--epi1", "0.5"], _EPI_CC),
+    ("set_two", "ep", ["--fast-epistasis", "set-by-set", "--make-set",
+                       "{d}/sets.txt", "--epi1", "0.5"], _EPI_CC),
+    ("set_all", "ep", ["--fast-epistasis", "set-by-all", "--make-set",
+                       "{d}/setsA.txt", "--epi1", "0.5"], _EPI_CC),
+    ("boost_sets", "ep", ["--fast-epistasis", "boost", "set-by-set", "--make-set",
+                          "{d}/sets.txt"], _EPI_CC),
+    ("set_file_names", "ep", ["--fast-epistasis", "set-by-all", "--set",
+                              "{d}/sets.set", "--set-names", "SETB", "--epi1", "0.5"],
+     _EPI_CC),
+    ("set_border_collapse", "ep", ["--fast-epistasis", "set-by-set", "--make-set",
+                                   "{d}/sets.txt", "--make-set-border", "200",
+                                   "--set-collapse-all", "ALL", "--epi1", "0.5"],
+     _EPI_CC),
+    ("set_gene", "ep", ["--fast-epistasis", "set-by-all", "--make-set",
+                        "{d}/setsA.txt", "--gene", "SETA", "--epi1", "0.5"], _EPI_CC),
+    ("set_complement", "ep", ["--fast-epistasis", "set-by-all", "--make-set",
+                              "{d}/setsA.txt", "--complement-sets", "--epi1", "0.01"],
+     _EPI_CC),
+    ("sx", "sx", ["--fast-epistasis", "--epi1", "0.5"], _EPI_CC),
+    ("wide", "wide", ["--fast-epistasis", "--epi1", "0.5"], _EPI_CC),
+    ("err_boost_case_only", "ep", ["--fast-epistasis", "boost", "case-only"], ()),
+    ("err_joint_no_ueki", "ep", ["--fast-epistasis", "joint-effects", "no-ueki"],
+     ()),
+    ("err_set_all_two", "ep", ["--fast-epistasis", "set-by-all", "--make-set",
+                               "{d}/sets.txt"], ()),
+    ("err_gene_empty_set", "ep", ["--fast-epistasis", "set-by-set", "--make-set",
+                                  "{d}/sets.txt", "--gene", "SETA"], ()),
+    ("err_cellmin", "ep", ["--fast-epistasis", "joint-effects", "--je-cellmin",
+                           "20"], ()),
+    ("err_qt", "ep", ["--fast-epistasis", "--pheno", "{d}/qt.txt", "--pheno-name",
+                      "QT"], ()),
+)
+# refused runs: label -> the message (FlagError, a ValueError)
+EPI_ERRORS = {
+    "err_boost_case_only": "--fast-epistasis boost does not have a case-only mode.",
+    "err_joint_no_ueki": "--fast-epistasis 'no-ueki' modifier cannot be used with "
+                         "'boost'/'joint-effects'.",
+    "err_set_all_two": "--{fast-}epistasis set-by-all requires exactly one set.  "
+                       "(--set-names or\n--set-collapse-all may be handy here.",
+    "err_cellmin": "Too few cases or controls for --je-cellmin 20.",
+    "err_gene_empty_set": "Each --{fast-}epistasis set must contain at least one "
+                          "autosomal diploid\nlocus not monomorphic in either cases "
+                          "or controls.",
+    "err_qt": "--fast-epistasis requires a case/control phenotype.",
+}
+
+FST_POPS = ("AFR", "AMR", "EAS", "EUR", "SAS")
+_FST_PAIRS = tuple(f".{a}.{b}.fst.var" for i, a in enumerate(FST_POPS)
+                   for b in FST_POPS[i + 1:])
+# (label, fileset, flags, outputs); every run adds --allow-no-sex but
+# "sx_sexed"
+A19_RUNS = (
+    ("assoc_model", "p", ["--assoc", "--model"], (".assoc", ".model")),
+    ("assoc_counts", "p", ["--assoc", "counts"], (".assoc",)),
+    ("assoc_ci", "p", ["--maf", "0.1", "--assoc", "--ci", "0.95"], (".assoc",)),
+    ("fisher", "p", ["--assoc", "fisher", "--model", "fisher"],
+     (".assoc.fisher", ".model")),
+    ("fisher_midp_cell", "p", ["--assoc", "fisher-midp", "--model", "fisher-midp",
+                               "--cell", "2"], (".assoc.fisher", ".model")),
+    ("assoc_perm", "p", ["--assoc", "perm", "--aperm", "6", "300", "--seed", "1"],
+     (".assoc", ".assoc.perm")),
+    ("assoc_mperm", "p", ["--assoc", "mperm=200", "--seed", "1"],
+     (".assoc", ".assoc.mperm")),
+    ("assoc_fisher_count", "p", ["--assoc", "fisher", "mperm=100", "perm-count",
+                                 "--seed", "1"],
+     (".assoc.fisher", ".assoc.fisher.mperm")),
+    ("model_mperm", "p", ["--model", "mperm=100", "--seed", "2"],
+     (".model", ".model.best.mperm")),
+    ("model_perm_trend", "p", ["--model", "perm", "trend", "--aperm", "6", "300",
+                               "--seed", "2"], (".model", ".model.trend.perm")),
+    ("model_dom_fisher", "p", ["--model", "fisher", "mperm=50", "dom", "--seed", "2"],
+     (".model", ".model.dom.fisher.mperm")),
+    ("model_rec", "p", ["--model", "mperm=50", "rec", "--seed", "2"],
+     (".model", ".model.rec.mperm")),
+    ("model_gen", "p", ["--model", "mperm=50", "gen", "--seed", "2"],
+     (".model", ".model.gen.mperm")),
+    ("sx_assoc_model", "sx", ["--assoc", "--model", "--cell", "2"],
+     (".assoc", ".model")),
+    ("sx_assoc_mperm", "sx", ["--assoc", "mperm=100", "--seed", "1"],
+     (".assoc", ".assoc.mperm")),
+    ("sx_sexed", "sx", ["--assoc", "--model"], (".assoc", ".model")),
+    ("fst_hudson", "p", ["--pheno", "{d}/pop.txt", "--fst", "POP",
+                         "report-variants"], (".fst.summary",) + _FST_PAIRS),
+    ("fst_wc", "p", ["--pheno", "{d}/pop.txt", "--fst", "POP", "method=wc",
+                     "report-variants"], (".fst.summary",) + _FST_PAIRS),
+    ("fst_block_x", "sx", ["--pheno", "{d}/pop.txt", "--fst", "POP", "blocksize=20",
+                           "report-variants"],
+     (".fst.summary", ".x.fst.summary") + _FST_PAIRS
+     + tuple(".x" + e for e in _FST_PAIRS)),
+    ("fst_base_nobs", "sx", ["--pheno", "{d}/pop.txt", "--fst", "POP", "cols=nobs",
+                             "base=AFR"], (".fst.summary", ".x.fst.summary")),
+    ("fst_ids", "p", ["--pheno", "{d}/pop.txt", "--fst", "POP", "method=wc",
+                      "ids=EUR", "SAS", "AFR"], (".fst.summary",)),
+    ("err_qassoc", "p", ["--pheno", "{d}/qt.txt", "--pheno-name", "QT", "--assoc"],
+     ()),
+    ("err_within", "p", ["--assoc", "perm", "--within", "{d}/clusters.txt"], ()),
+    ("err_set_test", "p", ["--assoc", "set-test", "mperm=10"], ()),
+)
+# runs the port refuses as not yet ported (exit code 2): label -> the start
+# of its message
+A19_NOT_PORTED = {"err_qassoc": "--assoc on a quantitative phenotype",
+                  "err_within": "--within",
+                  "err_set_test": "--assoc set-test"}
+
+
+def write_epi_inputs(d: str, p: str) -> None:
+    """EPI_RUNS's and A19_RUNS's files in directory d, from the hard-call
+    fileset p: ep (p's genotypes and samples, the first half of its
+    variants on chr1 and the rest on chr2, EPI_SPACING apart), sx
+    (write_sx_copy), EPI_SETS, sets.set (two --set blocks: 20 IDs of chr1
+    and an unknown one, 40 of chr2), pop.txt (FST_POPS, numpy seed 31),
+    qt.txt (a Gaussian QT, seed 33) and clusters.txt (four clusters)."""
+    import os
+    import shutil
+
+    ep = os.path.join(d, "ep")
+    for ext in (".pgen", ".psam"):
+        shutil.copy(p + ext, ep + ext)
+    with open(p + ".pvar") as f, open(ep + ".pvar", "w") as g:
+        g.write(f.readline())
+        lines = f.readlines()
+        half = len(lines) // 2
+        for i, ln in enumerate(lines):
+            t = ln.rstrip("\n").split("\t")
+            t[0] = "1" if i < half else "2"
+            t[1] = str(100_000 + (i % half) * EPI_SPACING)
+            g.write("\t".join(t) + "\n")
+    write_sx_copy(p, os.path.join(d, "sx"))
+    for name, text in EPI_SETS.items():
+        with open(os.path.join(d, name), "w") as f:
+            f.write(text)
+    ids = [v[0] for v in _variants(p)]
+    with open(os.path.join(d, "sets.set"), "w") as f:
+        f.write("SETA\n" + "\n".join(ids[5:25]) + "\nnosuch\nEND\n\nSETB\n"
+                + " ".join(ids[300:340]) + "\nEND\n")
+    hdr, rows = _samples(p)
+    iids = [r[hdr.index("IID")] for r in rows]
+    rng = np.random.default_rng(31)
+    with open(os.path.join(d, "pop.txt"), "w") as f:
+        f.write("#IID\tPOP\n")
+        f.writelines(f"{x}\t{FST_POPS[k]}\n"
+                     for x, k in zip(iids, rng.integers(0, len(FST_POPS), len(iids))))
+    rng = np.random.default_rng(33)
+    with open(os.path.join(d, "qt.txt"), "w") as f:
+        f.write("#IID\tQT\n")
+        f.writelines(f"{x}\t{v:.5f}\n" for x, v in zip(iids, rng.normal(size=len(iids))))
+    with open(os.path.join(d, "clusters.txt"), "w") as f:
+        f.writelines(f"{x}\t{x}\tc{i % 4}\n" for i, x in enumerate(iids))

@@ -675,3 +675,16 @@ def dtoa_g_wxp4(x: float, width: int) -> str:
     if neg:
         s = "-" + s
     return s.rjust(width)
+
+
+def fw_width(lengths, base: int = 4) -> int:
+    """1.9's sequential column-width rule of calc_plink_maxsnp /
+    calc_plink_maxfid (plink_misc.c:1771-1835; plink_tpu's
+    commands/homozyg.py `_fw_width`): the width starts at `base` and
+    jumps to len + 2 whenever an ID is longer than the current width, so it
+    depends on the IDs' order."""
+    w = base
+    for n in lengths:
+        if n > w:
+            w = n + 2
+    return w

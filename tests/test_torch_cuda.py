@@ -11,9 +11,11 @@ splits a variant's tiles over CTAs), the permuted linear scan's K19 /
 K20 at every design (P = 1, two columns, G x covariate columns, scaled)
 and batches of 5, 70 and 256 permutations, the weighted plane sums
 K21 / K22 (f64, f32 selectors, non-finite weights; 1 to 17 weight sets),
-and the weighted joint-missing Gram K23 on every lower tile of ragged
+the weighted joint-missing Gram K23 on every lower tile of ragged
 layouts (tiles not a multiple of 64, weights 2^32 - 1, a sample missing at
-every variant).
+every variant), and the --fast-epistasis joint tables K24 (groups not a
+multiple of 32 samples, one and two groups, a ragged row block, rows out
+of order, both A1 orientations).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card, from the
 repository root (the repo's conftest imports jax, which that machine lacks):
@@ -1013,3 +1015,42 @@ def test_wmiss_gram_kernel(dev, n, nb, vb, tile):
     s, t = tile - 8, tile - 36
     k = wmiss_gram(pk, vm, wt, npad - s, 4, s, t)
     assert torch.equal(k, wmiss_gram_plain(pk, vm, wt, npad - s, 4, s, t))
+
+
+@pytest.mark.parametrize("n,m,nb,groups", [(301, 77, 64, 2), (1000, 300, 256, 2),
+                                           (517, 130, 96, 1), (97, 65, 33, 2)])
+def test_epi_joint_counts_kernel(dev, n, m, nb, groups):
+    """K24 (packing pass and counting kernel) equals its plain version
+    exactly on seeded codes with 5% missing calls, a random A1 orientation
+    a variant and groups of odd sizes drawn from a sample subset; the last
+    row block is ragged and a second block takes rows out of order; two
+    launches identical, one counting launch a call and one packing launch
+    a run."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.epistasis import (epi_joint_tables_plain, joint_tables,
+                                           split_planes)
+
+    rng = np.random.default_rng(n + m)
+    V = m + 9
+    codes = rng.integers(0, 3, size=(V, n)).astype(np.uint8)
+    codes[rng.random((V, n)) < 0.05] = 3
+    buf = np.zeros((V, -(-n // 4) * 4), np.uint8)
+    buf[:, :n] = codes
+    buf = buf.reshape(V, -1, 4)
+    packed = buf[..., 0] | buf[..., 1] << 2 | buf[..., 2] << 4 | buf[..., 3] << 6
+    vidx = np.sort(rng.choice(V, m, replace=False))
+    a1 = rng.random(m) < 0.5
+    member = rng.integers(0, 3, size=n)  # 0 case, 1 control, 2 neither
+    grp = [np.flatnonzero(member == g) for g in range(groups)]
+    pk = torch.from_numpy(packed).to(dev)
+    before = dict(_cuda.LAUNCHES)
+    planes = split_planes(pk, vidx, a1, grp)
+    assert _cuda.LAUNCHES["epi_split_planes"] == before["epi_split_planes"] + 1
+    for rows in (np.arange(m - (m % nb or nb), m), rng.permutation(m)[:nb]):
+        k = joint_tables(planes, rows)
+        assert k.shape == (groups, rows.size, m, 9) and k.dtype == torch.int32
+        want = epi_joint_tables_plain(pk, vidx, a1, grp, rows)
+        assert torch.equal(k, want), rows[:4]
+        assert torch.equal(k, joint_tables(planes, rows))
+    assert _cuda.LAUNCHES["epi_joint_counts"] == before["epi_joint_counts"] + 4
+

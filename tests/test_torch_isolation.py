@@ -38,6 +38,11 @@ def test_import_leaves_jax_out():
         "import plink_torch.commands.cluster, plink_torch.commands.ibs_test\n"
         "import plink_torch.commands.groupdist\n"
         "import plink_torch.stats.sfmt, plink_torch.stats.perm19\n"
+        "import plink_torch.commands.epistasis, plink_torch.ops.epistasis\n"
+        "import plink_torch.commands.sets, plink_torch.commands.fst\n"
+        "import plink_torch.commands.assoc19, plink_torch.commands.model_perm\n"
+        "import plink_torch.stats.assoc_perm19, plink_torch.stats.binom19\n"
+        "import plink_torch.stats.cdflib19\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -70,3 +75,21 @@ def test_source_imports_no_jax(path):
             continue
         for nm in names:
             assert nm.split(".")[0] not in FORBIDDEN, f"{path}: imports {nm}"
+
+
+def test_kernel_argtypes_match_c_signatures():
+    """Each kernel entry point's ctypes argument types (the stream last)
+    are as many as its C function's parameters: a missing one makes ctypes
+    pass the stream handle as a 32-bit int."""
+    import re
+
+    from plink_torch.ops import _cuda
+
+    for name, (fn, argtypes) in _cuda._ENTRY.items():
+        with open(os.path.join(_cuda._CSRC, _cuda._SOURCE.get(name, name) + ".cu")) as f:
+            src = f.read()
+        m = re.search(r"PT_EXPORT int " + fn + r"\((.*?)\)\s*\{", src, re.S)
+        assert m, (name, fn)
+        params = [a for a in m.group(1).split(",") if a.strip()]
+        assert len(params) == len(argtypes), (name, len(params), len(argtypes))
+        assert "stream" in params[-1], (name, params[-1])

@@ -200,14 +200,15 @@ def test_pair_flags_are_ported():
 @pytest.mark.parametrize("flags,name", [
     (["--within", "w.txt"], "--within"),
     (["--make-perm-pheno", "5"], "--make-perm-pheno"),
-    (["--assoc"], "--assoc"),
-    (["--fast-epistasis"], "--fast-epistasis"),
+    (["--assoc", "--test-missing"], "--test-missing"),
+    (["--fast-epistasis", "--epistasis"], "--epistasis"),
     (["--distance", "--homozyg"], "--homozyg"),
 ], ids=["within", "make-perm-pheno", "assoc", "fast-epistasis", "homozyg"])
 def test_neighbouring_flags_still_refused(flags, name):
     """The flags beside this slice that plink_tpu runs with it are still
-    refused: the cluster files of --within, --make-perm-pheno, --assoc,
-    --fast-epistasis and --homozyg."""
+    refused: the cluster files of --within, --make-perm-pheno, --homozyg,
+    and beside --assoc and --fast-epistasis (ported since) --test-missing
+    and --epistasis."""
     from plink_torch.cli import parse_args
     from plink_torch.pipeline import _unported_flags
 
