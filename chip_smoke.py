@@ -136,7 +136,8 @@ the order they run:
      K19 against its plain version in f32 (every row) and f64
      (JOINT_F64_ROWS rows), K20 against its plain version in f64 on the
      same inputs; two runs identical; each timed beside its bound and one
-     library call;
+     library call (K19, on the tensor cores since slice 14, beside both
+     its tensor-core bound, three bf16 products a term, and the FP32 one);
   4e. on the joint-model panel (500,000 x 1,024): the linear `--glm
      hide-covar mperm=268 --seed 1` and `aperm --aperm 6 268` on a QT
      with two planted variants, and `--glm firth hide-covar mperm=33` on
@@ -4140,6 +4141,8 @@ PERM_N_FIRTH = 8  # (variant, permutation) pairs held to numpy f64 Firth (and
 # the Firth path's variants: 16 -> 8 in slice 10, ~0.6 s of host refit each)
 TOL_PERM_STAT = 1e-5  # K20 (f64 inside) vs its plain version in f64 on the
 # same f32 inputs: the final rounding to f32, relative to max(|stat|, 1)
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense: K19 runs each
+# f32 product as three exact bf16 products there (csrc/linear_perm.cu)
 
 
 def _perm_xty_scale(torch, G, pk, gw, c, Y, mask, covj, sscale=None):
@@ -4158,8 +4161,11 @@ def _perm_xty_scale(torch, G, pk, gw, c, Y, mask, covj, sscale=None):
 
 
 def _xty_err(torch, k, p, scale):
-    return max(float(((k[0] - p[0]).abs() / scale[0]).max()),
-               float(((k[1] - p[1]).abs() / scale[1]).max()))
+    """Max |k - p| / scale over xty and yy (a zero column of Y, as the
+    permutation paths pad it to K19's width, has scale 0 and reads 0 here
+    when k = p = 0)."""
+    return max(float(((k[0] - p[0]).abs() / scale[0].clamp(min=1e-30)).max()),
+               float(((k[1] - p[1]).abs() / scale[1].clamp(min=1e-30)).max()))
 
 
 def _stat_err(torch, k, p):
@@ -4183,7 +4189,9 @@ def check_perm_kernels(torch, dev, prefix):
     Two runs identical; each timed beside its bound and one library call
     (K19: an f32 torch.matmul, TF32 off, of the decoded valid plane by
     [c (*) Y | Y^2], 13 of its 14 rows at P = 1; K20: torch.bmm of the
-    inverses by X^T y, its first product)."""
+    inverses by X^T y, its first product).  K19's bound is that of its
+    tensor-core form (each f32 product as three exact bf16 products at the
+    dense bf16 rate); the FP32 rate's is kept beside it."""
     import numpy as np
 
     from plink_torch.ops import glm as G
@@ -4234,9 +4242,11 @@ def check_perm_kernels(torch, dev, prefix):
         assert e <= TOL_VS_PLAIN and er <= TOL_VS_F64, (name, e, er)
         ms = time_ms(torch, lambda: G.linear_perm_xty(pk, gw, c, Y, mask, covj), 3)
         rows = dc + P + 1
-        bound = _bound(2.0 * PERM_B * rows * n_valid,
-                       pk.numel() + (gw.numel() + c.numel() + Y.numel() + mask.numel()
-                                     + k[0].numel() + k[1].numel()) * 4)
+        nbytes = pk.numel() + (gw.numel() + c.numel() + Y.numel() + mask.numel()
+                               + k[0].numel() + k[1].numel()) * 4
+        fp32 = _bound(2.0 * PERM_B * rows * n_valid, nbytes)
+        bound = _bound(3 * 2.0 * PERM_B * rows * n_valid, nbytes, BF16_FLOP_PER_S)
+        bound["fp32_bound_ms"] = fp32["bound_ms"]
         # K20 on the K2 / K15 and K4 inverses of the design
         (inv, inv0, nm), = G.perm_inverses(pk[None], gw[None], c, mask, covj, q)
         st = G.linear_perm_stat(inv, *k, nm, dc, q, inv0)
@@ -4257,8 +4267,9 @@ def check_perm_kernels(torch, dev, prefix):
         slib = time_ms(torch, lambda: torch.bmm(inv, k[0]), 10)
         log(f"K19 linear_perm_xty {name} [{vb}x{npad}, P={P}, B={PERM_B}]: norm err "
             f"vs plain {e:.2e}, vs f64 ({JOINT_F64_ROWS} rows) {er:.2e}, two runs "
-            f"identical; {ms:.3f} ms, plain {pms:.1f} ms, bound "
-            f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); K20 [{name}, d={d}, "
+            f"identical; {ms:.3f} ms, plain {pms:.1f} ms, bound on the tensor "
+            f"cores {bound['bound_ms']:.3f} ms ({bound['bound_by']}), at the FP32 "
+            f"rate {fp32['bound_ms']:.3f} ms; K20 [{name}, d={d}, "
             f"q={q}]: err vs plain in f64 {es:.2e} (tol {TOL_PERM_STAT:g}), vs the "
             f"f32 plain {e32:.2e}, {int(torch.isnan(st[:, 0]).sum())} singular rows "
             f"NaN in both; {sms_:.4f} ms, plain {sms:.2f} ms, bound "
@@ -4279,7 +4290,7 @@ def check_perm_kernels(torch, dev, prefix):
     torch.cuda.empty_cache()
     x_add, s_add = res["additive"]
     extra = {f"{nm_}_{key}": res[nm_][0][key] for nm_ in ("genotypic", "interaction")
-             for key in ("ms", "plain_ms", "bound_ms")}
+             for key in ("ms", "plain_ms", "bound_ms", "fp32_bound_ms")}
     sextra = {f"{nm_}_{key}": res[nm_][1][key] for nm_ in ("genotypic", "interaction")
               for key in ("ms", "bound_ms")}
     return [dict(name="linear_perm_xty", source="plink_torch/csrc/linear_perm.cu",
@@ -4395,7 +4406,7 @@ def check_perm_firth_pairs(prefix, stats, y, pairs, a1_alt):
 
 def run_perm_paths(torch, prefix, tmp, card):
     """Phase 4e: the permutation paths on the joint-model panel (500,000 x
-    2,048: one block; SEX + 10 PCs): the linear `--glm hide-covar
+    JOINT_VARIANTS: one block; SEX + 10 PCs): the linear `--glm hide-covar
     mperm=268 --seed 1` (PERM_MPERM) and the same with `aperm --aperm 6
     268` (two
     batches: the planted variants run to the maximum) on QTP =

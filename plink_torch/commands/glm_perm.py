@@ -156,12 +156,14 @@ def _perm_group_setups(ds, smask, groups, cov_names, cov_data, a1_is_alt,
     return setups, test_rows, q_joint
 
 
-def _batch_on_device(st, Yt):
+def _batch_on_device(st, Yt, width=None):
     """The group's rows of the permuted batch Yt f32 [Bc, n_union] (on the
-    device) as the scans take it: f32 [npad, Bc], padding rows 0."""
-    Yb = torch.zeros((st["npad"], Yt.shape[0]), dtype=torch.float32,
+    device) as the scans take it: f32 [npad, width] (Bc columns unless
+    given), padding rows and columns 0."""
+    Bc = Yt.shape[0]
+    Yb = torch.zeros((st["npad"], width or Bc), dtype=torch.float32,
                      device=Yt.device)
-    Yb[: st["n"]] = Yt[:, st["sel"]].t()
+    Yb[: st["n"], :Bc] = Yt[:, st["sel"]].t()
     return Yb
 
 
@@ -199,7 +201,7 @@ def glm_linear_perm(ds, cfg, log, pheno_name, ydata, smask, cov_names,
     <out>.<pheno>.glm.linear.{mperm,aperm}.  EMP1 compares |t| (the joint
     F for genotypic / hethom) with the original report's; max(T)'s EMP2
     compares ln p."""
-    from ..ops.glm import linear_perm_multi_scan, perm_inverses
+    from ..ops.glm import linear_perm_multi_scan, perm_batch_width, perm_inverses
 
     adaptive = perm_mode == "adaptive"
     aperm = cfg.aperm or _APERM_DEFAULT
@@ -239,13 +241,16 @@ def glm_linear_perm(ds, cfg, log, pheno_name, ydata, smask, cov_names,
         for p in range(Bc):
             Yt[p] = rng.permutation(ys)
         Yt = torch.from_numpy(Yt).to(ds.device)
+        # on the card, zero columns up to the width K19 reads without a
+        # copy; their statistics are dropped
+        width = perm_batch_width(Bc) if Yt.device.type == "cuda" else Bc
         tp = np.zeros((T, Bc), np.float64)
         for st in setups:
             pd_g = st["pd"]
             t_all = linear_perm_multi_scan(
-                pd_g.packed, st["gw"], st["c"], _batch_on_device(st, Yt),
+                pd_g.packed, st["gw"], st["c"], _batch_on_device(st, Yt, width),
                 st["mask"], st["dc"], st["covj"], q_joint, st["sscale"],
-                inverses=st["inv"]).cpu().numpy()
+                inverses=st["inv"])[..., :Bc].cpu().numpy()
             sf = t_all.reshape(pd_g.nblocks * pd_g.vb, Bc)[st["rows"]]
             sf = sf.astype(np.float64)
             # joint models compare raw F (one-sided); single effects |t|

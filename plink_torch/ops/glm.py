@@ -100,6 +100,13 @@ def _check(name, t, dtype, shape, device):
 # 2,048), and a second pass adds the splits in f64.  A constant, so the
 # summation order, hence every output byte, is the same on any card.
 _SPLIT = 2048
+# Samples per f32 run of K19 (csrc/linear_perm.cu), a quarter of _SPLIT: the
+# tensor cores truncate as they accumulate, so a run of positive terms (the
+# yy row) drifts low in proportion to its length, and at 2,048 samples that
+# drift comes within a factor of two of chip_smoke's f64 tolerance (2e-5)
+# (tools/k19_breakdown.py measures it); a run's end only adds each
+# thread's sums into f64.
+_PERM_RUN = 512
 
 
 def _splits(npad: int) -> tuple[int, int]:
@@ -1182,13 +1189,38 @@ def linear_perm_xty_plain(packed, gw, c, Y, mask, covj=None, sscale=None):
     return torch.stack(parts, dim=1), valid @ (Y * Y)
 
 
+def perm_code_weights(gw):
+    """The weight of each genotype code that K19 decodes into a bf16
+    operand of the tensor cores, from plane weights gw [vb, P, 3] (het,
+    hom-ALT, valid): [vb, P, 3] for codes 0, 1, 2 (wV, wH + wV, wA + wV; a
+    missing call weighs 0).  Raises ValueError unless gw and these are
+    finite and exact in bf16, as the small integers of every model the
+    permutation paths build are (commands/glm.py `_geno_predictors`)."""
+    w = torch.stack([gw[..., 2], gw[..., 0] + gw[..., 2], gw[..., 1] + gw[..., 2]],
+                    dim=-1)
+    both = torch.cat([gw, w], dim=-1)
+    if not (bool(torch.isfinite(both).all())
+            and torch.equal(both.to(torch.bfloat16).to(both.dtype), both)):
+        raise ValueError("linear_perm_xty: genotype plane weights (and their "
+                         "per-code sums) must be finite and exact in bf16")
+    return w
+
+
+def perm_batch_width(B: int) -> int:
+    """The width of Y that K19 reads without a copy: B permutations
+    rounded up to a multiple of 4 (zero columns past B)."""
+    return -(-B // 4) * 4
+
+
 def linear_perm_xty(packed, gw, c, Y, mask, covj=None, sscale=None):
     """K19: the permuted right-hand sides of one block's linear designs
     (`linear_perm_xty_plain`).  packed uint8 [vb, NB], gw f32 [vb, P, 3]
     (or [vb, 3]), c f32 [4*NB, dc], Y f32 [4*NB, B], mask f32 [4*NB]; covj
     (P ints) multiplies G_p by c[:, covj[p]] when covj[p] > 0; sscale f32
-    [4*NB] multiplies every G.  CUDA tensors launch csrc/linear_perm.cu
-    (f32 within 2,048-sample splits, f64 across them)."""
+    [4*NB] multiplies every G.  CUDA tensors launch csrc/linear_perm.cu on
+    the tensor cores (each f32 product split exactly into three bf16
+    parts; f32 within runs of _PERM_RUN samples, f64 across them), after
+    `perm_code_weights` has checked gw."""
     vb, nb = packed.shape
     gw3 = _gw3(gw)
     P = gw3.shape[1]
@@ -1209,13 +1241,27 @@ def linear_perm_xty(packed, gw, c, Y, mask, covj=None, sscale=None):
         return linear_perm_xty_plain(packed, gw3, c, Y, mask, covj, sscale)
     if dev.type != "cuda":
         raise ValueError(f"linear_perm_xty: unsupported device {dev}")
-    xty = torch.empty((vb, dc + P, B), dtype=torch.float32, device=dev)
-    yy = torch.empty((vb, B), dtype=torch.float32, device=dev)
+    perm_code_weights(gw3)
+    # the kernel copies 16-byte pieces of Y's and c's rows: a Y of another
+    # width or alignment (the permutation paths build theirs at
+    # `perm_batch_width`) goes through a zero-padded copy, whose extra
+    # columns' sums are dropped
+    Bp = perm_batch_width(B)
+    Yp = Y
+    if Bp != B or Y.data_ptr() % 16:
+        Yp = torch.zeros((4 * nb, Bp), dtype=torch.float32, device=dev)
+        Yp[:, :B] = Y
+    if c.data_ptr() % 16:
+        c = c.clone()
+    xty = torch.empty((vb, dc + P, Bp), dtype=torch.float32, device=dev)
+    yy = torch.empty((vb, Bp), dtype=torch.float32, device=dev)
     cj = torch.tensor([j if j else -1 for j in covj], dtype=torch.int32, device=dev)
     _cuda.launch("linear_perm_xty", packed.data_ptr(), nb, vb, gw3.data_ptr(), P,
-                 c.data_ptr(), dc, Y.data_ptr(), B, mask.data_ptr(),
-                 cj.data_ptr(), _cuda.ptr(sscale), _SPLIT, xty.data_ptr(),
+                 c.data_ptr(), dc, Yp.data_ptr(), Bp, mask.data_ptr(),
+                 cj.data_ptr(), _cuda.ptr(sscale), _PERM_RUN, xty.data_ptr(),
                  yy.data_ptr())
+    if Bp != B:
+        xty, yy = xty[..., :B].contiguous(), yy[:, :B].contiguous()
     return xty, yy
 
 

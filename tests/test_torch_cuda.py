@@ -8,10 +8,12 @@ K16), the dosage kernels K17 / K18 (and K15 / K16's dense mode above 16
 covariate columns), and matrix sizes past every shared-memory layout of
 chol_small (d = 250 works in device memory) and of K15 / K16 (d = 128
 splits a variant's tiles over CTAs), the permuted linear scan's K19 /
-K20 at every design (P = 1, two columns, G x covariate columns, scaled)
-and batches of 5, 70 and 256 permutations, the weighted plane sums
-K21 / K22 (f64, f32 selectors, non-finite weights; 1 to 17 weight sets),
-the weighted joint-missing Gram K23 on every lower tile of ragged
+K20 at every design (P = 1, two columns, G x covariate columns, scaled),
+batches of 1, 5, 70, 134 and 256 permutations, sample and variant counts
+off K19's tiles, 70 covariate columns, code rows off alignment, the
+layouts its entry point refuses and its bf16 weight check, the weighted plane sums K21 / K22 (f64, f32
+selectors, non-finite weights; 1 to 17 weight sets), the weighted
+joint-missing Gram K23 on every lower tile of ragged
 layouts (tiles not a multiple of 64, weights 2^32 - 1, a sample missing at
 every variant), and the --fast-epistasis joint tables K24 (groups not a
 multiple of 32 samples, one and two groups, a ragged row block, rows out
@@ -826,11 +828,18 @@ def test_glm_wide_kernels_at_d128(dev, mode):
 
 
 PERM_DESIGNS = ["p1", "p2", "interaction", "p2_scaled"]
+# K19's tiles are 128 variants x 32 samples, its f32 runs 512 samples
+# (plink_torch.ops.glm._PERM_RUN), and it copies a row's code bytes 8 or 4
+# at a time when the row length allows (else byte by byte): 2,085 samples
+# (ragged stage, five runs, byte copies) over 300 variants, 4,112 (4-byte
+# copies, a ragged ninth run) over 129, 4,128 (8-byte copies, nine runs)
+# over 257
+PERM_SHAPES = SHAPES + [(2085, 300, 5), (4112, 129, 2), (4128, 257, 12)]
 
 
-@pytest.mark.parametrize("B", [5, 70, 256])
+@pytest.mark.parametrize("B", [1, 5, 70, 134, 256])
 @pytest.mark.parametrize("design", PERM_DESIGNS)
-@pytest.mark.parametrize("n,vb,dc", SHAPES)
+@pytest.mark.parametrize("n,vb,dc", PERM_SHAPES)
 def test_linear_perm_kernels(dev, n, vb, dc, design, B):
     """K19 (the permuted X^T y and y^T y) against its plain version in f64,
     normalised by the sum of the terms' magnitudes, two runs identical; K20
@@ -883,6 +892,115 @@ def test_linear_perm_kernels(dev, n, vb, dc, design, B):
     assert float(((k - p).abs() / p.abs().clamp(min=1.0))[good].max()) <= 1e-5
     again = linear_perm_stat(inv, xty, yy, nm, dc, q, inv0)
     assert torch.equal(k.view(torch.int32), again.view(torch.int32))  # NaN too
+
+
+@pytest.mark.parametrize("B", [5, 134])
+@pytest.mark.parametrize("design", ["p1", "p2_scaled"])
+def test_linear_perm_xty_many_covariates(dev, design, B):
+    """K19 with more than 63 covariate columns: a column tile of the
+    valid-plane rows then holds fewer than all dc + 1 of a permutation's
+    rows, and its c columns are staged as a range that wraps past the yy
+    row; against the plain version in f64 as above, two runs identical."""
+    from plink_torch.ops.glm import linear_perm_xty, linear_perm_xty_plain
+
+    n, vb, dc = 700, 150, 70
+    packed, feat, gw = _inputs(n, vb, dc, 53)
+    rng = np.random.default_rng(54)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    c, mask = f[:, :dc].contiguous(), f[:, dc + 1].contiguous()
+    if design == "p1":
+        g3, covj, ss = torch.from_numpy(gw)[:, None].contiguous(), (0,), None
+    else:
+        g3, covj = _design(gw, dc, "p2")
+        ss = torch.from_numpy(np.where(rng.random(f.shape[0]) < 0.5, 0.5, 1.0)
+                              .astype(np.float32)).to(dev)
+    g3 = g3.to(dev)
+    Y = torch.from_numpy(rng.normal(1.0, 2.0, size=(f.shape[0], B))
+                         .astype(np.float32)).to(dev) * mask[:, None]
+    xty, yy = linear_perm_xty(pk, g3, c, Y, mask, covj, ss)
+    dbl = (lambda t: None if t is None else t.double())
+    p_xty, p_yy = linear_perm_xty_plain(pk, g3.double(), c.double(), Y.double(),
+                                        mask.double(), covj, dbl(ss))
+    a_xty, a_yy = linear_perm_xty_plain(pk, g3.double().abs(), c.double().abs(),
+                                        Y.double().abs(), mask.double(), covj,
+                                        dbl(ss))
+    assert float(((xty - p_xty).abs() / a_xty.clamp(min=1e-30)).max()) <= TOL
+    assert float(((yy - p_yy).abs() / a_yy.clamp(min=1e-30)).max()) <= TOL
+    again = linear_perm_xty(pk, g3, c, Y, mask, covj, ss)
+    assert torch.equal(xty, again[0]) and torch.equal(yy, again[1])
+
+
+@pytest.mark.parametrize("B", [4, 136])
+def test_linear_perm_xty_entry_layouts(dev, B):
+    """K19's C entry point on code rows one byte off alignment (copied
+    byte by byte, every stage on the checked path), against the plain
+    version in f64; its refusal of what its 16-byte copies cannot take (a B
+    that is not a multiple of 4, Y or c off 16-byte alignment); and the
+    wrapper, which copies such a Y and c away, giving the same bytes."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.glm import _PERM_RUN, linear_perm_xty, linear_perm_xty_plain
+
+    n, vb, dc = 2085, 150, 5
+    packed, feat, gw = _inputs(n, vb, dc, 56)
+    rng = np.random.default_rng(57)
+    nb = packed.shape[1]
+    pbuf = torch.zeros(vb * nb + 1, dtype=torch.uint8, device=dev)
+    pbuf[1:] = torch.from_numpy(packed).reshape(-1).to(dev)
+    pk = pbuf[1:].view(vb, nb)
+    f = torch.from_numpy(feat).to(dev)
+    c = f[:, :dc].contiguous()
+    mask = f[:, dc + 1].contiguous()
+    g3 = torch.from_numpy(gw)[:, None].contiguous().to(dev)
+    Y = torch.from_numpy(rng.normal(1.0, 2.0, size=(f.shape[0], B))
+                         .astype(np.float32)).to(dev) * mask[:, None]
+    xty = torch.empty((vb, dc + 1, B), dtype=torch.float32, device=dev)
+    yy = torch.empty((vb, B), dtype=torch.float32, device=dev)
+    cj = torch.tensor([-1], dtype=torch.int32, device=dev)
+
+    def launch(c_ptr, Y_ptr, width):
+        _cuda.launch("linear_perm_xty", pk.data_ptr(), nb, vb, g3.data_ptr(), 1, c_ptr,
+                     dc, Y_ptr, width, mask.data_ptr(), cj.data_ptr(), None, _PERM_RUN,
+                     xty.data_ptr(), yy.data_ptr())
+
+    launch(c.data_ptr(), Y.data_ptr(), B)
+    p_xty, p_yy = linear_perm_xty_plain(pk, g3.double(), c.double(), Y.double(),
+                                        mask.double(), (0,))
+    a_xty, a_yy = linear_perm_xty_plain(pk, g3.double().abs(), c.double().abs(),
+                                        Y.double().abs(), mask.double(), (0,))
+    assert float(((xty - p_xty).abs() / a_xty.clamp(min=1e-30)).max()) <= TOL
+    assert float(((yy - p_yy).abs() / a_yy.clamp(min=1e-30)).max()) <= TOL
+    for c_ptr, Y_ptr, width in [(c.data_ptr(), Y.data_ptr(), B - 1),
+                                (c.data_ptr() + 4, Y.data_ptr(), B),
+                                (c.data_ptr(), Y.data_ptr() + 4, B)]:
+        with pytest.raises(RuntimeError, match="linear_perm_xty failed"):
+            launch(c_ptr, Y_ptr, width)
+    # the wrapper on c and Y one float off alignment: the same bytes
+    off = [torch.zeros(t.numel() + 1, dtype=torch.float32, device=dev) for t in (c, Y)]
+    for buf, t in zip(off, (c, Y)):
+        buf[1:] = t.reshape(-1)
+    got = linear_perm_xty(pk, g3, off[0][1:].view_as(c), off[1][1:].view_as(Y), mask,
+                          (0,))
+    assert torch.equal(got[0], xty) and torch.equal(got[1], yy)
+
+
+def test_linear_perm_xty_guard(dev):
+    """K19 decodes the per-code genotype weights into bf16: plane weights
+    that are not exact there raise before any launch."""
+    from plink_torch.ops import _cuda
+    from plink_torch.ops.glm import linear_perm_xty
+
+    packed, feat, gw = _inputs(203, 70, 1, 55)
+    pk = torch.from_numpy(packed).to(dev)
+    f = torch.from_numpy(feat).to(dev)
+    c, mask = f[:, :1].contiguous(), f[:, 2].contiguous()
+    Y = torch.ones((f.shape[0], 3), dtype=torch.float32, device=dev)
+    g3 = torch.from_numpy(gw)[:, None].contiguous().to(dev)
+    g3[7, 0, 1] = 2.0 + 2.0 ** -9
+    before = _cuda.LAUNCHES["linear_perm_xty"]
+    with pytest.raises(ValueError, match="exact in bf16"):
+        linear_perm_xty(pk, g3, c, Y, mask)
+    assert _cuda.LAUNCHES["linear_perm_xty"] == before
 
 
 def _nonfinite_spw(rng, V, K):
