@@ -25,9 +25,9 @@ Phases, each of which raises on failure (nothing is caught):
      slice 10: the parity panel holds every report CUDA = CPU), and 64
      report rows must agree with a numpy f64 least-squares fit; then once
      more under torch.profiler;
-  6. pair kernels: K7 (KING) and K8 (GRM) against their plain versions on
-     the 50,000 x 32,768 panel of bench.py's king_50k / grm_50k, timed beside
-     their bound and one library call;
+  6. pair kernels: K7 (KING; two runs identical) and K8 (GRM) against their
+     plain versions on the 50,000 x 32,768 panel of bench.py's king_50k /
+     grm_50k, timed beside their bound and one library call;
   7. relationship paths on that panel: `--make-king-table
      --king-table-filter 0.044` (the .kin0 must equal plink2's, header only)
      and `--make-grm-bin` (16 windows of plink2's .grm.bin, the first
@@ -49,7 +49,8 @@ Phases, each of which raises on failure (nothing is caught):
      set-equal to plink2's; K1 and K11 launched; then under torch.profiler;
  11. LD report kernels: K12 on the whole indep_10k subcontig at width 200
      and K13 over the 136 chunk pairs of the matrix cell, each exactly
-     equal to its plain version, timed beside its bound and a bf16 matmul;
+     equal to its plain version, timed beside its bound and a bf16 matmul
+     (K13 at 512 x 512 and at the phased table's 256 x 256);
  12. LD tables on indep_10k: `--r2-unphased --ld-window-kb 0.2
      --ld-window-r2 0.001` (K12; then under torch.profiler) and
      `--r2-phased --ld-window-kb 0.005 --ld-window-r2 0.001` (K12, K13),
@@ -94,8 +95,10 @@ Slice 7 (the --glm joint models) adds, in the order they run:
      and residualized at d = 2), K15 / K16 on the interaction designs
      d = 24 and 36, K4 at d = 36 and 64, each against its plain version in
      f32 (every row) and f64 (JOINT_F64_ROWS rows), on block 0 of phase
-     4's panel;
-  4c. on a 500,000 x 1,024 panel: `--glm genotypic hide-covar`, `--glm
+     4's panel; the library call of K2 / K3 / K16 is the valid plane by the
+     products of K2's table (the moments part only: no single call does an
+     IRLS pass), K15's one bmm that gives the d = 24 design's own moments;
+  4c. on a 500,000 x 512 panel: `--glm genotypic hide-covar`, `--glm
      interaction`, `--glm dominant hide-covar --condition-list` (three
      variants) and `--glm genotypic cc-residualize hide-covar`, 8 rows
      (N_JOINT_ROWS) of each report against numpy f64 fits (GENO_2DF from the f64 joint
@@ -123,7 +126,7 @@ run:
      each report against numpy f64 fits of the dosage design; the logistic
      path traced;
   17d. the dosage --glm on a 4,500 x 600 dosage panel, CUDA against CPU
-     on 200 of its variants (hybrid, firth with K18's firth2, no-firth,
+     on 128 of its variants (hybrid, firth with K18's firth2, no-firth,
      qt-residualize; the host route's genotypic and interaction on 64), and
      `interaction` over 48 covariates (d = 98) on 64 variants of the parity
      panel; two card runs byte-identical.
@@ -138,7 +141,7 @@ the order they run:
      same inputs; two runs identical; each timed beside its bound and one
      library call (K19, on the tensor cores since slice 14, beside both
      its tensor-core bound, three bf16 products a term, and the FP32 one);
-  4e. on the joint-model panel (500,000 x 1,024): the linear `--glm
+  4e. on the joint-model panel (500,000 x 512): the linear `--glm
      hide-covar mperm=268 --seed 1` and `aperm --aperm 6 268` on a QT
      with two planted variants, and `--glm firth hide-covar mperm=33` on
      PHENO1: K19, K20, K2 and K4 (K3 for Firth) launched, every K19 / K20
@@ -296,10 +299,10 @@ N_CHECK_ROWS = 16
 # script's time (each row's f64 fit at 500,000 samples is ~0.5-2 s of host
 # time)
 N_JOINT_ROWS = 8
-# variants of the joint-model and permutation paths' panel (one block): 2,048
-# until slice 12, cut for the script's time (the genotypic paths' host
-# rechecks and the permutation counts grow with the variants)
-JOINT_VARIANTS = 1_024
+# variants of the joint-model and permutation paths' panel (one block): cut
+# 2,048 -> 1,024 -> 512 for the script's time (the genotypic paths' host
+# rechecks, the writers and the permutation counts grow with the variants)
+JOINT_VARIANTS = 512
 JOINT_F64_ROWS = 256  # rows of each joint-model kernel check also held to f64
 # the dosage paths (slice 8): the port's own --dummy writes a 500,000-sample
 # panel with dosage tracks on 70% of the calls; variants cut 16,384 -> 512,
@@ -458,8 +461,8 @@ def card_report(torch):
 def build():
     """Build every kernel library; print per kernel entry (template
     arguments from the mangled name) its registers and spill bytes, for the
-    untemplated kernels, the covariate width of the main path (dc = 12) and
-    wherever ptxas spilled."""
+    untemplated kernels, the covariate width of the main path (dc = 12),
+    K13's three copy widths and wherever ptxas spilled."""
     from plink_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -481,7 +484,7 @@ def build():
                 short = re.search(r"\d+([a-z_]+_kernel)", entry)
                 short = short.group(1) if short else entry
                 if (spill or not args or args[0] in ("12", "13", "15")
-                        or "wide" in short):
+                        or "wide" in short or short == "ld_gram_kernel"):
                     log(f"  {short}<{','.join(args)}>: {m.group(1)} registers, "
                         f"{spill} bytes spilled")
                 entry, spill = None, 0
@@ -1114,6 +1117,34 @@ def check_joint_kernels(torch, dev, prefix):
         ccfl = (t[:, :, None] * t[:, None, :]).reshape(npad, -1)
         return time_ms(torch, lambda: torch.matmul(valid_f, ccfl), 3)
 
+    def lib_wide(key):
+        """K15's moments at a design whose predictors share one coding g:
+        the valid, g and g^2 planes [3, vb, npad] by the per-sample products
+        of the columns K15 forms (cy x cy, f_p x cy, f_p x f_q with f_p =
+        cy[:, covj_p], or 1 at covj_p = 0; ADD appended as mom_check does),
+        zero-padded to one width: one f32 torch.bmm."""
+        gw3, covj = designs[key]
+        assert bool((gw3 == add[:, None]).all()), key  # one coding: ADD
+        cy = feat[:, : dc + 1]
+        f = torch.stack([cy[:, j] if j else torch.ones_like(cy[:, 0])
+                         for j in covj + (0,)], 1)
+        prods = [cy[:, :, None] * cy[:, None, :], f[:, :, None] * cy[:, None, :],
+                 f[:, :, None] * f[:, None, :]]
+        width = max(p.shape[1] * p.shape[2] for p in prods)
+        tables = torch.zeros((3, npad, width), dtype=torch.float32, device=dev)
+        for i, p in enumerate(prods):
+            tables[i, :, : p.shape[1] * p.shape[2]] = p.reshape(npad, -1)
+        codes = unpack_codes(pk)
+        planes3 = torch.empty((3, vb, npad), dtype=torch.float32, device=dev)
+        planes3[0] = valid_f
+        planes3[1] = codes == 1
+        planes3[1].masked_fill_(codes == 2, 2.0)
+        torch.mul(planes3[1], planes3[1], out=planes3[2])
+        del codes
+        ms = time_ms(torch, lambda: torch.bmm(planes3, tables), 3)
+        del planes3, tables
+        return ms
+
     def mom_check(name, gw3, covj, nrows=vb):
         """The plain version runs (and is timed) on the first `nrows`
         variants."""
@@ -1269,10 +1300,14 @@ def check_joint_kernels(torch, dev, prefix):
         wide[key] = (m15, la, lf, H)
     m24, la24, lf24, _ = wide["d24"]
     m36, la36, lf36, H36 = wide["d36"]
+    lib15 = lib_wide("d24")
+    log(f"K15 library (the d = 24 design's moments, one f32 bmm of the valid / "
+        f"g / g^2 planes by the column products): {lib15:.3f} ms")
     rows.append(dict(name="glm_moments_wide", source="plink_torch/csrc/glm_wide.cu",
                      replaces="plink_tpu/ops/glm.py:288", **m24,
                      d36_ms=m36["ms"], d36_plain_512_ms=m36["plain_ms"],
-                     d36_bound_ms=m36["bound_ms"], library_ms=lib("moments")))
+                     d36_bound_ms=m36["bound_ms"], library_ms=lib15,
+                     k2_table_library_ms=lib("moments")))
     rows.append(dict(name="glm_irls_wide", source="plink_torch/csrc/glm_wide.cu",
                      replaces="plink_tpu/ops/glm.py:383", **la24,
                      firth2_ms=lf24["ms"], d36_ms=la36["ms"],
@@ -1354,6 +1389,11 @@ def check_pair_kernels(torch, dev, prefix):
             ("king_gram kin differs from its plain version", r0, c0)
         assert all(torch.equal(a, b) for a, b in zip(k[1:], p[1:])), (r0, c0)
         assert torch.equal(kc, pc), (r0, c0)
+        again = P.king_gram(pd.packed, pd.vmask, r0, c0, s, s, n=n, thresh=thresh)
+        assert k[0].cpu().numpy().tobytes() == again[0].cpu().numpy().tobytes() and \
+            all(torch.equal(a, b) for a, b in zip(k[1:], again[1:])) and \
+            torch.equal(kc, P.king_gram(pd.packed, pd.vmask, r0, c0, s, s, counts=True)), \
+            ("king_gram: two runs differ", r0, c0)
         passed.append(int(k[5]))
     assert err7 == 0.0, err7
     ms7 = time_ms(torch, lambda: P.king_gram(pd.packed, pd.vmask, 0, 0, s, s,
@@ -1369,9 +1409,10 @@ def check_pair_kernels(torch, dev, prefix):
         .reshape(3, -1, s)[i] * vmf for i in range(3)], dim=1)
     lib7 = time_ms(torch, lambda: torch.mm(hav.t(), hav, out_dtype=torch.float32), 5)
     del hav
-    # the six plane products the counters need on int8 tensor cores: HH, HV,
-    # VH, VV and ibs0 = AR + RA (R = hom-REF = V - H - A)
-    ops7 = 6 * s * s * mv * 2
+    # the five int8 plane products the counters need on the tensor cores:
+    # HH, HO, OH, OO and DD (H het, O hom, D = hom-ALT - hom-REF; ibs0 =
+    # (OO - DD) / 2, nsnp = HH + HO + OH + OO)
+    ops7 = 5 * s * s * mv * 2
     bytes7 = mv * (2 * s // 4 + 1) + s * s * (8 + 3 * 4 + 1)  # in: codes, vmask
     t_ops, t_bytes = 1e3 * ops7 / INT8_OPS_PER_S, 1e3 * bytes7 / HBM_BYTES_PER_S
     rows.append(dict(name="king_gram", source="plink_torch/csrc/king_gram.cu",
@@ -1383,8 +1424,9 @@ def check_pair_kernels(torch, dev, prefix):
                      library_ms=lib7))
     log(f"K7 king_gram [{s}x{s} tile, V={mv}]: counters, kin (bit for bit), "
         f"pass mask and count ({passed}) = plain on a diagonal and the last "
-        f"ragged row tile; {ms7:.3f} ms, plain {pms7:.1f} ms, bf16 matmul "
-        f"{lib7:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms")
+        f"ragged row tile, two runs identical; {ms7:.3f} ms, plain {pms7:.1f} ms, "
+        f"bf16 matmul {lib7:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms (five "
+        f"int8 products)")
 
     # K8: chunk mode against the plain version in f32 and in f64
     r0, a0 = pd.npad - s, pd.npad - c
@@ -1719,22 +1761,30 @@ def check_ld_report_kernels(torch, dev, prefix):
             pairs += 1
     assert torch.equal(g, LD.ld_gram_pair(reg[a0 : a0 + c], reg[b0 : b0 + c], sm)), \
         "K13 not deterministic"
-    pa, pb = reg[:c], reg[c : 2 * c]
-    ms = time_ms(torch, lambda: LD.ld_gram_pair(pa, pb, sm), 20)
-    pms = time_ms(torch, lambda: LD.ld_gram_pair_plain(pa, pb, sm), 3)
-    qa = LD._planes_rav(pa, sm).to(torch.bfloat16)[None]
-    qb = LD._planes_rav(pb, sm).to(torch.bfloat16).t()[None]
-    lib = time_ms(torch, lambda: torch.bmm(qa, qb, out_dtype=torch.float32), 20)
-    bound = _bound(9 * 2 * c * c * n, 2 * c * nbytes + npad + 9 * c * c * 4,
-                   INT8_OPS_PER_S)
-    log(f"K13 ld_gram_pair [{c}x{c} chunks x {n} samples]: = plain over all "
-        f"{pairs} chunk pairs of the {REGION_VARIANTS}-variant region, two runs "
-        f"identical; {ms:.3f} ms a launch, plain {pms:.2f} ms, bf16 matmul "
-        f"{lib:.3f} ms, bound {bound['bound_ms']:.4f} ms")
-    out.append(dict(name="ld_gram_pair", source="plink_torch/csrc/ld_band.cu",
+    # timed on the matrix cell's 512 x 512 chunk pairs and on the phased
+    # table's 256 x 256 (chunk = max(256, width): LdJointBand), each beside
+    # one bf16 matmul of the RAV planes
+    times = {}
+    for cc in (c, 256):
+        pa, pb = reg[:cc], reg[cc : 2 * cc]
+        assert torch.equal(LD.ld_gram_pair(pa, pb, sm), LD.ld_gram_pair_plain(pa, pb, sm))
+        ms = time_ms(torch, lambda: LD.ld_gram_pair(pa, pb, sm), 20)
+        pms = time_ms(torch, lambda: LD.ld_gram_pair_plain(pa, pb, sm), 3)
+        qa = LD._planes_rav(pa, sm).to(torch.bfloat16)[None]
+        qb = LD._planes_rav(pb, sm).to(torch.bfloat16).t()[None]
+        lib = time_ms(torch, lambda: torch.bmm(qa, qb, out_dtype=torch.float32), 20)
+        bound = _bound(9 * 2 * cc * cc * n, 2 * cc * nbytes + npad + 9 * cc * cc * 4,
+                       INT8_OPS_PER_S)
+        times[cc] = dict(ms=ms, plain_ms=pms, library_ms=lib, **bound)
+        log(f"K13 ld_gram_pair [{cc}x{cc} chunks x {n} samples]: {ms:.4f} ms a "
+            f"launch, plain {pms:.2f} ms, bf16 matmul {lib:.4f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms")
+    log(f"K13 ld_gram_pair: = plain over all {pairs} chunk pairs of the "
+        f"{REGION_VARIANTS}-variant region and at 256 x 256, two runs identical")
+    out.append(dict(name="ld_gram_pair", source="plink_torch/csrc/ld_gram.cu",
                     replaces="plink_tpu/ops/ld.py:44", max_abs_err=0.0, tol=0.0,
-                    chunk_pairs_checked=pairs, ms=ms, plain_ms=pms, **bound,
-                    library_ms=lib))
+                    chunk_pairs_checked=pairs, **times[c],
+                    **{f"c256_{k}": v for k, v in times[256].items()}))
     return out
 
 
@@ -3980,7 +4030,7 @@ def run_dosage_paths(torch, dprefix, tmp, card):
 
 
 def run_dosage_parity(tmp):
-    """Phase 17d: the dosage --glm on the first 200 variants of a
+    """Phase 17d: the dosage --glm on the first 128 variants of a
     DOSAGE_PARITY dosage panel (n >= 4,096: the device rows are reported),
     CUDA against CPU by compare_reports (BETA against its SE): hybrid, firth
     (K18's firth2 must launch), no-firth, qt-residualize and the host
@@ -4021,10 +4071,11 @@ def run_dosage_parity(tmp):
         for i in ids:
             f.write(i + "\t" + "\t".join(f"{x:.5f}" for x in rng.normal(size=48))
                     + "\n")
-    # the dosage cases take 200 of the panel's variants, for the script's
-    # time (the host route fits every variant in f64 on both sides)
-    with open(prefix + ".ext200", "w") as f:
-        f.writelines(f"snp{v}\n" for v in range(200))
+    # the dosage cases take 128 of the panel's variants (cut from 200), for
+    # the script's time (the host route fits every variant in f64 on both
+    # sides)
+    with open(prefix + ".ext128", "w") as f:
+        f.writelines(f"snp{v}\n" for v in range(128))
     # the host route's cases (genotypic, interaction: the same f64 fits on
     # the card's machine and on the CPU) take 64 of them: cut 200 -> 64 in
     # slice 10, for the script's time
@@ -4062,7 +4113,7 @@ def run_dosage_parity(tmp):
 
     logi, lin = "PHENO1.glm.logistic.hybrid", "QT1.glm.linear"
     base = ["--pfile", prefix, "--pheno", prefix + ".both", "--covar", prefix + ".cov",
-            "--extract", prefix + ".ext200"]
+            "--extract", prefix + ".ext128"]
     base64 = base[:-1] + [prefix + ".ext64"]
     cases = (
         ("hybrid", base + ["--glm", "hide-covar"], [logi, lin], ()),
@@ -4078,8 +4129,8 @@ def run_dosage_parity(tmp):
                              "hide-covar"],
          [logi, lin], ("glm_moments_wide", "glm_irls_wide", "chol_small_wide")),
     )
-    # 64-variant blocks: four blocks of the dosage panel's 200 variants (the
-    # last one partial), and one of the d = 98 case's 64 (a block of the
+    # 64-variant blocks: two blocks of the dosage panel's 128 variants, and
+    # one of the d = 98 case's 64 (a block of the
     # default 2,048 rows would make its CPU reference 32 times longer)
     os.environ["PLINK_TORCH_VB"] = "64"
     try:
@@ -4502,7 +4553,8 @@ def run_perm_paths(torch, prefix, tmp, card):
                     f"{e20:.2e})")
             if label == "linear_mperm":
                 stat = scalls[0][2].cpu().numpy()
-                variants = planted + [v for v in range(100, JOINT_VARIANTS, 130)
+                variants = planted + [v for v in range(100, JOINT_VARIANTS,
+                                                       (JOINT_VARIANTS - 100) // 12)
                                       if 0.05 <= freq_of(prefix, v) <= 0.95][:6]
                 perms = list(range(0, PERM_B, PERM_B // 8))[:8]
                 assert len(variants) * len(perms) == PERM_N_LINEAR

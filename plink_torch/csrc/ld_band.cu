@@ -1,7 +1,7 @@
-// The LD kernels of one subcontig: K11 ld_band_bits (the --indep-pairwise
-// r^2 decisions), K12 ld_band_stats (the six pair statistics of the band,
-// for --r2/--r tables) and K13 ld_gram_pair (the RAV plane Gram of two
-// variant chunks, for the matrix modes and the phased joint counts).
+// The LD band kernels of one subcontig: K11 ld_band_bits (the
+// --indep-pairwise r^2 decisions) and K12 ld_band_stats (the six pair
+// statistics of the band, for --r2/--r tables).  K13 ld_gram_pair, the RAV
+// plane Gram of two variant chunks, is in ld_gram.cu.
 //
 // K11 replaces (plink_tpu/ops/ld.py) `_ld_band_bits_scan` (:127): for every
 // variant i and offset d in 1..w with i + d < n, over the masked samples,
@@ -34,17 +34,6 @@
 // TOPS); bytes (82 MB packed in; 6.6 MB of bits out for K11, 158 MB of
 // int32 statistics for K12) 0.03-0.07 ms.  The popcount unit (16 a clock
 // per SM) sets this design's pace.
-//
-// K13 replaces `ld_gram_pair` (:44): G [3Ca, 3Cb] int32, G[p Ca + i][q Cb
-// + j] = sum over masked samples of plane_p(a_i) * plane_q(b_j) for p, q in
-// (R, A, V).  Both chunks go through the same packing pass; a 64 (i) x 64
-// (j) tile a block, 4 x 4 pairs a thread, nine AND + popcounts per pair and
-// 32-sample word.  Chunks of a few hundred variants give few tiles, so the
-// word axis is split over grid.z until about two blocks an SM are in
-// flight, each split adding its exact int32 counts with atomicAdd into the
-// zeroed output (integer sums: the result does not depend on the order).
-// Bound: operations, 9 * 2 * Ca * Cb * samples on int8 tensor cores (4.7e10
-// at 512 x 512 x 10,000: 0.024 ms); bytes 0.004 ms.
 #include "common.cuh"
 
 namespace {
@@ -226,98 +215,16 @@ ld_band_kernel(const uint32_t* __restrict__ planes, int64_t n, int64_t nwords,
   }
 }
 
-// K13: one 64 (i, chunk a) x 64 (j, chunk b) tile of the nine plane
-// products over words [w_begin, w_end) of split blockIdx.z.
-__global__ void __launch_bounds__(kThreads)
-ld_gram_kernel(const uint32_t* __restrict__ pa, int64_t ca,
-               const uint32_t* __restrict__ pb, int64_t cb, int64_t nwords,
-               int64_t words_per_split, int atomic, int* __restrict__ g) {
-  __shared__ __align__(16) uint32_t rs[3][kW][kRows];
-  __shared__ __align__(16) uint32_t cs[3][kW][kRows];
-  const int t = threadIdx.x;
-  const int tx = t & 15, ty = t >> 4;  // j = j0 + 4 tx + b, i = i0 + 4 ty + a
-  const int64_t i0 = static_cast<int64_t>(blockIdx.y) * kRows;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int64_t w_begin = static_cast<int64_t>(blockIdx.z) * words_per_split;
-  const int64_t w_end = min(nwords, w_begin + words_per_split);
-  // acc[p][q]: plane p of row i against plane q of column j
-  int acc[3][3][4][4];
-#pragma unroll
-  for (int p = 0; p < 3; ++p)
-#pragma unroll
-    for (int q = 0; q < 3; ++q)
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[p][q][a][b] = 0;
-
-  for (int64_t w0 = w_begin; w0 < w_end; w0 += kW) {
-    __syncthreads();
-    for (int e = t; e < 3 * kW * kRows; e += kThreads) {
-      const int c = e % kRows, ww = (e / kRows) % kW, p = e / (kRows * kW);
-      const int64_t w = w0 + ww;
-      const bool wok = w < w_end;
-      const int64_t i = i0 + c, j = j0 + c;
-      rs[p][ww][c] = (i < ca && wok) ? pa[(p * nwords + w) * ca + i] : 0u;
-      cs[p][ww][c] = (j < cb && wok) ? pb[(p * nwords + w) * cb + j] : 0u;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int ww = 0; ww < kW; ++ww) {
-      uint32_t x[3][4], y[3][4];
-#pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        const uint4 u = *reinterpret_cast<const uint4*>(&rs[p][ww][4 * ty]);
-        const uint4 v = *reinterpret_cast<const uint4*>(&cs[p][ww][4 * tx]);
-        x[p][0] = u.x; x[p][1] = u.y; x[p][2] = u.z; x[p][3] = u.w;
-        y[p][0] = v.x; y[p][1] = v.y; y[p][2] = v.z; y[p][3] = v.w;
-      }
-#pragma unroll
-      for (int p = 0; p < 3; ++p)
-#pragma unroll
-        for (int q = 0; q < 3; ++q)
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 4; ++b)
-              acc[p][q][a][b] += __popc(x[p][a] & y[q][b]);
-    }
-  }
-
-  const int64_t ld = 3 * cb;
-#pragma unroll
-  for (int p = 0; p < 3; ++p)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int64_t i = i0 + 4 * ty + a;
-      if (i >= ca) continue;
-#pragma unroll
-      for (int q = 0; q < 3; ++q)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int64_t j = j0 + 4 * tx + b;
-          if (j >= cb) continue;
-          int* o = g + (p * ca + i) * ld + q * cb + j;
-          if (atomic)
-            atomicAdd(o, acc[p][q][a][b]);
-          else
-            *o = acc[p][q][a][b];
-        }
-    }
-}
-
 // The sample-mask bits and the R/A/V bit planes [3][nwords][n] of n packed
-// rows (the first two passes of every LD entry point).
+// rows (the first two passes of both entry points).
 cudaError_t pack_planes(const void* packed, long long nb_bytes, long long n,
                         const void* smask, long long npad, void* mbits, void* planes,
-                        bool with_mbits, cudaStream_t st) {
+                        cudaStream_t st) {
   const int64_t nwords = (npad + 31) / 32;
-  if (with_mbits) {
-    ld_smask_kernel<<<static_cast<unsigned>((nwords + 255) / 256), 256, 0, st>>>(
-        static_cast<const int8_t*>(smask), npad, nwords, static_cast<uint32_t*>(mbits));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+  ld_smask_kernel<<<static_cast<unsigned>((nwords + 255) / 256), 256, 0, st>>>(
+      static_cast<const int8_t*>(smask), npad, nwords, static_cast<uint32_t*>(mbits));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   const int64_t total = n * nwords;
   if (total == 0) return cudaSuccess;
   ld_planes_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
@@ -334,7 +241,7 @@ cudaError_t launch_band(const void* packed, long long nb_bytes, long long n,
   if (n <= 0) return cudaSuccess;
   if (npad != 4 * nb_bytes || width < 0) return cudaErrorInvalidValue;
   const cudaError_t err = pack_planes(packed, nb_bytes, n, smask, npad, mbits,
-                                      planes, true, st);
+                                      planes, st);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((n + kRows - 1) / kRows), (width + kDs) / kDs);
   ld_band_kernel<kStats><<<grid, kThreads, 0, st>>>(
@@ -368,44 +275,4 @@ PT_EXPORT int pt_ld_band_stats(const void* packed, long long nb_bytes, long long
   return launch_band<true>(packed, nb_bytes, n, smask, npad, width, 0.0, mbits,
                            planes, nullptr, stats, nm1, homref1, homalt1,
                            static_cast<cudaStream_t>(stream));
-}
-
-// K13: pka [ca, nb_bytes], pkb [cb, nb_bytes] u8, smask [npad] i8 -> g
-// [3 ca, 3 cb] i32.  Scratch: mbits u32 [ceil(npad / 32)], planes_a u32
-// [3 * ceil(npad / 32) * ca], planes_b u32 [3 * ceil(npad / 32) * cb].
-PT_EXPORT int pt_ld_gram_pair(const void* pka, long long ca, const void* pkb,
-                              long long cb, long long nb_bytes, const void* smask,
-                              long long npad, void* mbits, void* planes_a,
-                              void* planes_b, void* g, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ca <= 0 || cb <= 0) return cudaSuccess;
-  if (npad != 4 * nb_bytes) return cudaErrorInvalidValue;
-  const int64_t nwords = (npad + 31) / 32;
-  if (nwords == 0)
-    return cudaMemsetAsync(g, 0, static_cast<size_t>(9) * ca * cb * sizeof(int), st);
-  cudaError_t err = pack_planes(pka, nb_bytes, ca, smask, npad, mbits, planes_a,
-                                true, st);
-  if (err != cudaSuccess) return err;
-  err = pack_planes(pkb, nb_bytes, cb, smask, npad, mbits, planes_b, false, st);
-  if (err != cudaSuccess) return err;
-  // split the words until about two blocks an SM (132 SMs) are in flight
-  const int64_t tiles = ((ca + kRows - 1) / kRows) * ((cb + kRows - 1) / kRows);
-  const int64_t stages = (nwords + kW - 1) / kW;
-  int64_t splits = (264 + tiles - 1) / tiles;
-  splits = splits > stages ? stages : splits;
-  const int64_t per = ((stages + splits - 1) / splits) * kW;  // words a split
-  splits = (nwords + per - 1) / per;
-  const int atomic = splits > 1 ? 1 : 0;
-  if (atomic) {
-    err = cudaMemsetAsync(g, 0, static_cast<size_t>(9) * ca * cb * sizeof(int), st);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(static_cast<unsigned>((cb + kRows - 1) / kRows),
-                  static_cast<unsigned>((ca + kRows - 1) / kRows),
-                  static_cast<unsigned>(splits));
-  ld_gram_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const uint32_t*>(planes_a), ca,
-      static_cast<const uint32_t*>(planes_b), cb, nwords, per, atomic,
-      static_cast<int*>(g));
-  return cudaGetLastError();
 }

@@ -11,7 +11,7 @@ launches made by the wrappers in ``ops/counts.py``, ``ops/glm.py``,
 ``ops/pairwise.py``, ``ops/pca.py``, ``ops/ld.py`` and ``ops/epistasis.py``;
 it is the only module state the port keeps besides the loaded libraries.
 An entry point lives in ``csrc/<name>.cu`` unless ``_SOURCE`` names another
-file (K9 and K10 share one; so do K11-K13, K17-K18, K19-K20, K21-K22 and
+file (K9 and K10 share one; so do K11-K12, K17-K18, K19-K20, K21-K22 and
 K24's two kernels); every source may include any ``csrc/*.cuh``.
 """
 
@@ -72,8 +72,7 @@ _ENTRY = {
                                          _P, _P, _P, _P, _P]),
     "ld_band_stats": ("pt_ld_band_stats", [_P, _L, _L, _P, _L, _I, _P, _P, _P,
                                            _P, _P, _P, _P]),
-    "ld_gram_pair": ("pt_ld_gram_pair", [_P, _L, _P, _L, _L, _P, _L, _P, _P,
-                                         _P, _P, _P]),
+    "ld_gram_pair": ("pt_ld_gram_pair", [_P, _L, _P, _L, _L, _P, _L, _P, _P]),
     "linear_perm_xty": ("pt_linear_perm_xty", [_P, _L, _I, _P, _I, _P, _I, _P,
                                                _I, _P, _P, _P, _L, _P, _P, _P]),
     "linear_perm_stat": ("pt_linear_perm_stat", [_P, _P, _P, _P, _P, _I, _I, _I,
@@ -101,7 +100,7 @@ _MODES = {"glm_moments_scaled": "glm_moments", "glm_irls_scaled": "glm_irls_x",
 _MODE_ONLY = ("glm_irls_x", "glm_wide")
 # entry points whose source file is not named after them
 _SOURCE = {"pca_x": "pca_apply", "pca_xt": "pca_apply", "ld_band_bits": "ld_band",
-           "ld_band_stats": "ld_band", "ld_gram_pair": "ld_band",
+           "ld_band_stats": "ld_band", "ld_gram_pair": "ld_gram",
            "glm_dense_moments": "glm_dense", "glm_dense_irls": "glm_dense",
            "linear_perm_xty": "linear_perm", "linear_perm_stat": "linear_perm",
            "sample_plane_weighted": "plane_weighted",
@@ -201,6 +200,16 @@ def _lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def _raw_stream(torch) -> int:
+    """The current CUDA stream as an int, by torch's raw query where it has
+    one: building a Stream object at every launch costs host time that sets
+    the pace of short kernels."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
+
+
 def launch(name: str, *args) -> None:
     """Call kernel `name`'s C entry point (a mode of `_MODES` calls its
     entry point's) on the current CUDA stream (the stream is appended to
@@ -210,7 +219,7 @@ def launch(name: str, *args) -> None:
 
     entry = _MODES.get(name, name)
     lib = _lib(entry)
-    stream = torch.cuda.current_stream().cuda_stream
+    stream = _raw_stream(torch)
     rc = getattr(lib, _ENTRY[entry][0])(*args, stream)
     if rc != 0:
         msg = lib.pt_error_string(rc).decode()

@@ -1,9 +1,9 @@
 """Pairwise LD on the device: kernels K11 `ld_band_bits` (the
 `--indep-pairwise` decisions), K12 `ld_band_stats` (the six band statistics
 of the `--r2`/`--r` tables) and K13 `ld_gram_pair` (the plane Gram of two
-variant chunks: the matrix modes and the phased joint counts), all in
-`csrc/ld_band.cu`, each with its plain PyTorch version; and the classes
-`LdBitsBand`, `LdBand` and `LdJointBand` over them.
+variant chunks: the matrix modes and the phased joint counts), K11 / K12 in
+`csrc/ld_band.cu` and K13 in `csrc/ld_gram.cu`, each with its plain PyTorch
+version; and the classes `LdBitsBand`, `LdBand` and `LdJointBand` over them.
 
 Genotypes are scored x in {+1 hom-REF, 0 het, -1 hom-ALT} with
 pairwise-complete missing handling (ref ComputeIndepPairwiseR2Components,
@@ -22,7 +22,8 @@ to the host.
 
 plink_tpu forms each chunk's plane Gram with itself and with the next chunk
 and gathers the band; K11/K12 count the band directly (AND + popcount over
-32-sample bit words), the plain versions follow plink_tpu's chunked Gram.
+32-sample bit words), K13 forms the chunk Grams as int8 plane products on
+the tensor cores; the plain versions follow plink_tpu's chunked Gram.
 The wrappers run the plain version for CPU tensors and launch the kernel
 for CUDA tensors (or raise).
 """
@@ -221,17 +222,11 @@ def ld_gram_pair(pka, pkb, smask):
     _check("ld_gram_pair", pkb, smask)
     if pka.device.type == "cpu":
         return ld_gram_pair_plain(pka, pkb, smask)
-    dev = pka.device
     ca, nb_bytes = pka.shape
     cb = pkb.shape[0]
-    nwords = -(-smask.shape[0] // 32)
-    mbits = torch.empty(nwords, dtype=torch.int32, device=dev)
-    pa = torch.empty(3 * nwords * max(ca, 1), dtype=torch.int32, device=dev)
-    pb = torch.empty(3 * nwords * max(cb, 1), dtype=torch.int32, device=dev)
-    g = torch.empty((3 * ca, 3 * cb), dtype=torch.int32, device=dev)
+    g = torch.empty((3 * ca, 3 * cb), dtype=torch.int32, device=pka.device)
     _cuda.launch("ld_gram_pair", pka.data_ptr(), ca, pkb.data_ptr(), cb, nb_bytes,
-                 smask.data_ptr(), smask.shape[0], mbits.data_ptr(), pa.data_ptr(),
-                 pb.data_ptr(), g.data_ptr())
+                 smask.data_ptr(), smask.shape[0], g.data_ptr())
     return g
 
 

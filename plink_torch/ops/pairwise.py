@@ -303,9 +303,9 @@ def king_gram(packed, vmask, row0: int, col0: int, s: int, t: int,
         return king_gram_plain(packed, vmask, row0, col0, s, t, n, thresh, counts)
     dev = packed.device
     nvar = packed.shape[0] * packed.shape[1]
-    s64, t64 = -(-s // 64) * 64, -(-t // 64) * 64
-    planes = torch.empty(3 * (-(-nvar // 32)) * (s64 + t64), dtype=torch.int32,
-                         device=dev)
+    # the tile's codes sample-major: sides and variants rounded up to 128
+    codes = torch.empty((-(-s // 128) + -(-t // 128)) * 128 * (-(-nvar // 128) * 32),
+                        dtype=torch.uint8, device=dev)
     n = packed.shape[2] * 4 if n is None else n
     if counts:
         cnt = torch.empty((6, s, t), dtype=torch.int32, device=dev)
@@ -318,7 +318,7 @@ def king_gram(packed, vmask, row0: int, col0: int, s: int, t: int,
                 torch.zeros(1, dtype=torch.int32, device=dev))
     _cuda.launch("king_gram", packed.data_ptr(), packed.shape[2], nvar,
                  vmask.data_ptr(), row0, s, col0, t, n, float(thresh),
-                 int(counts), planes.data_ptr(), *(_cuda.ptr(o) for o in outs),
+                 int(counts), codes.data_ptr(), *(_cuda.ptr(o) for o in outs),
                  _cuda.ptr(cnt))
     return cnt if counts else outs
 

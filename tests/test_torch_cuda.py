@@ -330,7 +330,9 @@ def test_linear_sums_kernel(dev, n, vb, dc, swap):
         assert torch.equal(k[key], again[key])
 
 
-PAIR_SHAPES = [(150, 5, 64), (1001, 3, 700), (2300, 2, 2048)]
+# the last: a 40 x 40 tile below one 64 x 64 block, 20 variants below one
+# 128-variant stage of K7
+PAIR_SHAPES = [(150, 5, 64), (1001, 3, 700), (2300, 2, 2048), (40, 1, 20)]
 
 
 def _pair_inputs(n, nb, vb, seed):
@@ -522,14 +524,19 @@ def test_ld_band_stats_kernel(dev, n, V, width):
     assert not got[0][:, ii + dd >= V].any()
 
 
+# then chunks of 1-63 variants against 64-200, below one k32 step of samples
+# (20, 30) and at 10,001, and rows of 512 bytes: K13 copies 16-byte pieces
+# when the rows are 16-byte aligned (2,048 samples), windows of them when 4-
+# byte aligned (77, 30), bytes otherwise
 GRAM_SHAPES = [(150, 70, 45), (1001, 512, 512), (77, 1, 300), (2300, 256, 130),
-               (10001, 600, 64)]
+               (10001, 600, 64), (20, 5, 64), (30, 63, 200), (10001, 1, 200),
+               (10001, 37, 130), (2048, 100, 64)]
 
 
 @pytest.mark.parametrize("n,ca,cb", GRAM_SHAPES)
 def test_ld_gram_pair_kernel(dev, n, ca, cb):
     """K13 equals its plain version exactly for chunks of different lengths
-    (tiles cut ragged; the word axis split over blocks or not), with a
+    (tiles cut ragged; the samples split over a cluster or not), with a
     chunk against itself, twice."""
     from plink_torch.ops.ld import ld_gram_pair, ld_gram_pair_plain
 
