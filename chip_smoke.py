@@ -27,7 +27,9 @@ Phases, each of which raises on failure (nothing is caught):
      more under torch.profiler;
   6. pair kernels: K7 (KING; two runs identical) and K8 (GRM) against their
      plain versions on the 50,000 x 32,768 panel of bench.py's king_50k /
-     grm_50k, timed beside their bound and one library call;
+     grm_50k, timed beside their bound and one library call (K8, on the
+     bf16 tensor cores since slice 16, beside both its tensor-core bound
+     and the FP32 one);
   7. relationship paths on that panel: `--make-king-table
      --king-table-filter 0.044` (the .kin0 must equal plink2's, header only)
      and `--make-grm-bin` (16 windows of plink2's .grm.bin, the first
@@ -66,7 +68,7 @@ Phases, each of which raises on failure (nothing is caught):
  16. `--indep-pairphase 200 50 0.2` on a phased copy of the whole
      indep_10k: K11 on the 20,000 haplotype columns, checked against
      numpy's haplotypes of the copy;
- 17. parity: a 2,000 x 1,200 panel through the port on the card and on the
+ 17. parity: a 2,000 x 800 panel through the port on the card and on the
      CPU (plain versions), hybrid, firth, QC + linear, KING + GRM, .rel +
      exact PCA, approx PCA + allele-wts (on a panel of that size with 5
      planted axes), --indep-pairwise and the LD reports (LD_PARITY, byte
@@ -98,7 +100,7 @@ Slice 7 (the --glm joint models) adds, in the order they run:
      4's panel; the library call of K2 / K3 / K16 is the valid plane by the
      products of K2's table (the moments part only: no single call does an
      IRLS pass), K15's one bmm that gives the d = 24 design's own moments;
-  4c. on a 500,000 x 512 panel: `--glm genotypic hide-covar`, `--glm
+  4c. on a 500,000 x 256 panel: `--glm genotypic hide-covar`, `--glm
      interaction`, `--glm dominant hide-covar --condition-list` (three
      variants) and `--glm genotypic cc-residualize hide-covar`, 8 rows
      (N_JOINT_ROWS) of each report against numpy f64 fits (GENO_2DF from the f64 joint
@@ -140,8 +142,10 @@ the order they run:
      (JOINT_F64_ROWS rows), K20 against its plain version in f64 on the
      same inputs; two runs identical; each timed beside its bound and one
      library call (K19, on the tensor cores since slice 14, beside both
-     its tensor-core bound, three bf16 products a term, and the FP32 one);
-  4e. on the joint-model panel (500,000 x 512): the linear `--glm
+     its tensor-core bound, three bf16 products a term, and the FP32 one;
+     K20 and its torch.bmm yardstick also on the device alone, by
+     torch.profiler, beside the CUDA events of a wrapper call);
+  4e. on the joint-model panel (500,000 x 256): the linear `--glm
      hide-covar mperm=268 --seed 1` and `aperm --aperm 6 268` on a QT
      with two planted variants, and `--glm firth hide-covar mperm=33` on
      PHENO1: K19, K20, K2 and K4 (K3 for Firth) launched, every K19 / K20
@@ -256,7 +260,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_SAMPLES = 500_000  # the headline configuration's sample width
 N_VARIANTS = 4_096  # two 2,048-variant blocks; --variants up to 16,384
-SMALL = (2_000, 1_200, 1)  # samples, variants, seed of the parity panel
+# samples, variants, seed of the parity panel (variants cut 1,200 -> 800 for
+# the script's time: its hybrid report keeps one FIRTH?=Y row)
+SMALL = (2_000, 800, 1)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
 # kernel vs plain tolerances for f32 sums over 500,000 samples taken in
@@ -300,9 +306,10 @@ N_CHECK_ROWS = 16
 # time)
 N_JOINT_ROWS = 8
 # variants of the joint-model and permutation paths' panel (one block): cut
-# 2,048 -> 1,024 -> 512 for the script's time (the genotypic paths' host
-# rechecks, the writers and the permutation counts grow with the variants)
-JOINT_VARIANTS = 512
+# 2,048 -> 1,024 -> 512 -> 256 for the script's time (the genotypic paths'
+# host rechecks, the writers and the permutation counts grow with the
+# variants)
+JOINT_VARIANTS = 256
 JOINT_F64_ROWS = 256  # rows of each joint-model kernel check also held to f64
 # the dosage paths (slice 8): the port's own --dummy writes a 500,000-sample
 # panel with dosage tracks on 70% of the calls; variants cut 16,384 -> 512,
@@ -335,18 +342,21 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # K8 against its plain version and the plain version in f64, normalised as
 # above: full-f32 products summed in <= 2,048-variant f32 runs measure
-# 4.8e-7 from f64 at 50,000 x 32,768; the same runs with TF32 inputs must
-# land above this (chip_smoke checks it)
+# 4.8e-7 from f64 at 50,000 x 32,768 (K8's exact bf16 parts in 256-variant
+# runs 7.2e-7, in the 128-variant runs it takes since); the same runs with
+# TF32 inputs must land above this (chip_smoke checks it)
 TOL_K8 = 2e-6
 REL_TILE, REL_CHUNK = 2048, 8192  # the commands' sample tile and GRM chunk
 GRM_BYTES_NEEDED = 10.1e9  # .grm.bin + .grm.N.bin at 50,000 samples
 # parity cases of the relationship commands: (label, flags, outputs); the
-# port's tile cut to 512 samples so the 2,000-sample panel has four a side
+# port's tile cut to 512 samples so the 2,000-sample panel has four a side;
+# .rel + exact PCA on its first 1,000 samples ({keep}: two tiles a side; the
+# host's n^2 text writers and eigensolver set that case's time)
 REL_PARITY = (
     ("king_grm", ["--make-king-table", "--king-table-filter", "0.05",
                   "--make-king", "square", "bin", "--make-grm-bin"],
      (".kin0", ".king.bin", ".king.id", ".grm.bin", ".grm.N.bin", ".grm.id")),
-    ("rel_pca", ["--make-grm-list", "--make-rel", "--pca", "4"],
+    ("rel_pca", ["--make-grm-list", "--make-rel", "--pca", "4", "--keep", "{keep}"],
      (".grm", ".grm.id", ".rel", ".rel.id", ".eigenval", ".eigenvec")),
 )
 # plink2's own report on the headline 500,000 x 16,384 panel (the panel
@@ -501,6 +511,21 @@ def time_ms(torch, fn, reps):
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def device_ms(torch, fn, reps=50):
+    """Mean time on the device of the kernels one call of `fn` launches
+    (torch.profiler's CUDA time), in ms: the host's time to enqueue a call
+    is left out, where time_ms's events take whichever is longer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / reps / 1e3
 
 
 def chunked(torch, fn, n_rows, step, dim=0):
@@ -1484,19 +1509,29 @@ def check_pair_kernels(torch, dev, prefix):
     del zr, zc, g32
     ops8 = 2 * s * c * mv
     bytes8 = mv * (s + c) // 4 + mv * 13 + 4 * (s + c) + s * c * 5
+    # K8's tensor-core form: each f32 product as P._K8_PRODUCTS exact bf16
+    # part products, jm as one int8 product of the missing planes; the FP32
+    # rate's bound kept beside it
+    fp32_8 = _bound(ops8, bytes8)
+    t_tc = 1e3 * (P._K8_PRODUCTS * ops8 / BF16_FLOP_PER_S + ops8 / INT8_OPS_PER_S)
+    t_b = 1e3 * bytes8 / HBM_BYTES_PER_S
+    bound8 = dict(bound_ms=max(t_tc, t_b), bound_by="operations" if t_tc >= t_b
+                  else "bytes", fp32_bound_ms=fp32_8["bound_ms"])
     rows.append(dict(name="grm_gram", source="plink_torch/csrc/grm_gram.cu",
                      replaces="plink_tpu/ops/pairwise.py:355",
                      also_replaces="plink_tpu/ops/pairwise.py:215",
                      max_abs_err=float((g - pg).abs().nan_to_num(0.0).max()),
                      max_norm_err=e8, tol=TOL_K8, max_norm_err_f64=e8r,
                      tol_f64=TOL_K8, tf32_control_norm_err=e8tf32, ms=ms8,
-                     plain_ms=pms8,
-                     **_bound(ops8, bytes8), library_ms=lib8))
-    log(f"K8 grm_gram [{s}x{c} chunk, V={mv}]: norm err vs plain {e8:.2e}, vs "
+                     plain_ms=pms8, products=P._K8_PRODUCTS, run=P._K8_RUN,
+                     **bound8, library_ms=lib8))
+    log(f"K8 grm_gram [{s}x{c} chunk, V={mv}, {P._K8_PRODUCTS} bf16 products, "
+        f"{P._K8_RUN}-variant f32 runs]: norm err vs plain {e8:.2e}, vs "
         f"f64 {e8r:.2e} (tol {TOL_K8:g} each; plain vs f64 {e8pr:.2e}; the TF32 "
         f"control {e8tf32:.2e} fails it), pair counts exact, two runs "
         f"identical; {ms8:.3f} ms, plain {pms8:.1f} ms, f32 matmul "
-        f"{lib8:.3f} ms")
+        f"{lib8:.3f} ms, bound {bound8['bound_ms']:.3f} ms on the tensor cores, "
+        f"{fp32_8['bound_ms']:.3f} ms at the FP32 rate")
     del pd, coef, miss, ds
     return rows
 
@@ -3420,7 +3455,7 @@ def same_again(outs, *exts):
 
 
 def run_parity(tmp):
-    """Phase 8: the 2,000 x 1,200 panel through the port on the card and on
+    """Phase 8: the 2,000 x 800 panel through the port on the card and on
     the CPU (plain versions): hybrid, firth, the QC + linear path, and the
     relationship commands (plink_torch.testing's rules, the text floats
     within 1e-5 of max(|x|, 1): the GRM's f32 sums are taken in another
@@ -3468,7 +3503,11 @@ def run_parity(tmp):
                     f"{len(rows)} rows, FIRTH?=Y rows {firth_y} (CUDA "
                     f"{outs['cuda1_s']:.1f}s, CPU {outs['cpu_s']:.1f}s)")
         os.environ["PLINK_TORCH_TILE"] = "512"
+        keep = prefix + ".keep1000"
+        with open(keep, "w") as f:
+            f.writelines(f"per{i}\n" for i in range(1000))
         for label, flags, exts in REL_PARITY:
+            flags = [a.format(keep=keep) for a in flags]
             outs = {}
             for tag, devname in PARITY_RUNS:
                 os.environ["PLINK_TORCH_DEVICE"] = devname
@@ -4039,7 +4078,7 @@ def run_dosage_parity(tmp):
     hard-call parity panel's first 64 variants (the panel generator is
     counter-based: a 64-variant panel of its seed; the port scans every
     variant of a fileset, so an --extract of the whole panel would cost the
-    d = 98 CPU reference ~1,200 variants' plain fits).  Two card runs of
+    d = 98 CPU reference ~800 variants' plain fits).  Two card runs of
     each give the same bytes."""
     import numpy as np
 
@@ -4310,12 +4349,14 @@ def check_perm_kernels(torch, dev, prefix):
         assert es <= TOL_PERM_STAT, (name, es)
         e32 = _stat_err(torch, st, G.linear_perm_stat_plain(inv, *k, nm, dc, q, inv0))
         sms_ = time_ms(torch, lambda: G.linear_perm_stat(inv, *k, nm, dc, q, inv0), 10)
+        sdev = device_ms(torch, lambda: G.linear_perm_stat(inv, *k, nm, dc, q, inv0))
         d = inv.shape[1]
         d0 = d - q
         sbound = _bound(vb * PERM_B * 2.0 * (d * d + d + (d0 * d0 + d0 if q else 0)),
                         (inv.numel() + (inv0.numel() if q else 0) + k[0].numel()
                          + 3 * k[1].numel() + nm.numel()) * 4)
         slib = time_ms(torch, lambda: torch.bmm(inv, k[0]), 10)
+        sldev = device_ms(torch, lambda: torch.bmm(inv, k[0]))
         log(f"K19 linear_perm_xty {name} [{vb}x{npad}, P={P}, B={PERM_B}]: norm err "
             f"vs plain {e:.2e}, vs f64 ({JOINT_F64_ROWS} rows) {er:.2e}, two runs "
             f"identical; {ms:.3f} ms, plain {pms:.1f} ms, bound on the tensor "
@@ -4323,14 +4364,16 @@ def check_perm_kernels(torch, dev, prefix):
             f"rate {fp32['bound_ms']:.3f} ms; K20 [{name}, d={d}, "
             f"q={q}]: err vs plain in f64 {es:.2e} (tol {TOL_PERM_STAT:g}), vs the "
             f"f32 plain {e32:.2e}, {int(torch.isnan(st[:, 0]).sum())} singular rows "
-            f"NaN in both; {sms_:.4f} ms, plain {sms:.2f} ms, bound "
-            f"{sbound['bound_ms']:.4f} ms ({sbound['bound_by']}), bmm {slib:.4f} ms")
+            f"NaN in both; {sms_:.4f} ms a wrapper call (device {sdev:.4f} ms), "
+            f"plain {sms:.2f} ms, bound {sbound['bound_ms']:.4f} ms "
+            f"({sbound['bound_by']}), bmm {slib:.4f} ms (device {sldev:.4f} ms)")
         res[name] = (dict(max_abs_err=max_abs, max_norm_err=e, tol=TOL_VS_PLAIN,
                           max_norm_err_f64=er, tol_f64=TOL_VS_F64, ms=ms,
                           plain_ms=pms, **bound),
                      dict(max_abs_err=float((st - ps).abs()[torch.isfinite(ps)].max()),
                           max_norm_err=es, tol=TOL_PERM_STAT, f32_plain_err=e32,
-                          ms=sms_, plain_ms=sms, **sbound, library_ms=slib))
+                          ms=sms_, device_ms=sdev, plain_ms=sms, **sbound,
+                          library_ms=slib, library_device_ms=sldev))
         del k, st, st2, ps, scale, inv, inv0
         torch.cuda.empty_cache()
     # the library yardstick of K19: the valid plane by [c (*) Y | Y^2]
@@ -4343,7 +4386,7 @@ def check_perm_kernels(torch, dev, prefix):
     extra = {f"{nm_}_{key}": res[nm_][0][key] for nm_ in ("genotypic", "interaction")
              for key in ("ms", "plain_ms", "bound_ms", "fp32_bound_ms")}
     sextra = {f"{nm_}_{key}": res[nm_][1][key] for nm_ in ("genotypic", "interaction")
-              for key in ("ms", "bound_ms")}
+              for key in ("ms", "device_ms", "bound_ms", "library_device_ms")}
     return [dict(name="linear_perm_xty", source="plink_torch/csrc/linear_perm.cu",
                  replaces="plink_tpu/ops/glm.py:1031", **x_add, library_ms=lib,
                  **extra),
@@ -4596,11 +4639,11 @@ def run_perm_parity(tmp, prefix, n, m):
     mperm, linear mperm on the chrX copy with the SEX-less .cov (ploidy
     groups), local covariates (every 30th variant, two local columns; +
     --adjust), and firth mperm=20 (+ --adjust) on a 2,000 x 256 panel of
-    the same generator (seed 5): its CPU run takes ~1 s a permutation on
-    the parity panel's 1,200 variants.  Permutation reports by
-    plink_torch.testing.perm_report_close, .adjusted by adjusted_close,
-    the local-covariate report by compare_reports; two card runs
-    byte-identical."""
+    the same generator (seed 5): its CPU run took ~1 s a permutation on
+    the parity panel's 1,200 variants (800 since slice 16).  Permutation
+    reports by plink_torch.testing.perm_report_close, .adjusted by
+    adjusted_close, the local-covariate report by compare_reports; two card
+    runs byte-identical."""
     import numpy as np
 
     from plink_torch import cli
@@ -5088,7 +5131,7 @@ def run_check_sex_path(torch, dev, prefix, tmp, card, n_variants):
 
 def run_sample_parity(tmp, prefix, dprefix):
     """Phase 17f: plink_torch.testing.SR_RUNS, the cases of
-    tests/test_torch_sample_reports.py, on the parity panel (2,000 x 1,200;
+    tests/test_torch_sample_reports.py, on the parity panel (2,000 x 800;
     its chr1/X/Y/MT copy with every .scount allele class; a copy with 40
     founders) and the dosage parity panel (4,500 x 600), CUDA against CPU:
     reports byte-identical, but SR_ORDER_DEPENDENT's (the f64 .vscore.bin,

@@ -79,7 +79,7 @@
 // added into per-thread f64 sums in shared memory (64 KB), so runs add in
 // f64 in index order: no float atomics, and two runs give identical bytes.
 //
-// K20 runs one thread per (variant, permutation): beta = inv xty, rss = yy -
+// K20 computes, per (variant, permutation): beta = inv xty, rss = yy -
 // beta . xty, sigma^2 = rss / max(nm - d, 1), and either t = beta_tc /
 // sqrt(max(sigma^2 inv_tc,tc, 0)) (q = 0) or the joint F = ((rss0 - rss) /
 // q) / max(sigma^2, 1e-30) from the reduced design's inverse inv0 over the
@@ -88,7 +88,21 @@
 // size yy, so plink_tpu's f32 arithmetic there (which the plain version
 // keeps) leaves an absolute rounding of ~n eps / q in F; here only the
 // inputs' own rounding is left.  A NaN inverse (a singular design) gives
-// NaN, as there.
+// NaN, as there.  Bound: bytes (inv, inv0, xty, yy, nm read once, the
+// statistic written), 5.7 us at d = 13 and B = 134 over 2,048 variants;
+// its d^2 + d0^2 f64 FMAs a thread take about as long at the FP64 rate.
+// Design: one CTA a variant, its threads the permutations (B rounded up to
+// a warp, at most 256 threads a CTA: at B = 134, 160 threads, 26 idle
+// lanes where a grid of 128-thread blocks ran 122); the variant's inverses
+// are staged in shared memory once, converted to f64 there (an f32 to f64
+// conversion runs at 16 a clock an SM, a quarter of the FP64 rate, and
+// converting each entry at each use set the old kernel's pace), and read
+// as 16-byte broadcasts; each thread holds its column of xty in registers,
+// read once, coalesced across the warp, the loops unrolled over 16 or 32
+// with uniform guards, and at 16 < d <= 32 takes two permutations, so each
+// broadcast read serves two columns (tools/grm_breakdown.py measures it
+// beside torch.bmm).  Above d = 32 a generic loop reads the inverses and
+// xty from device memory as needed.
 #include <algorithm>
 
 #include "common.cuh"
@@ -626,57 +640,162 @@ linear_perm_xty_kernel(const Params pr) {
   }
 }
 
+constexpr int kStatThreads = 256;  // K20: permutations a CTA at most
+
 // NaN-propagating max(x, lo) (fmax would drop a NaN x)
 __device__ __forceinline__ double max_keep_nan(double x, double lo) {
   return x < lo ? lo : x;
 }
 
+// The statistic from beta_tc, x^T inv x and x0^T inv0 x0 (q > 0).
+__device__ __forceinline__ double perm_stat(double beta_t, double bx, double bx0,
+                                            double inv_tt, double yyv, double nmv, int d,
+                                            int q) {
+  const double rss = yyv - bx;
+  const double dof = fmax(nmv - d, 1.0);
+  const double sigma2 = rss / dof;
+  if (q == 0) return beta_t / sqrt(max_keep_nan(sigma2 * inv_tt, 0.0));
+  const double rss0 = yyv - bx0;
+  return ((rss0 - rss) / q) / max_keep_nan(sigma2, 1e-30);
+}
+
+// d <= DM: one CTA a variant (blockIdx.x), each thread NB neighbouring
+// permutations (blockIdx.y the ones past kStatThreads threads), the threads
+// rounded up to a warp.  The variant's inverses are staged in shared memory
+// once, as f64 (rows padded to an even length, inv0 at the full design's
+// indices), and read as 16-byte broadcasts, each serving the thread's NB
+// columns: every thread reads every entry, so those reads (512 bytes a warp
+// and read, at the SM's 128 bytes a clock) set the pace at d = 24.  Each
+// thread holds its columns of xty in registers, the loops unrolled over DM
+// with uniform guards.  The order of operations is the plain version's
+// (ops/glm.py linear_perm_stat_plain): s_i = sum_j inv_ij x_j in j order,
+// bx = sum_i s_i x_i in i order, the reduced form over the kept columns
+// (all but the q from tc) in increasing order.
+template <int DM, int NB>
 __global__ void linear_perm_stat_kernel(const float* __restrict__ inv,
                                         const float* __restrict__ xty,
                                         const float* __restrict__ yy,
                                         const float* __restrict__ nm,
-                                        const float* __restrict__ inv0,
-                                        int d, int tc, int q, int B,
-                                        float* __restrict__ out) {
-  const int v = blockIdx.x;
+                                        const float* __restrict__ inv0, int d, int tc,
+                                        int q, int B, float* __restrict__ out) {
+  extern __shared__ double2 sm_inv[];
+  const int64_t v = blockIdx.x;
+  const int b0 = (blockIdx.y * blockDim.x + threadIdx.x) * NB;
+  const int d0 = d - q, dp = (d + 1) & ~1;
+  double* sm = reinterpret_cast<double*>(sm_inv);  // [2][d][dp]
+  const float* iv = inv + v * d * d;
+  for (int k = threadIdx.x; k < d * d; k += blockDim.x)
+    sm[k / d * dp + k % d] = static_cast<double>(iv[k]);
+  if (q > 0) {
+    const float* i0 = inv0 + v * d0 * d0;
+    for (int k = threadIdx.x; k < d0 * d0; k += blockDim.x) {
+      const int i = k / d0, j = k % d0;
+      sm[d * dp + (i < tc ? i : i + q) * dp + (j < tc ? j : j + q)] =
+          static_cast<double>(i0[k]);
+    }
+  }
+  __syncthreads();
+  if (b0 >= B) return;
+  const float* xv = xty + v * d * B + b0;
+  double x[NB][DM], bx[NB], bx0[NB], beta_t[NB];
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    bx[k] = bx0[k] = beta_t[k] = 0.0;
+#pragma unroll
+    for (int j = 0; j < DM; ++j)
+      x[k][j] = j < d && b0 + k < B ? static_cast<double>(xv[j * B + k]) : 0.0;
+  }
+#pragma unroll
+  for (int i = 0; i < DM; ++i) {
+    if (i >= d) break;
+    const double2* row = reinterpret_cast<const double2*>(sm + i * dp);
+    double s[NB];
+#pragma unroll
+    for (int k = 0; k < NB; ++k) s[k] = 0.0;
+#pragma unroll
+    for (int j = 0; j < DM; j += 2) {
+      if (j >= d) break;
+      const double2 w = row[j / 2];
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        s[k] = fma(w.x, x[k][j], s[k]);
+        if (j + 1 < d) s[k] = fma(w.y, x[k][j + 1], s[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      if (i == tc) beta_t[k] = s[k];
+      bx[k] = fma(s[k], x[k][i], bx[k]);
+    }
+  }
+  if (q > 0) {  // the same over the kept rows and columns
+#pragma unroll
+    for (int i = 0; i < DM; ++i) {
+      if (i >= d) break;
+      if (i >= tc && i < tc + q) continue;
+      const double2* row = reinterpret_cast<const double2*>(sm + (d + i) * dp);
+      double s[NB];
+#pragma unroll
+      for (int k = 0; k < NB; ++k) s[k] = 0.0;
+#pragma unroll
+      for (int j = 0; j < DM; j += 2) {
+        if (j >= d) break;
+        const double2 w = row[j / 2];
+        const bool kx = j < tc || j >= tc + q;
+        const bool ky = j + 1 < d && (j + 1 < tc || j + 1 >= tc + q);
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+          if (kx) s[k] = fma(w.x, x[k][j], s[k]);
+          if (ky) s[k] = fma(w.y, x[k][j + 1], s[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NB; ++k) bx0[k] = fma(s[k], x[k][i], bx0[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NB; ++k)
+    if (b0 + k < B)
+      out[v * B + b0 + k] = static_cast<float>(perm_stat(
+          beta_t[k], bx[k], bx0[k], sm[tc * dp + tc],
+          static_cast<double>(yy[v * B + b0 + k]), static_cast<double>(nm[v]), d, q));
+}
+
+// d > 32: one CTA a variant, one thread a permutation, the inverses and x
+// read from device memory as needed, in the same order of operations.
+__global__ void linear_perm_stat_wide_kernel(const float* __restrict__ inv,
+                                             const float* __restrict__ xty,
+                                             const float* __restrict__ yy,
+                                             const float* __restrict__ nm,
+                                             const float* __restrict__ inv0, int d, int tc,
+                                             int q, int B, float* __restrict__ out) {
+  const int64_t v = blockIdx.x;
   const int b = blockIdx.y * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const float* iv = inv + static_cast<int64_t>(v) * d * d;
-  const float* xv = xty + static_cast<int64_t>(v) * d * B + b;
-  double bx = 0.0, beta_t = 0.0;
+  const int d0 = d - q;
+  const float* iv = inv + v * d * d;
+  const float* i0 = q > 0 ? inv0 + v * d0 * d0 : nullptr;
+  const float* xv = xty + v * d * B + b;
+  double bx = 0.0, beta_t = 0.0, bx0 = 0.0;
   for (int i = 0; i < d; ++i) {
     double s = 0.0;
     for (int j = 0; j < d; ++j)
-      s = fma(static_cast<double>(__ldg(iv + i * d + j)),
-              static_cast<double>(xv[j * B]), s);
+      s = fma(static_cast<double>(iv[i * d + j]), static_cast<double>(xv[j * B]), s);
     if (i == tc) beta_t = s;
     bx = fma(s, static_cast<double>(xv[i * B]), bx);
   }
-  const double yyv = yy[static_cast<int64_t>(v) * B + b];
-  const double rss = yyv - bx;
-  const double dof = fmax(static_cast<double>(nm[v]) - d, 1.0);
-  const double sigma2 = rss / dof;
-  double stat;
-  if (q == 0) {
-    const double se2 = sigma2 * __ldg(iv + tc * d + tc);
-    stat = beta_t / sqrt(max_keep_nan(se2, 0.0));
-  } else {
-    const int d0 = d - q;
-    const float* i0 = inv0 + static_cast<int64_t>(v) * d0 * d0;
-    double bx0 = 0.0;
-    for (int i = 0; i < d0; ++i) {
-      double s = 0.0;
-      for (int j = 0; j < d0; ++j)
-        s = fma(static_cast<double>(__ldg(i0 + i * d0 + j)),
-                static_cast<double>(xv[(j < tc ? j : j + q) * B]), s);
-      bx0 = fma(s, static_cast<double>(xv[(i < tc ? i : i + q) * B]), bx0);
-    }
-    const double rss0 = yyv - bx0;
-    stat = ((rss0 - rss) / q) / max_keep_nan(sigma2, 1e-30);
+  for (int i = 0; i < (q > 0 ? d0 : 0); ++i) {
+    double s = 0.0;
+    for (int j = 0; j < d0; ++j)
+      s = fma(static_cast<double>(i0[i * d0 + j]),
+              static_cast<double>(xv[(j < tc ? j : j + q) * B]), s);
+    bx0 = fma(s, static_cast<double>(xv[(i < tc ? i : i + q) * B]), bx0);
   }
-  out[static_cast<int64_t>(v) * B + b] = static_cast<float>(stat);
+  out[v * B + b] = static_cast<float>(perm_stat(beta_t, bx, bx0,
+                                                static_cast<double>(iv[tc * d + tc]),
+                                                static_cast<double>(yy[v * B + b]),
+                                                static_cast<double>(nm[v]), d, q));
 }
-
 
 int ceil_log2(int n) {
   int lg = 0;
@@ -771,11 +890,24 @@ PT_EXPORT int pt_linear_perm_stat(const void* inv, const void* xty,
                                   int q, int B, void* out, void* stream) {
   if (vb == 0 || B == 0) return cudaSuccess;
   if (q > 0 && inv0 == nullptr) return cudaErrorInvalidValue;
-  const int threads = 128;
-  const dim3 grid(vb, (B + threads - 1) / threads);
-  linear_perm_stat_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(inv), static_cast<const float*>(xty),
-      static_cast<const float*>(yy), static_cast<const float*>(nm),
-      static_cast<const float*>(inv0), d, tc, q, B, static_cast<float*>(out));
+  // permutations a thread: 1 at d <= 16, 2 at d <= 32 (there the shared
+  // memory reads set the pace), 1 above
+  const int nbt = d > 16 && d <= 32 ? 2 : 1;
+  const int per = (B + nbt - 1) / nbt;
+  const int threads = std::min(kStatThreads, (per + 31) / 32 * 32);
+  const dim3 grid(vb, (per + threads - 1) / threads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float *fi = static_cast<const float*>(inv), *fx = static_cast<const float*>(xty),
+              *fy = static_cast<const float*>(yy), *fn = static_cast<const float*>(nm),
+              *f0 = static_cast<const float*>(inv0);
+  float* fo = static_cast<float*>(out);
+  if (d > 32) {
+    linear_perm_stat_wide_kernel<<<grid, threads, 0, st>>>(fi, fx, fy, fn, f0, d, tc, q, B,
+                                                          fo);
+    return cudaGetLastError();
+  }
+  const size_t smem = sizeof(double) * d * ((d + 1) & ~1) * (q > 0 ? 2 : 1);
+  auto kernel = d <= 16 ? linear_perm_stat_kernel<16, 1> : linear_perm_stat_kernel<32, 2>;
+  kernel<<<grid, threads, smem, st>>>(fi, fx, fy, fn, f0, d, tc, q, B, fo);
   return cudaGetLastError();
 }

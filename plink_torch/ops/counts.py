@@ -230,29 +230,46 @@ def _planes4(codes: torch.Tensor, dtype) -> tuple:
     return 1.0 - b0 - b1 + miss, b0 - miss, b1 - miss, miss
 
 
+def _spw_splits(V: int, nb: int, f64: bool) -> int:
+    """K21's variant splits: ~8 blocks of 256 byte-threads per SM in flight,
+    and in f32 at most F32_SPLIT_ROWS variants a split.  The plain version
+    takes the same splits, so both sum in one order."""
+    splits = max(1, min(-(-V // 64), -(-1056 // max(1, -(-nb // 256)))))
+    return splits if f64 else max(splits, -(-V // F32_SPLIT_ROWS))
+
+
 def sample_plane_weighted_plain(packed: torch.Tensor,
                                 wts: torch.Tensor) -> torch.Tensor:
     """Plain version of K21: packed uint8 [V, NB], wts [V, 4, K] (f64 or f32)
     -> float64 [K, 4*NB]: sum over variants and planes of the weight times
-    the 0/1 plane (a product, so a non-finite weight makes its column NaN
-    wherever its plane is 0, as plink_tpu's dots do), chunked over
-    variants.  f32 weights sum in f32 within splits of F32_SPLIT_ROWS
-    variants, the splits added in f64."""
+    the 0/1 plane, in the kernel's order, so the card and the CPU give the
+    same bytes (a report's 6-digit text can sit on an exact decimal tie,
+    which the last bit of the sum decides): each sample's sum takes, variant
+    by variant in each of K21's splits, the weight of its genotype's plane
+    plus 0 x the other three (exactly that weight where they are finite,
+    NaN where one is not, as plink_tpu's four products give), in the
+    weights' type; the splits are added in f64 in index order."""
     V, nb = packed.shape
     K = wts.shape[2]
-    out = torch.zeros((K, 4 * nb), dtype=torch.float64, device=packed.device)
-    split = max(1, V if wts.dtype == torch.float64 else F32_SPLIT_ROWS)
-    step = max(1, min(split, _PLAIN_ELEMS // max(4 * nb, 1)))
-    for s0 in range(0, V, split):
-        acc = torch.zeros((K, 4 * nb), dtype=wts.dtype, device=packed.device)
-        for r0 in range(s0, min(V, s0 + split), step):
-            r1 = min(r0 + step, s0 + split)
-            planes = _planes4(unpack_codes(packed[r0:r1]), wts.dtype)
-            w = wts[r0:r1]
-            for k in range(K):
-                for p, plane in enumerate(planes):
-                    acc[k] += (w[:, p, k, None] * plane).sum(dim=0)
-        out += acc
+    eff = wts.clone()
+    for c in range(4):
+        for p in range(4):
+            if p != c:
+                eff[:, c] += 0.0 * wts[:, p]
+    splits = _spw_splits(V, nb, wts.dtype == torch.float64)
+    rows = -(-V // splits)
+    step = max(1, min(rows, _PLAIN_ELEMS // max(4 * nb * K, 1)))
+    out = None
+    for s0 in range(0, V, rows):
+        acc = torch.zeros((4 * nb, K), dtype=wts.dtype, device=packed.device)
+        for r0 in range(s0, min(V, s0 + rows), step):
+            r1 = min(r0 + step, s0 + rows, V)
+            codes = unpack_codes(packed[r0:r1]).long()
+            x = torch.gather(eff[r0:r1], 1, codes[:, :, None].expand(-1, -1, K))
+            for r in range(r1 - r0):
+                acc += x[r]
+        part = acc.t().double()
+        out = part if out is None else out + part
     return out
 
 
@@ -279,11 +296,8 @@ def sample_plane_weighted(packed: torch.Tensor, wts: torch.Tensor) -> torch.Tens
     if packed.device.type != "cuda":
         raise ValueError(f"sample_plane_weighted: unsupported device {packed.device}")
     K = wts.shape[2]
-    # variant splits so that ~8 blocks of 256 byte-threads per SM are in flight
-    splits = max(1, min(-(-V // 64), -(-1056 // max(1, -(-nb // 256)))))
     f64 = wts.dtype == torch.float64
-    if not f64:
-        splits = max(splits, -(-V // F32_SPLIT_ROWS))
+    splits = _spw_splits(V, nb, f64)
     out = torch.empty((K, 4 * nb), dtype=torch.float64, device=packed.device)
     part = torch.empty((splits, K, 4 * nb), dtype=wts.dtype,
                        device=packed.device) if splits > 1 or not f64 else None

@@ -1294,7 +1294,8 @@ def linear_perm_stat_plain(inv, xty, yy, nm, tc, q=0, inv0=None):
 def linear_perm_stat(inv, xty, yy, nm, tc, q=0, inv0=None):
     """K20: `linear_perm_stat_plain` for f32 inv [vb, d, d], xty
     [vb, d, B], yy [vb, B], nm [vb] and, with q > 0, inv0 [vb, d - q,
-    d - q]; one CUDA thread per (variant, permutation)."""
+    d - q]; one CUDA block per variant, a thread per permutation (two at
+    16 < d <= 32), the arithmetic in f64."""
     vb, d, _ = inv.shape
     B = yy.shape[1]
     dev = inv.device

@@ -328,6 +328,17 @@ def king_gram(packed, vmask, row0: int, col0: int, s: int, t: int,
 # ---------------------------------------------------------------------------
 
 
+# K8's scheme on the tensor cores, fixed in csrc/grm_gram.cu (its six
+# wgmma products a k16 step and kRun; tests/test_torch_grm_tc.py holds these
+# to the source): the bf16 part pairs of each product (6 of the 9: mid lo,
+# lo mid and lo lo left out) and the variants per f32 run (the tensor cores
+# truncate as they accumulate, so a run drifts low with its length; the
+# runs add in f64).  chip_smoke's bound and the CPU model of the sum read
+# them.
+_K8_PRODUCTS = 6
+_K8_RUN = 128
+
+
 def _grm_finish(acc, jm, miss, mv: int, row0: int, col0: int, s: int, c: int,
                 tile: bool, fetch32: bool):
     m_r = miss[row0 : row0 + s]

@@ -374,11 +374,32 @@ def test_king_gram_kernel(dev, n, nb, vb):
                        for a, b in zip(k, again))
 
 
-@pytest.mark.parametrize("n,nb,vb", PAIR_SHAPES)
+# K8's CTA is 128 rows x 64 columns streaming 128-variant stages in f32 runs
+# of ops.pairwise._K8_RUN variants: tiles off both (ragged rows and columns,
+# row0 != col0, the last anchor pulled back inside npad), variant counts off
+# a stage and spanning several runs, code rows a multiple of 16 bytes with
+# row0 and col0 on 64-sample boundaries (16-byte cp.async copies) and not
+# (plain loads)
+K8_SHAPES = [(1000, 3, 203), (1024, 2, 300), (300, 1, 31), (2048, 5, 128)]
+TOL_K8 = 2e-6  # chip_smoke.TOL_K8, the same normalisation
+
+
+def _k8_tiles(npad):
+    """_pair_tiles, and the tiles off K8's 128 x 64 CTA on both sides that fit
+    inside the panel's npad samples."""
+    ragged = [(npad - 132, 16, 132, 196), (16, 48, 196, 132), (4, 0, 68, npad - 4),
+              (npad - 128, npad - 64, 128, 64)]
+    return _pair_tiles(npad) + [(r0, c0, s, t) for r0, c0, s, t in ragged
+                                if min(r0, c0) >= 0 and t > 0 and r0 + s <= npad
+                                and c0 + t <= npad]
+
+
+@pytest.mark.parametrize("n,nb,vb", PAIR_SHAPES + K8_SHAPES)
 def test_grm_gram_kernel(dev, n, nb, vb):
     """K8 against its plain version and an f64 numpy product, each entry
-    normalised by sqrt(sum Z_i^2 sum Z_j^2): tile and chunk modes, the pair
-    counts exact, two runs identical."""
+    normalised by sqrt(sum Z_i^2 sum Z_j^2) (K8 within chip_smoke's TOL_K8,
+    the plain version within TOL): tile and chunk modes, the pair counts
+    exact, two runs identical."""
     from plink_torch.ops.pairwise import (grm_gram, grm_gram_plain,
                                           pairwise_inputs_from_numpy,
                                           sample_miss_counts)
@@ -392,7 +413,7 @@ def test_grm_gram_kernel(dev, n, nb, vb):
     z = np.take_along_axis(coef.reshape(-1, 3).astype(np.float64),
                            np.minimum(codes, 2), axis=1)
     z[codes == 3] = 0.0
-    for r0, c0, s, t in _pair_tiles(pk.shape[2] * 4):
+    for r0, c0, s, t in _k8_tiles(pk.shape[2] * 4):
         ref = z[:, r0 : r0 + s].T @ z[:, c0 : c0 + t]
         d_r = (z[:, r0 : r0 + s] ** 2).sum(0)
         d_c = (z[:, c0 : c0 + t] ** 2).sum(0)
@@ -403,19 +424,21 @@ def test_grm_gram_kernel(dev, n, nb, vb):
             pacc, pnm = grm_gram_plain(pk, cf, vm, miss, mv, r0, c0, s, t,
                                        tile=True, fetch32=fetch32)
             assert torch.equal(nm, pnm)
-            for a in (acc, pacc):
-                assert float((np.abs(a.double().cpu().numpy() - ref) / scale).max()) <= TOL
+            for a, tol in ((acc, TOL_K8), (pacc, TOL)):
+                err = np.abs(a.double().cpu().numpy() - ref) / scale
+                assert float(err.max()) <= tol, (r0, c0, s, t, fetch32, float(err.max()))
             again = grm_gram(pk, cf, vm, miss, mv, r0, c0, s, t, tile=True,
                              fetch32=fetch32)
-            assert torch.equal(acc, again[0])
+            assert torch.equal(acc, again[0]) and torch.equal(nm, again[1])
         g, gnm = grm_gram(pk, cf, vm, miss, mv, r0, c0, s, t)
         pg, pgnm = grm_gram_plain(pk, cf, vm, miss, mv, r0, c0, s, t)
         assert gnm.dtype == torch.float32
         assert torch.equal(gnm, pgnm) and torch.equal(gnm, pnm.float())
         nmv = pnm.double().cpu().numpy()
         err = np.abs(g.double().cpu().numpy() - ref / nmv) * nmv / scale
-        assert float(np.nanmax(err)) <= TOL
-        assert torch.equal(g, grm_gram(pk, cf, vm, miss, mv, r0, c0, s, t)[0])
+        assert float(np.nanmax(err)) <= TOL_K8, (r0, c0, s, t)
+        assert torch.equal(g.nan_to_num(7.0),
+                           grm_gram(pk, cf, vm, miss, mv, r0, c0, s, t)[0].nan_to_num(7.0))
 
 
 PCA_SHAPES = [(150, 3, 64, 3), (4099, 2, 200, 20), (2301, 3, 2048, 37)]
@@ -901,6 +924,45 @@ def test_linear_perm_kernels(dev, n, vb, dc, design, B):
     assert torch.equal(k.view(torch.int32), again.view(torch.int32))  # NaN too
 
 
+@pytest.mark.parametrize("B", [1, 33, 134, 268])
+@pytest.mark.parametrize("d,q", [(13, 0), (14, 2), (24, 0), (24, 12), (51, 5),
+                                 (51, 0)])
+def test_linear_perm_stat_kernel(dev, d, q, B):
+    """K20 at every path of its entry point (d <= 16 and <= 32 unrolled over
+    registers, one and two permutations a thread; d = 51 the generic loop;
+    B off a warp and past one CTA's 256 threads; t and joint F) against its
+    plain version in f64 on the same f32 inputs, NaN where an inverse is,
+    two runs identical."""
+    from plink_torch.ops.glm import _kept, linear_perm_stat, linear_perm_stat_plain
+
+    rng = np.random.default_rng(1000 * d + 10 * q + B)
+    vb, tc = 37, 12
+    a = rng.normal(size=(vb, d, d))
+    inv = (a @ a.transpose(0, 2, 1) / d + np.eye(d)).astype(np.float32)
+    inv[3] = np.nan  # a singular design
+    xty = rng.normal(size=(vb, d, B)).astype(np.float32)
+    bx = np.einsum("vjb,vjb->vb", np.einsum("vij,vjb->vib", inv.astype(np.float64), xty),
+                   xty)
+    yy = (np.nan_to_num(bx) + rng.uniform(5.0, 50.0, size=(vb, B))).astype(np.float32)
+    nm = rng.uniform(d + 2.0, 600.0, size=vb).astype(np.float32)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in
+         (("inv", inv), ("xty", xty), ("yy", yy), ("nm", nm))}
+    inv0 = None
+    if q:
+        keep = _kept(d, tc, q)
+        inv0 = t["inv"][:, keep][:, :, keep].contiguous()
+    k = linear_perm_stat(t["inv"], t["xty"], t["yy"], t["nm"], tc, q, inv0)
+    p = linear_perm_stat_plain(t["inv"].double(), t["xty"].double(), t["yy"].double(),
+                               t["nm"].double(), tc, q,
+                               None if inv0 is None else inv0.double())
+    assert torch.equal(torch.isnan(k), torch.isnan(p))
+    fin = torch.isfinite(p)
+    assert float(fin.float().mean()) > 0.9
+    assert float(((k - p).abs() / p.abs().clamp(min=1.0))[fin].max()) <= 1e-5
+    again = linear_perm_stat(t["inv"], t["xty"], t["yy"], t["nm"], tc, q, inv0)
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+
+
 @pytest.mark.parametrize("B", [5, 134])
 @pytest.mark.parametrize("design", ["p1", "p2_scaled"])
 def test_linear_perm_xty_many_covariates(dev, design, B):
@@ -1021,9 +1083,10 @@ def _nonfinite_spw(rng, V, K):
 @pytest.mark.parametrize("K", [1, 3, 5, 10, 17])
 @pytest.mark.parametrize("n,vb,dc", SHAPES + [(2001, 600, 2)])
 def test_sample_plane_weighted_kernel(dev, n, vb, dc, K):
-    """K21 against its plain version: f64 within 1e-12 of the sum of |terms|,
-    f32 0/1 selectors exact, NaN / Inf where the plain version has them;
-    two runs identical."""
+    """K21 against its plain version: f64 within 1e-12 of the sum of |terms|
+    and bit for bit (both sum in the kernel's order), f32 0/1 selectors
+    exact, NaN / Inf where the plain version has them; two runs
+    identical."""
     from plink_torch.ops import _cuda
     from plink_torch.ops.counts import sample_plane_weighted, sample_plane_weighted_plain
 
@@ -1043,6 +1106,7 @@ def test_sample_plane_weighted_kernel(dev, n, vb, dc, K):
         assert torch.equal(k[~fin & ~torch.isnan(p)], p[~fin & ~torch.isnan(p)])
         err = ((k - p).abs() / a.clamp(min=1e-300))[fin]  # empty if all non-finite
         assert err.numel() == 0 or float(err.max()) <= 1e-12
+        assert torch.equal(k[fin], p[fin])
         assert torch.equal(k.view(torch.int64), sample_plane_weighted(pk, w).view(torch.int64))
     sel = torch.from_numpy((rng.random((vb, 4, K)) < 0.5).astype(np.float32)).to(dev)
     k = sample_plane_weighted(pk, sel)

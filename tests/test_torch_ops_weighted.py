@@ -5,6 +5,8 @@ genotypes with n % 4 != 0 (pad samples in the last byte).
 - f64: within 1e-12 of plink_tpu's, relative to the sum of |weight| over
   the terms (the two sum in different orders);
 - f32 with 0/1 weights (--sample-counts' selectors): exactly equal;
+- the plain version's order: K21's, checked bit for bit against a
+  variant-by-variant numpy sum in the kernel's splits;
 - f32 past 2^24 in one sample's sum (the split cap lowered): exact, as
   plink_tpu's f32 blocks added in f64 on the host;
 - non-finite weights: NaN and +-Inf exactly where plink_tpu's dots give
@@ -101,6 +103,32 @@ def test_sample_plane_weighted_f32_past_2_24(monkeypatch):
     assert (ref[0] == 2.0 ** 25 + 3).all() and (ref[1] == V).all()
     assert np.array_equal(got, ref)
     assert not np.array_equal(_jax_spw(packed, wts, False), ref)  # one f32 sum
+
+
+@pytest.mark.parametrize("V,f64", [(70, True), (700, True), (700, False)])
+def test_sample_plane_weighted_kernel_order(V, f64):
+    """The plain version sums in K21's order, bit for bit: per sample, in
+    each of the kernel's splits, the weight of its genotype's plane variant
+    by variant in the weights' type, the splits added in f64 in index
+    order (here 1 and 11 splits).  A score whose exact value is a decimal
+    tie at 6 digits then prints alike on the card and the CPU."""
+    n = 203
+    packed = _packed(n, V, 21)
+    dt = np.float64 if f64 else np.float32
+    wts = np.random.default_rng(V).normal(size=(V, 4, 3)).astype(dt)
+    got = C.sample_plane_weighted(torch.from_numpy(packed),
+                                  torch.from_numpy(wts)).numpy()
+    codes = C._unpack_np(packed).astype(np.int64)
+    splits = C._spw_splits(V, packed.shape[1], f64)
+    rows = -(-V // splits)
+    want = np.zeros((3, codes.shape[1]))
+    for s0 in range(0, V, rows):
+        acc = np.zeros((codes.shape[1], 3), dt)
+        for v in range(s0, min(V, s0 + rows)):
+            acc += wts[v][codes[v]]
+        want += acc.T.astype(np.float64)
+    assert V < 100 or splits > 1
+    assert got.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
